@@ -14,16 +14,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
              horovod_tpu_torch/ops/csrc.
 3. kernels - each kernel against its plain PyTorch version on the same
              inputs on the card, at the training shape (b8 h12 s1024 d64,
-             causal, bf16) and at edge cases; times of the kernel, the
-             plain version and torch's scaled_dot_product_attention (a
-             yardstick the port never calls), and the card's bound.
+             causal, bf16) and at edge cases (ragged ends across a
+             128-row tile, offsets that are not tile-aligned, masked rows,
+             both kernel forms: the Hopper redesign for bf16 at head_dim
+             64 and 128, the first form for the rest); times of the
+             kernel, the plain version and torch's
+             scaled_dot_product_attention pinned to its FLASH_ATTENTION
+             backend (a yardstick the port never calls), the card's bound,
+             and the host time of one TMA tensor-map encode.
 4. long    - the same comparison at b1 h12 s8192 d64 (the sequence regime
              of the TPU's streaming kernels).
 5. trainer - the port's main path: init -> broadcast_parameters ->
              DistributedOptimizer(AdamW) -> make_train_step on GPT-2-small
              (bf16, batch 8, seq 1024), 2 warm-up and 5 timed steps; the
-             loss must fall and every kernel must launch n_layers times a
-             step.
+             loss must fall, every kernel must launch n_layers times a
+             step, and the profiled step must show the redesigned forward
+             and dK/dV kernels and not the first form's bf16 ones.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -33,6 +39,7 @@ horovod_tpu_torch package beside this file, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -73,6 +80,9 @@ PEAK_BYTES = 3.35e12
 # has a floor of 2^-9 of the RMS of the whole output.
 TOL_F32_FWD, TOL_F32_BWD = 5e-5, 1e-4
 RTOL_BF16, ATOL_BF16, ATOL_FLOOR_BF16 = 2.0 ** -7, 2.0 ** -5, 2.0 ** -9
+
+# The library yardstick's backend (torch.nn.attention.SDPBackend member).
+SDP_BACKEND_NAME = "FLASH_ATTENTION"
 
 
 def log(obj) -> None:
@@ -251,15 +261,19 @@ def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
             q, k, v, g, lse, delta, **args),
     }
     # Yardstick: torch's fused attention on the same inputs, forward, and
-    # backward (one call computes dq, dk and dv together).
+    # backward (one call computes dq, dk and dv together), pinned to one
+    # backend so that the number means the same thing from run to run.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     f = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4, g4 = (t.view(b, h, -1, d) for t in (q, k, v, g))
     lib = {"flash_fwd": None, "bwd": None}
     if q_len == kv_len and q_offset == 0:
-        lib["flash_fwd"] = cuda_time_ms(
-            lambda: f(q4, k4, v4, is_causal=causal))
-        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
-        o_lib = f(ql, kl, vl, is_causal=causal)
+        with sdpa_kernel(getattr(SDPBackend, SDP_BACKEND_NAME)):
+            lib["flash_fwd"] = cuda_time_ms(
+                lambda: f(q4, k4, v4, is_causal=causal))
+            ql, kl, vl = (t.detach().requires_grad_(True)
+                          for t in (q4, k4, v4))
+            o_lib = f(ql, kl, vl, is_causal=causal)
         lib["bwd"] = cuda_time_ms(lambda: torch.autograd.grad(
             o_lib, (ql, kl, vl), g4, retain_graph=True))
     for name, (flops, nbytes) in work.items():
@@ -274,6 +288,19 @@ def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
     return out
 
 
+def tensor_map_encode_us(fa, iters=1000) -> float:
+    """Host microseconds to encode one TMA tensor map, as the redesigned
+    kernels do three (forward) or four (dK/dV) times a launch."""
+    from horovod_tpu_torch.ops import _build
+    fn = _build.library("flash_fwd").hvd_flash_tensor_map_us
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_double
+    buf = torch.empty(96 * 1024 * 64, dtype=torch.bfloat16, device="cuda")
+    us = fn(buf.data_ptr(), iters)
+    if not us > 0:
+        raise AssertionError(f"tensor map encode failed ({us})")
+    return us
+
+
 def phase_kernels(fa):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -281,7 +308,12 @@ def phase_kernels(fa):
                        causal=True, q_offset=0, dtype=torch.bfloat16, seed=0,
                        timing=True)
     log({"phase": "kernels", "case": "main b8 h12 s1024 d64 causal bf16",
-         "result": main})
+         "library": f"scaled_dot_product_attention, SDPBackend."
+                    f"{SDP_BACKEND_NAME}", "result": main})
+    us = tensor_map_encode_us(fa)
+    log({"phase": "kernels", "tensor_map_encode_us": us,
+         "encodes_per_trainer_step": 12 * (3 + 4),
+         "host_ms_per_trainer_step": us * 12 * (3 + 4) / 1e3})
     cases = [
         ("f32 causal", dict(b=2, h=4, q_len=512, kv_len=512, d=64,
                             causal=True, q_offset=0, dtype=torch.float32)),
@@ -291,6 +323,19 @@ def phase_kernels(fa):
         ("bf16 ragged 1000", dict(b=2, h=4, q_len=1000, kv_len=1000, d=64,
                                   causal=True, q_offset=0,
                                   dtype=torch.bfloat16)),
+        ("bf16 ragged 1000 d128", dict(b=2, h=4, q_len=1000, kv_len=1000,
+                                       d=128, causal=True, q_offset=0,
+                                       dtype=torch.bfloat16)),
+        ("bf16 ragged 200", dict(b=2, h=4, q_len=200, kv_len=200, d=64,
+                                 causal=True, q_offset=0,
+                                 dtype=torch.bfloat16)),
+        ("bf16 ragged 200 d128", dict(b=2, h=4, q_len=200, kv_len=200,
+                                      d=128, causal=True, q_offset=0,
+                                      dtype=torch.bfloat16)),
+        ("bf16 non-causal q300 kv1000", dict(b=2, h=4, q_len=300,
+                                             kv_len=1000, d=64, causal=False,
+                                             q_offset=0,
+                                             dtype=torch.bfloat16)),
         ("f32 ragged 1000 non-causal", dict(b=1, h=2, q_len=1000,
                                             kv_len=1000, d=32, causal=False,
                                             q_offset=0,
@@ -298,6 +343,10 @@ def phase_kernels(fa):
         ("bf16 q256 kv1024 offset 768", dict(b=2, h=4, q_len=256,
                                              kv_len=1024, d=64, causal=True,
                                              q_offset=768,
+                                             dtype=torch.bfloat16)),
+        ("bf16 q256 kv1024 offset 700", dict(b=2, h=4, q_len=256,
+                                             kv_len=1024, d=64, causal=True,
+                                             q_offset=700,
                                              dtype=torch.bfloat16)),
         ("bf16 fully masked (offset -1000)", dict(
             b=1, h=2, q_len=128, kv_len=256, d=64, causal=True,
@@ -376,6 +425,8 @@ def profile_step(run, out_dir):
             "device_idle_share": 1 - busy_us / wall_us,
             "flash_kernels_ms": sum(ms for name, (ms, _) in top
                                     if "hvdflash" in name),
+            "flash_kernels": {name.split("(")[0]: n for name, (_, n) in top
+                              if "hvdflash" in name},
             "top": [{"kernel": name[:90], "ms": ms, "calls": n}
                     for name, (ms, n) in top[:12]]}
 
@@ -410,7 +461,18 @@ def phase_trainer(fa, smi_line, out_dir):
          "tokens_per_s": batch * seq * steps / run["timed_seconds"],
          "launches_per_step": per_step, "device": smi_line,
          "peak_mem_gb": peak_gb})
-    log({"phase": "trainer_profile", **profile_step(run, out_dir)})
+    prof = profile_step(run, out_dir)
+    log({"phase": "trainer_profile", **prof})
+    # No fallback: bf16 at head_dim 64 runs the redesigned forward and
+    # dK/dV, never the first form's kernels of the same names.
+    names = " ".join(prof["flash_kernels"])
+    for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel"):
+        if want not in names:
+            raise AssertionError(f"the profiled step ran no {want}: {names}")
+    for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<"):
+        if first_form in names:
+            raise AssertionError(f"the profiled step ran {first_form}: "
+                                 f"{names}")
     hvd.shutdown()
     return launches
 
@@ -459,9 +521,13 @@ def main() -> int:
         log({"phase": "done", "phases": phases})
         return 0
 
-    sources = {"flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
-               "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-               "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu"}
+    # The main path's kernels: bf16 at head_dim 64 runs the redesigned
+    # forward and dK/dV (the .cuh files, built into flash_fwd.cu and
+    # flash_bwd.cu) and the first form's dQ.
+    sources = {
+        "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
+        "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd_dkdv_sm90.cuh",
+        "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu"}
     replaces = {
         "flash_fwd": "horovod_tpu/ops/flash_attention.py:133",
         "flash_bwd_dkdv": "horovod_tpu/ops/flash_attention.py:387",

@@ -1,21 +1,24 @@
-// Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): tile sizes, the score mask, tile loads and the
-// shared-memory tile products.
+// Shared pieces of the flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu): tile sizes, the score mask, tile loads, the
+// shared-memory tile products and the (dtype, head_dim) dispatch.
 //
 // Layout everywhere: one (batch*head) slice of q/k/v/o is a contiguous
 // [seq, head_dim] row-major matrix; lse/delta are [batch*head, seq] f32.
 //
-// Design, shared by all three kernels: one thread block owns one 64-row
-// tile of its output (32 rows for f32) and walks the other side's tiles
-// in a loop, so no two blocks write the same output (no atomics, results
-// deterministic).  Every operand tile is staged in shared memory; the
-// products run on the tensor cores through WMMA 16x16x16 fragments for
-// bf16 (bf16 operands, f32 accumulation, as the TPU kernels'
-// preferred_element_type=f32 dots) and as a plain FMA loop for f32.
+// Two forms of kernel.  bf16 at head_dim 64 and 128 (the widths users
+// train at) runs the Hopper redesign of the forward and of dK/dV
+// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh: TMA, wgmma, register
+// accumulators).  Every other pair, and dQ at every pair, runs the first
+// form below: one thread block owns one 64-row tile of its output (32
+// rows for f32) and walks the other side's tiles in a loop, so no two
+// blocks write the same output (no atomics, results deterministic).
+// Every operand tile is staged in shared memory; the products run on the
+// tensor cores through WMMA 16x16x16 fragments for bf16 (bf16 operands,
+// f32 accumulation, as the TPU kernels' preferred_element_type=f32 dots)
+// and as a plain FMA loop for f32, which keeps full f32 products (a
+// wgmma on f32 is TF32 and would miss the reference's 5e-5/1e-4).
 // Accumulators live in shared memory in f32 so that the online-softmax
-// rescale and the mask are plain per-element code.  This is the simple,
-// correct first form; wgmma, TMA and register-resident accumulators are
-// later work.
+// rescale and the mask are plain per-element code.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -187,8 +190,10 @@ __device__ __forceinline__ void gemm(float* C, int ldc, const float* A,
 // dtype codes shared with horovod_tpu_torch/ops/flash_attention.py.
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-// Runs launch<T, D>() for the (dtype, head_dim) pair, or reports an
-// invalid value for a pair the kernels are not built for.
+// Runs Launch<T, D>::run() for the (dtype, head_dim) pair, or reports an
+// invalid value for a pair the kernels are not built for.  Each Launch
+// chooses its form at compile time from (T, D); neither form falls back
+// on the other.
 template <template <typename, int> class Launch, typename... Args>
 cudaError_t dispatch(int dtype, int head_dim, Args... args) {
 #define HVD_FLASH_CASE(T, D) \

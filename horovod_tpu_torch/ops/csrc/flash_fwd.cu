@@ -4,6 +4,10 @@
 // computes what the streaming _fwd_kernel computes for kv > 4096: a
 // block that loops over K/V tiles has no resident/streaming split).
 //
+// Two forms: bf16 at head_dim 64 and 128 runs the Hopper redesign in
+// flash_fwd_sm90.cuh (TMA, wgmma, registers); f32 and bf16 at head_dim
+// 16 and 32 run the first form below (FwdLaunch chooses at compile time).
+//
 // One thread block per (batch*head, 64-row q tile).  It holds its q tile
 // in shared memory, loops over 64-key K/V tiles up to the causal bound
 // `hi` (the TPU kernel's formula, with q_block_offset), keeps the running
@@ -15,11 +19,13 @@
 // slice's shape (b8, h12, s1024, causal) it is bound by the tensor-core
 // rate, not by memory.  This first form stages every product's operands
 // and results in shared memory (WMMA fragments in and out), so it runs
-// well below that rate; register-resident accumulators with wgmma are
-// the later step.  The causal bound skips every tile past the diagonal,
-// so the work is the visible triangle only.
+// well below that rate.  The causal bound skips every tile past the
+// diagonal, so the work is the visible triangle only.
+
+#include <chrono>
 
 #include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace hvdflash {
 
@@ -136,18 +142,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// bf16 at head_dim 64 and 128 runs the Hopper redesign
+// (flash_fwd_sm90.cuh); every other pair runs the kernel above.
 template <typename T, int D>
 struct FwdLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int q_len, int kv_len, float scale,
                          int causal, int q_offset, cudaStream_t stream) {
-    using L = FwdSmem<T, D>;
-    dim3 grid(cdiv(q_len, L::R), bh);
-    return launch(flash_fwd_kernel<T, D>, grid, L::kBytes, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<T*>(o),
-                  static_cast<float*>(lse), q_len, kv_len, scale, causal,
-                  q_offset);
+    if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
+      return sm90::FwdSm90Launch<D>::run(q, k, v, o, lse, bh, q_len, kv_len,
+                                         scale, causal, q_offset, stream);
+    } else {
+      using L = FwdSmem<T, D>;
+      dim3 grid(cdiv(q_len, L::R), bh);
+      return launch(flash_fwd_kernel<T, D>, grid, L::kBytes, stream,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<T*>(o),
+                    static_cast<float*>(lse), q_len, kv_len, scale, causal,
+                    q_offset);
+    }
   }
 };
 
@@ -163,4 +176,20 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
   return hvdflash::dispatch<hvdflash::FwdLaunch>(
       dtype, head_dim, q, k, v, o, lse, bh, q_len, kv_len, scale, causal,
       q_offset, static_cast<cudaStream_t>(stream));
+}
+
+// Host microseconds to encode one tensor map, averaged over `iters`
+// encodes of a [96, 1024, 64] bf16 map at device address `base` (the
+// redesigned kernels encode three or four maps at every launch).
+// Returns a negative value if an encode fails.
+extern "C" double hvd_flash_tensor_map_us(const void* base, int iters) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (hvdflash::sm90::make_map(&map, base, 96, 1024, 64, 128) !=
+        cudaSuccess)
+      return -1.0;
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / (iters > 0 ? iters : 1);
 }

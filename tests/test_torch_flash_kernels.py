@@ -32,26 +32,26 @@ def _allowed(ref, dtype, tol_f32):
             + 2.0 ** -7 * ref.abs())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,offset", [(True, 0), (False, 0),
-                                           (True, -1000)])
-def test_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
-                                            offset):
+def _check_against_plain(device, dtype, *, q_len, kv_len, d, causal,
+                         offset):
     """Kernel against plain version on the same inputs, on the card,
-    element by element."""
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v, g = (torch.randn(2, 100, 64, generator=gen, device=cuda_device)
-                  .to(dtype) for _ in range(4))
+    element by element; each kernel launches once."""
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(n):
+        return torch.randn(2, n, d, generator=gen, device=device).to(dtype)
+
+    q, k, v, g = rnd(q_len), rnd(kv_len), rnd(kv_len), rnd(q_len)
+    scale = d ** -0.5
     tfa.reset_launches()
-    o, lse = tfa.flash_fwd(q, k, v, 0.125, causal, offset)
+    o, lse = tfa.flash_fwd(q, k, v, scale, causal, offset)
     delta = (g.float() * o.float()).sum(-1)
-    dk, dv = tfa.flash_bwd_dkdv(q, k, v, g, lse, delta, 0.125, causal, offset)
-    dq = tfa.flash_bwd_dq(q, k, v, g, lse, delta, 0.125, causal, offset)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, g, lse, delta, scale, causal, offset)
+    dq = tfa.flash_bwd_dq(q, k, v, g, lse, delta, scale, causal, offset)
     assert tfa.launches == {name: 1 for name in tfa.KERNELS}
-    o_ref, lse_ref = tfa._dense_forward(q, k, v, 0.125, causal, offset)
+    o_ref, lse_ref = tfa._dense_forward(q, k, v, scale, causal, offset)
     want = tfa._dense_backward_from_delta(q, k, v, g, lse, delta,
-                                          sm_scale=0.125, causal=causal,
+                                          sm_scale=scale, causal=causal,
                                           q_block_offset=offset)
     for got, ref in zip((o, dq, dk, dv), (o_ref, *want)):
         got, ref = got.float(), ref.float()
@@ -59,3 +59,31 @@ def test_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
     assert torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref))
     fin = torch.isfinite(lse_ref)
     assert bool(((lse - lse_ref)[fin].abs() <= 5e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,offset", [(True, 0), (False, 0),
+                                           (True, -1000)])
+def test_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
+                                            offset):
+    """Both kernel forms (bf16 d64 runs the Hopper redesign, f32 the first
+    form) against the plain version at a length inside one tile."""
+    _check_against_plain(cuda_device, dtype, q_len=100, kv_len=100, d=64,
+                         causal=causal, offset=offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_len,kv_len,d,causal,offset", [
+    (1000, 1000, 64, True, 0),    # ragged across 128-row q and key tiles
+    (200, 200, 128, True, 0),
+    (384, 384, 128, True, 0),     # bf16 d128, whole tiles
+    (300, 1000, 64, False, 0),    # q and kv both ragged, non-causal
+    (256, 1024, 128, True, 700),  # the diagonal crosses two key tiles
+    (130, 260, 64, True, -100),   # rows with no visible key, ragged
+])
+def test_redesigned_bf16_kernels_at_tile_edges_on_gpu(cuda_device, q_len,
+                                                      kv_len, d, causal,
+                                                      offset):
+    _check_against_plain(cuda_device, torch.bfloat16, q_len=q_len,
+                         kv_len=kv_len, d=d, causal=causal, offset=offset)

@@ -30,19 +30,21 @@ CSRC = os.path.join("horovod_tpu_torch", "ops", "csrc")
 
 # name -> (source, text, replacement); 512 is half the main case's seq.
 # The first three make one output 5% low on its later half of rows or
-# keys; the last three drop the diagonal tile from those rows' sums.
+# keys; the last three drop or corrupt the diagonal tile of those rows'
+# sums.  The forward and dK/dV mutations edit the Hopper redesign, which
+# bf16 at head_dim 64 (the main case) runs; dQ is the first form.
 MUTATIONS = {
     "none": None,
     "fwd_o_5pct_low_late_rows": (
-        "flash_fwd.cu",
-        "from_f32<T>(no_valid ? 0.f : sAcc[r * L::LDA + c] / l);",
-        "from_f32<T>(no_valid ? 0.f : sAcc[r * L::LDA + c] / l *\n"
-        "                                   (q0 >= 512 ? 0.95f : 1.f));"),
+        "flash_fwd_sm90.cuh",
+        "const float inv = no_valid ? 0.f : 1.f / l_row;",
+        "const float inv =\n"
+        "          no_valid ? 0.f : 1.f / l_row * (q0 >= 512 ? 0.95f : 1.f);"),
     "dkdv_dv_5pct_low_late_keys": (
-        "flash_bwd.cu",
-        "if (s_p != nullptr) s_p[i * LDP + j] = from_f32<T>(p);",
-        "if (s_p != nullptr)\n"
-        "      s_p[i * LDP + j] = from_f32<T>(k0 >= 512 ? 0.95f * p : p);"),
+        "flash_bwd_dkdv_sm90.cuh",
+        "pack_bf16(acc_dv[i], acc_dv[i + 1]);",
+        "pack_bf16(acc_dv[i] * (k0 >= 512 ? 0.95f : 1.f),\n"
+        "                      acc_dv[i + 1] * (k0 >= 512 ? 0.95f : 1.f));"),
     "dq_5pct_low_late_rows": (
         "flash_bwd.cu",
         "  __syncthreads();\n  store_rows<T, R, D>(dq + q_base * D",
@@ -51,18 +53,21 @@ MUTATIONS = {
         "    for (int i = threadIdx.x; i < R * L::LDA; i += kThreads)\n"
         "      sDQ[i] *= 0.95f;\n"
         "  __syncthreads();\n  store_rows<T, R, D>(dq + q_base * D"),
-    # Forward: q tiles past row 512 read the previous tile's V for their
-    # diagonal K tile.
+    # Forward: q tiles past row 512 multiply their diagonal (last) K
+    # tile's probabilities by the previous tile's V (the other stage).
     "fwd_stale_v_on_diagonal_tile": (
-        "flash_fwd.cu",
-        "    load_rows<T, R, D>(sV, L::LDT, vg, kb * R, kv_len);",
-        "    if (kb == 0 || kb + 1 < hi || q0 < 512)\n"
-        "      load_rows<T, R, D>(sV, L::LDT, vg, kb * R, kv_len);"),
-    # dKdV: k tiles past key 512 skip their diagonal q tile.
+        "flash_fwd_sm90.cuh",
+        "const uint32_t k_s = sK + s * L::kKV, v_s = sV + s * L::kKV;",
+        "const uint32_t k_s = sK + s * L::kKV,\n"
+        "                     v_s = sV + (kb > 0 && kb + 1 == hi && q0 >= 512"
+        "\n                                     ? s ^ 1 : s) * L::kKV;"),
+    # dKdV: k tiles past key 512 skip their diagonal q tile (producer and
+    # consumers alike, so the ring stays in step).
     "dkdv_skip_diagonal_q_tile": (
-        "flash_bwd.cu",
-        "  for (int qb = lo; qb < n_qb; ++qb) {",
-        "  for (int qb = lo + (k0 >= 512 ? 1 : 0); qb < n_qb; ++qb) {"),
+        "flash_bwd_dkdv_sm90.cuh",
+        "causal ? min(max(0, floordiv(k0 - q_offset, L::BM)), n_qb) : 0;",
+        "causal ? min(max(0, floordiv(k0 - q_offset, L::BM) +\n"
+        "                          (k0 >= 512 ? 1 : 0)), n_qb) : 0;"),
     # dQ: q tiles past row 512 skip their diagonal k tile.
     "dq_skip_diagonal_k_tile": (
         "flash_bwd.cu",
