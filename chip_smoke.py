@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              inputs on the card, at the training shape (b8 h12 s1024 d64,
              causal, bf16) and at edge cases (ragged ends across a
              128-row tile, offsets that are not tile-aligned, masked rows,
-             both kernel forms: the Hopper redesign for bf16 at head_dim
-             64 and 128, the first form for the rest); times of the
+             both kernel forms: the Hopper redesign of all three kernels
+             for bf16 at head_dim 64 and 128, the first form for the
+             rest); times of the
              kernel, the plain version and torch's
              scaled_dot_product_attention pinned to its FLASH_ATTENTION
              backend (a yardstick the port never calls), the card's bound,
@@ -28,8 +29,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              DistributedOptimizer(AdamW) -> make_train_step on GPT-2-small
              (bf16, batch 8, seq 1024), 2 warm-up and 5 timed steps; the
              loss must fall, every kernel must launch n_layers times a
-             step, and the profiled step must show the redesigned forward
-             and dK/dV kernels and not the first form's bf16 ones.
+             step, and the profiled step must show each redesigned
+             kernel (forward, dK/dV, dQ) n_layers times and none of the
+             first form's.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -290,7 +292,7 @@ def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
 
 def tensor_map_encode_us(fa, iters=1000) -> float:
     """Host microseconds to encode one TMA tensor map, as the redesigned
-    kernels do three (forward) or four (dK/dV) times a launch."""
+    kernels do three (forward) or four (dK/dV, dQ) times a launch."""
     from horovod_tpu_torch.ops import _build
     fn = _build.library("flash_fwd").hvd_flash_tensor_map_us
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_double
@@ -312,8 +314,8 @@ def phase_kernels(fa):
                     f"{SDP_BACKEND_NAME}", "result": main})
     us = tensor_map_encode_us(fa)
     log({"phase": "kernels", "tensor_map_encode_us": us,
-         "encodes_per_trainer_step": 12 * (3 + 4),
-         "host_ms_per_trainer_step": us * 12 * (3 + 4) / 1e3})
+         "encodes_per_trainer_step": 12 * (3 + 4 + 4),
+         "host_ms_per_trainer_step": us * 12 * (3 + 4 + 4) / 1e3})
     cases = [
         ("f32 causal", dict(b=2, h=4, q_len=512, kv_len=512, d=64,
                             causal=True, q_offset=0, dtype=torch.float32)),
@@ -336,6 +338,10 @@ def phase_kernels(fa):
                                              kv_len=1000, d=64, causal=False,
                                              q_offset=0,
                                              dtype=torch.bfloat16)),
+        ("bf16 non-causal q300 kv1000 d128", dict(b=2, h=4, q_len=300,
+                                                  kv_len=1000, d=128,
+                                                  causal=False, q_offset=0,
+                                                  dtype=torch.bfloat16)),
         ("f32 ragged 1000 non-causal", dict(b=1, h=2, q_len=1000,
                                             kv_len=1000, d=32, causal=False,
                                             q_offset=0,
@@ -348,6 +354,10 @@ def phase_kernels(fa):
                                              kv_len=1024, d=64, causal=True,
                                              q_offset=700,
                                              dtype=torch.bfloat16)),
+        ("bf16 q256 kv1024 offset 700 d128", dict(b=2, h=4, q_len=256,
+                                                  kv_len=1024, d=128,
+                                                  causal=True, q_offset=700,
+                                                  dtype=torch.bfloat16)),
         ("bf16 fully masked (offset -1000)", dict(
             b=1, h=2, q_len=128, kv_len=256, d=64, causal=True,
             q_offset=-1000, dtype=torch.bfloat16)),
@@ -463,13 +473,18 @@ def phase_trainer(fa, smi_line, out_dir):
          "peak_mem_gb": peak_gb})
     prof = profile_step(run, out_dir)
     log({"phase": "trainer_profile", **prof})
-    # No fallback: bf16 at head_dim 64 runs the redesigned forward and
-    # dK/dV, never the first form's kernels of the same names.
+    # No fallback: bf16 at head_dim 64 runs the three redesigned kernels,
+    # each once a layer, never the first form's kernels of the same names.
     names = " ".join(prof["flash_kernels"])
-    for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel"):
-        if want not in names:
-            raise AssertionError(f"the profiled step ran no {want}: {names}")
-    for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<"):
+    for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                 "flash_bwd_dq_sm90_kernel"):
+        ran = sum(n for name, n in prof["flash_kernels"].items()
+                  if want in name)
+        if ran != cfg.n_layers:
+            raise AssertionError(f"the profiled step ran {want} {ran} times, "
+                                 f"not {cfg.n_layers}: {names}")
+    for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                       "flash_bwd_dq_kernel<"):
         if first_form in names:
             raise AssertionError(f"the profiled step ran {first_form}: "
                                  f"{names}")
@@ -522,12 +537,12 @@ def main() -> int:
         return 0
 
     # The main path's kernels: bf16 at head_dim 64 runs the redesigned
-    # forward and dK/dV (the .cuh files, built into flash_fwd.cu and
-    # flash_bwd.cu) and the first form's dQ.
+    # forward, dK/dV and dQ (the .cuh files, built into flash_fwd.cu and
+    # flash_bwd.cu).
     sources = {
         "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
         "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd_dkdv_sm90.cuh",
-        "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu"}
+        "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cuh"}
     replaces = {
         "flash_fwd": "horovod_tpu/ops/flash_attention.py:133",
         "flash_bwd_dkdv": "horovod_tpu/ops/flash_attention.py:387",

@@ -6,10 +6,11 @@
 // _bwd_dkdv_kernel / _bwd_dq_kernel compute for seq > 4096: a block that
 // loops over tiles has no resident/streaming split.
 //
-// Two forms of dK/dV: bf16 at head_dim 64 and 128 runs the Hopper
-// redesign in flash_bwd_dkdv_sm90.cuh (TMA, wgmma, registers); f32 and
-// bf16 at head_dim 16 and 32 run flash_bwd_dkdv_kernel below (DkdvLaunch
-// chooses at compile time).  dQ has the first form only.
+// Two forms of each: bf16 at head_dim 64 and 128 runs the Hopper
+// redesigns in flash_bwd_dkdv_sm90.cuh and flash_bwd_dq_sm90.cuh (TMA,
+// wgmma, registers); f32 and bf16 at head_dim 16 and 32 run
+// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel below (DkdvLaunch and
+// DqLaunch choose at compile time).
 //
 // Both rebuild the probabilities from the forward's lse instead of
 // storing them, as the TPU kernels do (_bwd_p_ds):
@@ -26,11 +27,12 @@
 //
 // What bounds them on an H100: like the forward, the tensor-core rate at
 // the slice's shape (the backward does 2.5x the forward's products).  The
-// two kernels recompute s and dp each (the price of no atomics), and this
-// first form stages every product in shared memory, so it runs well
-// below that bound.
+// two kernels recompute s and dp each (the price of no atomics).  The
+// first form below stages every product in shared memory, so it runs well
+// below that bound; the Hopper forms keep them in registers.
 
 #include "flash_bwd_dkdv_sm90.cuh"
+#include "flash_bwd_dq_sm90.cuh"
 #include "flash_common.cuh"
 
 namespace hvdflash {
@@ -230,20 +232,28 @@ struct DkdvLaunch {
   }
 };
 
+// bf16 at head_dim 64 and 128 runs the Hopper redesign
+// (flash_bwd_dq_sm90.cuh); every other pair runs the kernel above.
 template <typename T, int D>
 struct DqLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* d_o, const void* lse, const void* delta,
                          void* dq, int bh, int q_len, int kv_len, float scale,
                          int causal, int q_offset, cudaStream_t stream) {
-    using L = BwdSmem<T, D>;
-    dim3 grid(cdiv(q_len, L::R), bh);
-    return launch(flash_bwd_dq_kernel<T, D>, grid, L::kDqBytes, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(d_o),
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dq),
-                  q_len, kv_len, scale, causal, q_offset);
+    if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
+      return sm90::DqSm90Launch<D>::run(q, k, v, d_o, lse, delta, dq, bh,
+                                        q_len, kv_len, scale, causal,
+                                        q_offset, stream);
+    } else {
+      using L = BwdSmem<T, D>;
+      dim3 grid(cdiv(q_len, L::R), bh);
+      return launch(flash_bwd_dq_kernel<T, D>, grid, L::kDqBytes, stream,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<const T*>(d_o),
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(delta), static_cast<T*>(dq),
+                    q_len, kv_len, scale, causal, q_offset);
+    }
   }
 };
 

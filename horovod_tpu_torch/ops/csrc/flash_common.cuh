@@ -6,9 +6,9 @@
 // [seq, head_dim] row-major matrix; lse/delta are [batch*head, seq] f32.
 //
 // Two forms of kernel.  bf16 at head_dim 64 and 128 (the widths users
-// train at) runs the Hopper redesign of the forward and of dK/dV
-// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh: TMA, wgmma, register
-// accumulators).  Every other pair, and dQ at every pair, runs the first
+// train at) runs the Hopper redesign of the forward, dK/dV and dQ
+// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh:
+// TMA, wgmma, register accumulators).  Every other pair runs the first
 // form below: one thread block owns one 64-row tile of its output (32
 // rows for f32) and walks the other side's tiles in a loop, so no two
 // blocks write the same output (no atomics, results deterministic).

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned bf16 flash kernels
-// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh): mbarriers, TMA tile
-// loads, wgmma with f32 accumulators in registers, and the host-side
-// tensor maps.  Inline PTX only, so a build takes seconds.
+// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh):
+// mbarriers, TMA tile loads, wgmma with f32 accumulators in registers,
+// and the host-side tensor maps.  Inline PTX only, so a build takes
+// seconds.
 //
 // Shared-memory tiles.  A [rows, D] bf16 tile is stored as D/64 panels of
 // [rows, 64]: each panel row is 128 bytes, written by TMA with the

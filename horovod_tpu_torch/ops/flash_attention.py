@@ -3,11 +3,12 @@
 Port of :mod:`horovod_tpu.ops.flash_attention`.  The three Pallas TPU
 kernels on the training path become three CUDA C++ kernels for
 ``sm_90a`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built by
-:mod:`._build` at first use.  For bf16 at head_dim 64 and 128 the forward
-and dK/dV run their Hopper redesign (TMA, ``wgmma``, accumulators in
-registers: ``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_dkdv_sm90.cuh``);
-f32, the other head dims and dQ run the first, WMMA/FMA form.  The choice
-is made from (dtype, head_dim) inside the library, never as a fallback.
+:mod:`._build` at first use.  For bf16 at head_dim 64 and 128 all three
+run their Hopper redesign (TMA, ``wgmma``, accumulators in registers:
+``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_dkdv_sm90.cuh``,
+``csrc/flash_bwd_dq_sm90.cuh``); f32 and the other head dims run the
+first, WMMA/FMA form.  The choice is made from (dtype, head_dim) inside
+the library, never as a fallback.
 The TPU kernels each replaces:
 
 ==================  =====================================================
@@ -313,10 +314,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
         kv_len).
       causal: lower-triangular mask; K tiles past the diagonal are skipped.
       sm_scale: softmax temperature; default ``1/sqrt(head_dim)``.
-      block_q, block_k: kept for the reference's signature.  The Hopper
-        kernels choose their own tiles (128 q rows or keys a block for
-        bf16 at head_dim 64/128, 64 rows for other bf16, 32 in f32), and
-        the plain version has none.
+      block_q, block_k: kept for the reference's signature.  The kernels
+        choose their own tiles (for bf16 at head_dim 64/128, 128 q rows
+        or keys a block, streaming 128-key tiles in the forward, 64-row
+        Q/dO tiles in dK/dV and 64-key K/V tiles in dQ; 64 rows for other
+        bf16, 32 in f32), and the plain version has none.
       q_block_offset: global position of q's first row relative to k's
         first row, for sequence-sharded callers (ring attention).
     """

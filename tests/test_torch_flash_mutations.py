@@ -42,9 +42,9 @@ def test_mutation_text_occurs_once_in_its_source(name):
 def test_mutations_cover_every_kernel_and_the_unmodified_copy():
     assert MUTATIONS["none"] is None
     sources = {m[0] for m in MUTATIONS.values() if m is not None}
-    # The redesigned forward and dK/dV, and the first form's dQ.
+    # The three Hopper redesigns, which the main case runs.
     assert sources == {"flash_fwd_sm90.cuh", "flash_bwd_dkdv_sm90.cuh",
-                       "flash_bwd.cu"}
+                       "flash_bwd_dq_sm90.cuh"}
     for kernel in ("fwd", "dkdv", "dq"):
         kinds = [n for n in MUTATIONS if n.startswith(kernel + "_")]
         assert any("5pct_low" in n for n in kinds), kernel

@@ -31,8 +31,8 @@ CSRC = os.path.join("horovod_tpu_torch", "ops", "csrc")
 # name -> (source, text, replacement); 512 is half the main case's seq.
 # The first three make one output 5% low on its later half of rows or
 # keys; the last three drop or corrupt the diagonal tile of those rows'
-# sums.  The forward and dK/dV mutations edit the Hopper redesign, which
-# bf16 at head_dim 64 (the main case) runs; dQ is the first form.
+# sums.  Every mutation edits a Hopper redesign, which bf16 at head_dim
+# 64 (the main case) runs.
 MUTATIONS = {
     "none": None,
     "fwd_o_5pct_low_late_rows": (
@@ -46,13 +46,10 @@ MUTATIONS = {
         "pack_bf16(acc_dv[i] * (k0 >= 512 ? 0.95f : 1.f),\n"
         "                      acc_dv[i + 1] * (k0 >= 512 ? 0.95f : 1.f));"),
     "dq_5pct_low_late_rows": (
-        "flash_bwd.cu",
-        "  __syncthreads();\n  store_rows<T, R, D>(dq + q_base * D",
-        "  __syncthreads();\n"
-        "  if (q0 >= 512)\n"
-        "    for (int i = threadIdx.x; i < R * L::LDA; i += kThreads)\n"
-        "      sDQ[i] *= 0.95f;\n"
-        "  __syncthreads();\n  store_rows<T, R, D>(dq + q_base * D"),
+        "flash_bwd_dq_sm90.cuh",
+        "pack_bf16(acc[i], acc[i + 1]);",
+        "pack_bf16(acc[i] * (q0 >= 512 ? 0.95f : 1.f),\n"
+        "                      acc[i + 1] * (q0 >= 512 ? 0.95f : 1.f));"),
     # Forward: q tiles past row 512 multiply their diagonal (last) K
     # tile's probabilities by the previous tile's V (the other stage).
     "fwd_stale_v_on_diagonal_tile": (
@@ -68,14 +65,13 @@ MUTATIONS = {
         "causal ? min(max(0, floordiv(k0 - q_offset, L::BM)), n_qb) : 0;",
         "causal ? min(max(0, floordiv(k0 - q_offset, L::BM) +\n"
         "                          (k0 >= 512 ? 1 : 0)), n_qb) : 0;"),
-    # dQ: q tiles past row 512 skip their diagonal k tile.
+    # dQ: q tiles past row 512 skip their diagonal (last) k tile; the
+    # block's bound hi caps the producer's loop and both consumers'.
     "dq_skip_diagonal_k_tile": (
-        "flash_bwd.cu",
-        "  const int hi = causal ? min(n_kb, cdiv(q0 + R + q_offset, R)) "
-        ": n_kb;\n  for (int kb = 0; kb < hi; ++kb) {\n    const int k0",
-        "  const int hi = (causal ? min(n_kb, cdiv(q0 + R + q_offset, R)) "
-        ": n_kb) - (q0 >= 512 ? 1 : 0);\n"
-        "  for (int kb = 0; kb < hi; ++kb) {\n    const int k0"),
+        "flash_bwd_dq_sm90.cuh",
+        "causal ? min(n_kb, cdiv(q0 + L::BM + q_offset, L::BN)) : n_kb;",
+        "(causal ? min(n_kb, cdiv(q0 + L::BM + q_offset, L::BN)) : n_kb) -\n"
+        "      (q0 >= 512 ? 1 : 0);"),
 }
 
 
