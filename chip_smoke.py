@@ -32,6 +32,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
              step, and the profiled step must show each redesigned
              kernel (forward, dK/dV, dQ) n_layers times and none of the
              first form's.
+6. resnet  - ResNet data parallelism, which runs no kernel of the port's
+             own (convolutions and batch norm are cuDNN/ATen): one
+             ResNet18Thin train step (f32, TF32 off) on the card against
+             the same step on the CPU; the --full example flow (ResNet-50,
+             224 px, batch 32) through Trainer.fit with the four callbacks
+             and prefetch, checking the LR/momentum sequence, the moved
+             BN statistics and that everything ran on the card; then
+             bench.py's recipe (ResNet-50, space-to-depth stem, 224 px,
+             batch 128, bf16, SGD(0.1, 0.9)), 3 warm-up and 20 timed
+             steps, images/s, TFLOP/s and one profiled step (idle share,
+             top kernels).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "long", "trainer")
+PHASES = ("device", "build", "kernels", "long", "trainer", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -85,6 +96,31 @@ RTOL_BF16, ATOL_BF16, ATOL_FLOOR_BF16 = 2.0 ** -7, 2.0 ** -5, 2.0 ** -9
 
 # The library yardstick's backend (torch.nn.attention.SDPBackend member).
 SDP_BACKEND_NAME = "FLASH_ATTENTION"
+
+# Kernel-name substrings that sort a profiled step's device time by kind
+# (a kernel matching none is in no kind; the kinds may overlap).
+KERNEL_KINDS = {
+    "nccl": ("nccl",),
+    "conv_gemm": ("conv", "xmma", "gemm", "cudnn", "nvjet", "cutlass"),
+    "batch_norm": ("batch_norm", "batchnorm", "bn_"),
+    "elementwise": ("elementwise", "vectorized"),
+    "reduce": ("reduce",),
+}
+
+# resnet phase, card against CPU (f32 compute, TF32 off): the card's
+# convolution algorithms sum in another order than the CPU's (and may be
+# Winograd or FFT), so each value differs by float rounding, carried
+# through 17 layers and their batch norms.  Bound, relative to the
+# largest magnitude of the value or leaf compared:
+RESNET_TOL_LOSS = 1e-5     # the loss
+RESNET_TOL_STATE = 1e-5    # each new BN statistic leaf
+# Each parameter leaf's update p1 - p0 (both sides start from the same
+# p0, so this holds the parameters too; a zero-initialised BN scale is
+# all update).  The update is lr * grad plus weight decay; a gradient is
+# a sum over the batch and the pixels, and the batch norm's backward
+# subtracts two such sums that nearly cancel, so it keeps fewer correct
+# digits than the forward values.
+RESNET_TOL_UPDATE = 1e-3
 
 
 def log(obj) -> None:
@@ -392,24 +428,26 @@ def phase_long(fa):
     torch.cuda.empty_cache()
 
 
-def profile_step(run, out_dir):
-    """One more step under torch.profiler, tracing the device only (host
-    op tracing nearly doubles the step): device time by kernel (from the
-    trace's kernel, memcpy and memset events), and the share of that
+def profile_step(step, out_dir, prefix):
+    """One more ``step()`` under torch.profiler, tracing the device only
+    (host op tracing nearly doubles the step): device time by kernel (from
+    the trace's kernel, memcpy and memset events), and the share of that
     step's own wall time, on the host clock from a synchronized start to
-    a synchronized end, in which no kernel ran."""
+    a synchronized end, in which no kernel ran.  Writes
+    ``<prefix>_trace.json`` and ``<prefix>_profile.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run["step"](run["params"], run["data"])
+        step()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, "trainer_trace.json")
+    trace_path = os.path.join(out_dir, f"{prefix}_trace.json")
     prof.export_chrome_trace(trace_path)
-    with open(os.path.join(out_dir, "trainer_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{prefix}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
     with open(trace_path) as f:
@@ -429,7 +467,8 @@ def profile_step(run, out_dir):
         ms, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    return {"device_busy_ms": busy_us / 1e3,
+    return {"device_busy_ms": busy_us / 1e3, "device_events": len(kernels),
+            "enqueue_ms": enqueue_ms,
             "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3,
             "profiled_step_ms": wall_us / 1e3,
             "device_idle_share": 1 - busy_us / wall_us,
@@ -437,6 +476,9 @@ def profile_step(run, out_dir):
                                     if "hvdflash" in name),
             "flash_kernels": {name.split("(")[0]: n for name, (_, n) in top
                               if "hvdflash" in name},
+            "by_kind_ms": {kind: sum(ms for name, (ms, _) in top
+                                     if any(w in name.lower() for w in words))
+                           for kind, words in KERNEL_KINDS.items()},
             "top": [{"kernel": name[:90], "ms": ms, "calls": n}
                     for name, (ms, n) in top[:12]]}
 
@@ -471,7 +513,8 @@ def phase_trainer(fa, smi_line, out_dir):
          "tokens_per_s": batch * seq * steps / run["timed_seconds"],
          "launches_per_step": per_step, "device": smi_line,
          "peak_mem_gb": peak_gb})
-    prof = profile_step(run, out_dir)
+    prof = profile_step(lambda: run["step"](run["params"], run["data"]),
+                        out_dir, "trainer")
     log({"phase": "trainer_profile", **prof})
     # No fallback: bf16 at head_dim 64 runs the three redesigned kernels,
     # each once a layer, never the first form's kernels of the same names.
@@ -490,6 +533,195 @@ def phase_trainer(fa, smi_line, out_dir):
                                  f"{names}")
     hvd.shutdown()
     return launches
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (or over 1 where want is 0)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / (float(want.abs().max()) or 1.0)
+
+
+def resnet_card_vs_cpu(hvd, R, space_to_depth):
+    """One ResNet18Thin train step (f32 compute, 32 px, batch 8,
+    SGD(0.1, momentum 0.9)) from the same parameters: on the card through
+    make_train_step_with_state, on the CPU as plain forward, backward and
+    SGD (one rank: the step's allreduces are the identity).  Returns the
+    worst error of each kind over its tolerance."""
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = R.ResNet18Thin(num_classes=16, compute_dtype=torch.float32,
+                           space_to_depth=space_to_depth)
+    params0, stats0 = R.init_resnet(model, seed=0)
+    images, labels = R.synthetic_imagenet(8, image_size=32, num_classes=16)
+    loss_fn = R.resnet_loss_fn(model)
+
+    def run(device):
+        params = tree_map(lambda x: x.detach().clone().to(device)
+                          .requires_grad_(), params0)
+        stats = tree_map(lambda x: x.clone().to(device), stats0)
+        sgd = torch.optim.SGD(tree_leaves(params), lr=0.1, momentum=0.9)
+        batch = (images.to(device), labels.to(device))
+        if device == "cpu":
+            loss, stats = loss_fn(params, stats, batch)
+            loss.backward()
+            sgd.step()
+        else:
+            step = hvd.make_train_step_with_state(
+                loss_fn, hvd.DistributedOptimizer(sgd))
+            stats, loss = step(params, stats, batch)
+            for leaf in tree_leaves([params, stats]):
+                if leaf.device.type != "cuda":
+                    raise AssertionError("a tensor of the card's step is on "
+                                         f"{leaf.device}")
+        return loss, stats, params
+
+    card, cpu = run("cuda"), run("cpu")
+    errs = {"loss": _rel_err(card[0], cpu[0]) / RESNET_TOL_LOSS,
+            "state": max(_rel_err(a, b) for a, b in zip(
+                tree_leaves(card[1]), tree_leaves(cpu[1]))) / RESNET_TOL_STATE,
+            "update": max(_rel_err(a.cpu() - p0, b - p0) for a, b, p0 in zip(
+                tree_leaves(card[2]), tree_leaves(cpu[2]),
+                tree_leaves(params0))) / RESNET_TOL_UPDATE}
+    bad = {k: v for k, v in errs.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"ResNet18Thin step (space_to_depth="
+                             f"{space_to_depth}), card against CPU, error "
+                             f"over tolerance: {errs}")
+    return {"err_over_tol": errs, "loss_card": float(card[0]),
+            "loss_cpu": float(cpu[0].detach())}
+
+
+def expected_lr_sequence(base_lr, size, epochs, steps, momentum=0.9):
+    """(lr, momentum) at each batch of the --full flow after its callbacks:
+    warm-up over epoch 0 (lr * 1/size * (e' * (size - 1) + 1) with e' =
+    epoch + (batch + 1) / steps), x0.1 from epoch 2 (staircase); the
+    momentum scaled by new/old lr on a batch whose lr was set."""
+    out, lr = [], base_lr
+    for epoch in range(epochs):
+        for b in range(steps):
+            new = None
+            if epoch < 1:
+                e = epoch + b / steps + 1.0 / steps
+                new = base_lr / size * (e * (size - 1) + 1)
+            elif epoch >= 2 and b == 0:
+                new = base_lr * 0.1
+            mom = momentum
+            if new is not None:
+                mom, lr = momentum * new / lr, new
+            out.append((lr, mom))
+    return out
+
+
+def phase_resnet(smi_line, out_dir):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks
+    from horovod_tpu_torch.examples import resnet50_synthetic as ex
+    from horovod_tpu_torch.models import layers
+    from horovod_tpu_torch.models import resnet as R
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cuda")
+    # The asymmetric SAME pads keep the channels_last layout on the card.
+    x = torch.randn(8, 56, 56, 16, device="cuda").permute(0, 3, 1, 2)
+    w = layers.oihw(torch.randn(3, 3, 16, 16, device="cuda"), torch.float32)
+    for name, y in (("conv_same", layers.conv_same(x, w, 2)),
+                    ("max_pool_same", layers.max_pool_same(x, 3, 2))):
+        if y.shape[2:] != (28, 28) or not y.is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError(f"{name}: shape {tuple(y.shape)}, "
+                                 f"strides {y.stride()}")
+    card_vs_cpu = {f"space_to_depth={s2d}": resnet_card_vs_cpu(hvd, R, s2d)
+                   for s2d in (False, True)}
+    log({"phase": "resnet", "check": "ResNet18Thin step, card against CPU "
+         "(f32, TF32 off, 32 px, batch 8)", "result": card_vs_cpu})
+
+    # The --full example flow: Trainer.fit, four callbacks, prefetch 2.
+    seen = []
+
+    class Spy(callbacks.Callback):
+        def on_batch_begin(self, batch, logs=None):
+            seen.append((self.trainer.lr, self.trainer.momentum))
+
+    epochs = 3
+    t0 = time.perf_counter()
+    flow = ex.fit(full=True, epochs=epochs, device="cuda", prefetch=2,
+                  extra_callbacks=[Spy()])
+    flow_s = time.perf_counter() - t0
+    trainer, history = flow["trainer"], flow["history"]
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {history}")
+    want = expected_lr_sequence(flow["base_lr"], hvd.size(), epochs,
+                                ex.STEPS_PER_EPOCH)
+    if len(seen) != len(want) or any(
+            abs(a - c) > 1e-9 * c or abs(b - d) > 1e-9 * d
+            for (a, b), (c, d) in zip(seen, want)):
+        raise AssertionError(f"LR/momentum sequence {seen}, want {want}")
+    leaves = tree_leaves([trainer.params, trainer.model_state])
+    if any(leaf.device.type != "cuda" for leaf in leaves):
+        raise AssertionError("a parameter or statistic is not on the card")
+    means = [v for k, v in _named_leaves(trainer.model_state)
+             if k.endswith("mean")]
+    if not all(bool(m.abs().max() > 0) for m in means):
+        raise AssertionError("a BatchNorm running mean never moved")
+    with hvd.prefetch_to_device(
+            (flow["batches"](0, s) for s in range(2)), depth=2) as staged:
+        for s, batch in enumerate(staged):
+            want_batch = hvd.shard_batch(flow["batches"](0, s))
+            for got, ref in zip(batch, want_batch):
+                if got.device.type != "cuda" or not torch.equal(got, ref):
+                    raise AssertionError("a prefetched batch differs from "
+                                         "shard_batch's or is off the card")
+    log({"phase": "resnet_flow", "model": "ResNet-50", "image_size": 224,
+         "batch": 32, "epochs": epochs, "steps_per_epoch": ex.STEPS_PER_EPOCH,
+         "history": history, "lr_momentum": seen, "seconds": flow_s,
+         "device": smi_line})
+    del flow, trainer, leaves, means
+    torch.cuda.empty_cache()
+
+    # bench.py's recipe.
+    batch, warmup, iters = 128, 3, 20
+    torch.cuda.reset_peak_memory_stats()
+    run = ex.bench(batch=batch, image_size=224, warmup=warmup, iters=iters,
+                   space_to_depth=True, device="cuda")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = run["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bench loss not finite and falling: {losses}")
+    if any(leaf.device.type != "cuda" for leaf in tree_leaves(
+            [run["params"], run["stats"], run["data"]])):
+        raise AssertionError("a tensor of the bench step is not on the card")
+    tflops = ex.RESNET50_TRAIN_FLOPS_PER_IMAGE * run["images_per_sec"] / 1e12
+    log({"phase": "resnet_bench", "model": "ResNet-50 space-to-depth",
+         "params": run["n_params"], "batch": batch, "image_size": 224,
+         "dtype": "bfloat16", "warmup": warmup, "timed_steps": iters,
+         "losses": losses, "step_ms": run["step_ms"],
+         "images_per_s": run["images_per_sec"], "peak_mem_gb": peak_gb,
+         "analytic_tflops": tflops, "share_of_989_tflops": tflops / 989.0,
+         "device": smi_line})
+    # The host's share: time for step() to return (its launches enqueued)
+    # against the whole step, unprofiled.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run["one_step"]()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    log({"phase": "resnet_host", "enqueue_ms": (t1 - t0) * 1e3,
+         "step_ms": (time.perf_counter() - t0) * 1e3, "device": smi_line})
+    prof = profile_step(run["one_step"], out_dir, "resnet")
+    log({"phase": "resnet_profile", "device": smi_line, **prof})
+    hvd.shutdown()
+
+
+def _named_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
 
 
 def main() -> int:
@@ -532,6 +764,8 @@ def main() -> int:
         phase_long(fa)
     launches = (phase_trainer(fa, smi, args.out_dir) if "trainer" in phases
                 else None)
+    if "resnet" in phases:
+        phase_resnet(smi, args.out_dir)
     if main_case is None or launches is None:
         log({"phase": "done", "phases": phases})
         return 0

@@ -18,13 +18,18 @@ neither jax nor horovod_tpu; the tests hold it against horovod_tpu.
 from .core.state import (NotInitializedError, cross_rank, cross_size,
                          device, init, is_initialized, local_rank,
                          local_size, rank, shutdown, size)
-from .ops.collective import (allreduce, allreduce_async, barrier, broadcast,
+from .ops.collective import (allgather, allgather_async, allreduce,
+                             allreduce_async, barrier, broadcast,
                              broadcast_async, poll, synchronize)
 from .ops.compression import Compression
+from .ops.objects import allgather_object, broadcast_object
 from .ops.wire import ReduceOp
 from .parallel.data import (DistributedOptimizer, allreduce_gradients,
                             broadcast_parameters, partition_fusion_buckets)
-from .parallel.training import make_train_step
+from .parallel.input import prefetch_to_device
+from .parallel.training import (barrier_fence, make_eval_step,
+                                make_train_step, make_train_step_with_state,
+                                shard_batch, shard_local_batch)
 from .utils.tree import tree_leaves
 
 Average = ReduceOp.AVERAGE
@@ -33,11 +38,14 @@ Adasum = ReduceOp.ADASUM
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
-    "NotInitializedError", "ReduceOp", "Sum", "allreduce",
-    "allreduce_async", "allreduce_gradients", "barrier", "broadcast",
-    "broadcast_async", "broadcast_parameters",
-    "cross_rank", "cross_size", "device", "init", "is_initialized",
-    "local_rank", "local_size", "make_train_step",
-    "partition_fusion_buckets", "poll", "rank", "shutdown", "size",
+    "NotInitializedError", "ReduceOp", "Sum", "allgather",
+    "allgather_async", "allgather_object", "allreduce",
+    "allreduce_async", "allreduce_gradients", "barrier", "barrier_fence",
+    "broadcast", "broadcast_async", "broadcast_object",
+    "broadcast_parameters", "cross_rank", "cross_size", "device", "init",
+    "is_initialized", "local_rank", "local_size", "make_eval_step",
+    "make_train_step", "make_train_step_with_state",
+    "partition_fusion_buckets", "poll", "prefetch_to_device", "rank",
+    "shard_batch", "shard_local_batch", "shutdown", "size",
     "synchronize", "tree_leaves",
 ]

@@ -8,9 +8,10 @@ input's device, ``poll`` asks without waiting.  Inputs are never written.
 ``name`` is kept for the reference's signatures: without the negotiation
 layer, collectives match up by call order and nothing reads it.
 
-This slice has allreduce (Average, Sum), broadcast and barrier.  The
-other reductions, allgather, alltoall, reducescatter, process sets and
-the negotiation layer (ops/coordinator.py) come in a later slice.
+The port has allreduce (Average, Sum), allgather (variable dim 0),
+broadcast and barrier.  The other reductions, alltoall, reducescatter,
+the grouped variants, process sets and the negotiation layer
+(ops/coordinator.py) come in a later slice.
 """
 
 from __future__ import annotations
@@ -99,6 +100,69 @@ def broadcast_async(tensor, root_rank: int,
 def broadcast(tensor, root_rank: int, name: Optional[str] = None):
     """Synchronous broadcast from ``root_rank``."""
     return synchronize(broadcast_async(tensor, root_rank, name=name))
+
+
+def _check_allgather_shapes(shapes, dtypes) -> None:
+    """The reference's agreement rules and messages
+    (ops/coordinator.py:190-280): one dtype, one rank, equal dims past
+    the first.  Every rank sees the same gathered metadata, so every rank
+    raises alike."""
+    first = shapes[0]
+    for dt in dtypes[1:]:
+        if dt != dtypes[0]:
+            raise ValueError(f"Mismatched data types: One rank had type "
+                             f"{dtypes[0]}, but another rank had type {dt}.")
+    if not first:
+        raise ValueError("Rank zero tried to gather a rank-zero tensor.")
+    for shape in shapes[1:]:
+        if len(shape) != len(first):
+            raise ValueError(
+                f"Mismatched allgather tensor shapes: One rank sent a tensor "
+                f"of rank {len(first)}, but another rank sent a tensor of "
+                f"rank {len(shape)}.")
+        for dim in range(1, len(first)):
+            if shape[dim] != first[dim]:
+                raise ValueError(
+                    f"Mismatched allgather tensor shapes: One rank sent a "
+                    f"tensor with dimension {dim} equal to {first[dim]}, but "
+                    f"another rank sent a tensor with dimension {dim} equal "
+                    f"to {shape[dim]}.")
+
+
+def allgather_async(tensor, name: Optional[str] = None) -> int:
+    """Start an allgather along dim 0, in rank order; ranks may send
+    different dim-0 sizes (the other dims must agree).  Returns a handle.
+
+    Shapes and dtypes are exchanged first (a blocking object gather: the
+    sizes decide the buffers); then every rank pads its tensor to the
+    largest dim 0 and one ``all_gather`` runs asynchronously; the result
+    is the concatenation of each rank's unpadded rows."""
+    _state._check_initialized()
+    meta = (tuple(tensor.shape), str(tensor.dtype))
+    metas = [meta]
+    if _state.size() > 1:
+        metas = [None] * _state.size()
+        dist.all_gather_object(metas, meta)
+    _check_allgather_shapes([m[0] for m in metas], [m[1] for m in metas])
+    rows = [m[0][0] for m in metas]
+    longest = max(rows)
+    out = _on_device(tensor)
+    if out.shape[0] < longest:
+        out = torch.cat([out, out.new_zeros((longest - out.shape[0],)
+                                            + tuple(out.shape[1:]))])
+    parts = [torch.empty_like(out) for _ in rows]
+    work = dist.all_gather(parts, out, async_op=True)
+    home = tensor.device
+
+    def finish(gathered):
+        return torch.cat([p[:n] for p, n in zip(gathered, rows)]).to(home)
+
+    return _handles.allocate(work, parts, finish)
+
+
+def allgather(tensor, name: Optional[str] = None):
+    """Synchronous allgather along dim 0, in rank order."""
+    return synchronize(allgather_async(tensor, name=name))
 
 
 def barrier() -> None:
