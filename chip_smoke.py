@@ -32,7 +32,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
              step, and the profiled step must show each redesigned
              kernel (forward, dK/dV, dQ) n_layers times and none of the
              first form's.
-6. resnet  - ResNet data parallelism, which runs no kernel of the port's
+6. eager   - the negotiated collectives on one rank with NCCL, and the
+             hook-driven horovod.torch DistributedOptimizer: every
+             collective (allreduce Sum/Average/Min/Max/Product, a grouped
+             allreduce fused into one response, ragged allgather,
+             broadcast, alltoall with splits, reducescatter, a process
+             set, join) in float32, bfloat16, float16 and int32 against
+             plain torch on the card; a stream-order check (a 256 MB
+             tensor written on a side stream, allreduce_async_ right
+             after, 20 times, exact); GPT-2-small through
+             examples/transformer_lm.py's hook path held bitwise to the
+             monolithic make_train_step over 3 steps from the same init
+             and batches; both paths timed in turns (monolithic, hook,
+             hook, monolithic; 2 warm-up and 5 timed steps each), each
+             flash kernel 12 times a step; step ms, tokens/s, negotiated
+             tensors, fused responses and NCCL calls a step,
+             one profiled step (idle share, whether the executor's first
+             device work starts before the last dQ kernel), the latency of a
+             4-byte and a 64 MB negotiated allreduce.
+7. resnet  - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -63,7 +81,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "long", "trainer", "resnet")
+PHASES = ("device", "build", "kernels", "long", "trainer", "eager",
+          "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -535,6 +554,258 @@ def phase_trainer(fa, smi_line, out_dir):
     return launches
 
 
+EAGER_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
+
+
+def eager_collectives(hvd, C):
+    """Every negotiated collective on one rank with NCCL, in each dtype,
+    against plain torch on the card.  One rank's reductions are the
+    identity (Average divides by 1, with floor for integers); the point
+    is that each runs through negotiation and NCCL in every dtype."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checked = []
+
+    def same(name, got, want):
+        if got.device.type != "cuda" or got.dtype != want.dtype or \
+                not bool(torch.equal(got, want)):
+            raise AssertionError(f"eager {name}: {got} != {want}")
+        checked.append(name)
+
+    for dt in EAGER_DTYPES:
+        x = (torch.rand(33, 7, generator=gen, device=dev) * 8 + 1).to(dt)
+        for op in ("Sum", "Average", "Min", "Max", "Product"):
+            same(f"allreduce {op} {dt}", hvd.allreduce(x, op=getattr(hvd, op)),
+                 x.clone())
+        ts = [x[:i + 2].clone() for i in range(4)]
+        C.reset_stats()
+        outs = hvd.grouped_allreduce(ts, op=hvd.Sum)
+        if C.stats()["responses"] != 1 or C.stats()["tensors"] != 4:
+            raise AssertionError(f"grouped allreduce {dt} was not fused into "
+                                 f"one response: {C.stats()}")
+        for i, (o, t) in enumerate(zip(outs, ts)):
+            same(f"grouped allreduce {dt} [{i}]", o, t)
+        same(f"allgather ragged {dt}", hvd.allgather(x[:5]), x[:5])
+        same(f"broadcast {dt}", hvd.broadcast(x, 0), x.clone())
+        same(f"alltoall splits {dt}", hvd.alltoall(x, splits=[33]), x.clone())
+        same(f"reducescatter {dt}", hvd.reducescatter(x, op=hvd.Sum), x)
+        ps = hvd.add_process_set([0])
+        same(f"process set [0] allreduce {dt}",
+             hvd.allreduce(x, op=hvd.Sum, process_set=ps), x.clone())
+        hvd.remove_process_set(ps)
+    joined = hvd.join()
+    if joined != 0:
+        raise AssertionError(f"join() returned {joined}, not 0")
+    return checked
+
+
+def eager_stream_order(fhvd, reps=20):
+    """A 256 MB tensor written by a long kernel sequence on a side stream,
+    allreduce_async_ enqueued on that stream right after: the executor
+    must wait for the writes (the ReadyEvent), synchronize must make the
+    caller's stream wait for the result.  Exact every time."""
+    n = 64 * 2 ** 20  # float32: 256 MB
+    side = torch.cuda.Stream()
+    for rep in range(reps):
+        with torch.cuda.stream(side):
+            x = torch.full((n,), float(rep), device="cuda")
+            for _ in range(40):  # ~40 passes over 256 MB
+                x.add_(1.0)
+            h = fhvd.allreduce_async_(x, name=f"stream.order.{rep}")
+            out = fhvd.synchronize(h)
+            ok = bool(torch.equal(out, torch.full_like(x, rep + 40.0)))
+        if out is not x or not ok:
+            raise AssertionError(f"stream order: repetition {rep} read a "
+                                 f"tensor before its writes finished")
+    torch.cuda.synchronize()
+    return reps
+
+
+def negotiated_latency(fhvd, nbytes, iters):
+    """Wall ms of one synchronous in-place Sum allreduce through
+    negotiation, device completion included; the share of it until the
+    background thread has executed the response (``executed_ms``); and
+    the same allreduce as one direct ``torch.distributed`` call on the
+    job's group from this thread (``direct_ms``): the difference is the
+    control plane's cost."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import handles
+
+    x = torch.ones(nbytes // 4, device="cuda")
+    finished = []
+    finish = handles.Handle.finish
+
+    def timed_finish(self, *args, **kwargs):
+        finished.append(time.perf_counter())
+        finish(self, *args, **kwargs)
+
+    for _ in range(3):
+        fhvd.allreduce_(x, op=fhvd.Sum)
+    torch.cuda.synchronize()
+    total = executed = 0.0
+    handles.Handle.finish = timed_finish
+    try:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fhvd.allreduce_(x, op=fhvd.Sum)
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+            executed += finished[-1] - t0
+    finally:
+        handles.Handle.finish = finish
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    direct = time.perf_counter() - t0
+    return {"ms": total / iters * 1e3, "executed_ms": executed / iters * 1e3,
+            "direct_ms": direct / iters * 1e3}
+
+
+def executor_overlap(trace_path):
+    """Where the executor's device work falls in the profiled hook step.
+    The flash kernels run on the step's stream; the executor's pack,
+    collective and unpack run on its own.  One rank's NCCL allreduce
+    launches no kernel (NCCL short-circuits a one-rank communicator), so
+    the executor stream's first event stands for the first collective.
+    Times in ms from the step's first device event."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in (
+                      "kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    dq = [e for e in events if "flash_bwd_dq_sm90_kernel" in e["name"]]
+    main = {e["args"].get("stream") for e in dq}
+    side = [e for e in events if e["args"].get("stream") not in main]
+    if not dq or not side:
+        raise AssertionError(f"profiled hook step: {len(dq)} dQ kernels, "
+                             f"{len(side)} events on the executor's stream")
+    return {"nccl_kernels": sum("nccl" in e["name"].lower() for e in events),
+            "executor_events": len(side),
+            "executor_busy_ms": sum(e["dur"] for e in side) / 1e3,
+            "first_executor_event_ms": (min(e["ts"] for e in side) - t0) / 1e3,
+            "last_executor_event_ms": (max(e["ts"] for e in side) - t0) / 1e3,
+            "first_dq_ms": (min(e["ts"] for e in dq) - t0) / 1e3,
+            "last_dq_ms": (max(e["ts"] for e in dq) - t0) / 1e3,
+            "collective_overlaps_backward":
+                min(e["ts"] for e in side) < max(e["ts"] for e in dq)}
+
+
+def phase_eager(fa, smi_line, out_dir):
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.frontends.torch as fhvd
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    hvd.init(device="cuda")
+    checked = eager_collectives(hvd, C)
+    log({"phase": "eager", "check": "collectives against plain torch on the "
+         "card", "dtypes": [str(d) for d in EAGER_DTYPES],
+         "cases": len(checked)})
+    reps = eager_stream_order(fhvd)
+    log({"phase": "eager", "check": "stream order, 256 MB on a side stream",
+         "repetitions": reps, "exact": True})
+
+    # The hook path against the monolithic step: 3 steps each from the
+    # same init and batches; two monolithic runs show the run-to-run
+    # difference the hook path is held to.
+    cfg = transformer_lm.bench_config()
+    batch, seq = 8, 1024
+
+    def three_steps(hooks):
+        run = transformer_lm.train(cfg, batch=batch, seq=seq, steps=3,
+                                   device="cuda", seed=0, hooks=hooks)
+        return run["losses"], [p.detach().clone()
+                               for p in tree_leaves(run["params"])]
+
+    def diff(a, b):
+        return max([abs(x - y) for x, y in zip(a[0], b[0])]
+                   + [float((p.float() - q.float()).abs().max())
+                      for p, q in zip(a[1], b[1])])
+
+    mono_a, mono_b = three_steps(False), three_steps(False)
+    hook = three_steps(True)
+    run_to_run, hook_vs_mono = diff(mono_a, mono_b), diff(hook, mono_a)
+    log({"phase": "eager", "check": "hook path against make_train_step, "
+         "GPT-2-small, 3 steps", "monolithic_run_to_run_max_diff": run_to_run,
+         "hook_vs_monolithic_max_diff": hook_vs_mono,
+         "losses_monolithic": mono_a[0], "losses_hook": hook[0]})
+    if hook_vs_mono > run_to_run:
+        raise AssertionError(
+            f"the hook path differs from the monolithic step by "
+            f"{hook_vs_mono}, two monolithic runs by {run_to_run}")
+    del mono_a, mono_b, hook
+    torch.cuda.empty_cache()
+
+    # Timed in turns, monolithic, hook, hook, monolithic (2 + 5 steps
+    # each); one hook step profiled.
+    warmup, steps = 2, 5
+    timed = {"monolithic": [], "hook": []}
+    for hooks in (False, True, True, False):
+        path = "hook" if hooks else "monolithic"
+        fa.reset_launches()
+        C.reset_stats()
+        run = transformer_lm.train(cfg, batch=batch, seq=seq,
+                                   steps=warmup + steps, timed_from=warmup,
+                                   device="cuda", seed=0, hooks=hooks)
+        launches, stats = dict(fa.launches), C.stats()
+        losses = run["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"loss not finite and falling: {losses}")
+        if any(c != cfg.n_layers * (warmup + steps)
+               for c in launches.values()):
+            raise AssertionError(f"each kernel must launch {cfg.n_layers} "
+                                 f"times a step: {launches}")
+        leaves = tree_leaves(run["params"])
+        state = [t for st in run["optimizer"].state.values()
+                 for t in st.values() if isinstance(t, torch.Tensor)
+                 and t.dim() > 0]
+        if not state or any(t.device.type != "cuda" for t in leaves + state
+                            + [p.grad for p in leaves if p.grad is not None]
+                            + list(run["data"])):
+            raise AssertionError("a tensor of the step is off the card")
+        n = warmup + steps
+        timed[path].append({
+            "step_ms": run["timed_seconds"] / steps * 1e3,
+            "tokens_per_s": batch * seq * steps / run["timed_seconds"],
+            "negotiated_tensors_per_step": stats["tensors"] / n,
+            "responses_per_step": stats["responses"] / n,
+            "nccl_calls_per_step": stats["collective_calls"] / n,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "losses": losses})
+        if hooks and "hook_profile" not in timed:
+            C.reset_stats()
+            prof = profile_step(lambda: run["step"](run["params"],
+                                                    run["data"]),
+                                out_dir, "eager")
+            prof.update(executor_overlap(os.path.join(
+                out_dir, "eager_trace.json")))
+            prof["responses"] = C.stats()["responses"]
+            timed["hook_profile"] = prof
+        del run, leaves, state
+        torch.cuda.empty_cache()
+    for path in ("monolithic", "hook"):
+        timed[f"{path}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in timed[path]]))
+    log({"phase": "eager_trainer", "model": "GPT-2-small", "batch": batch,
+         "seq": seq, "dtype": "bfloat16", "device": smi_line, **timed})
+
+    lat = {}
+    for label, nbytes, iters in (("4B", 4, 200), ("64MB", 64 * 2 ** 20, 20)):
+        lat[label] = {**negotiated_latency(fhvd, nbytes, iters),
+                      "bytes": nbytes,
+                      # pack (read + write) and unpack (read + write)
+                      "bound_ms": 4 * nbytes / PEAK_BYTES * 1e3}
+    log({"phase": "eager_latency", "what": "synchronous in-place Sum "
+         "allreduce through negotiation, one rank, NCCL", "device": smi_line,
+         **lat})
+    hvd.shutdown()
+
+
 def _rel_err(got, want) -> float:
     """max |got - want| over max |want| (or over 1 where want is 0)."""
     got, want = got.detach().double().cpu(), want.detach().double().cpu()
@@ -764,6 +1035,8 @@ def main() -> int:
         phase_long(fa)
     launches = (phase_trainer(fa, smi, args.out_dir) if "trainer" in phases
                 else None)
+    if "eager" in phases:
+        phase_eager(fa, smi, args.out_dir)
     if "resnet" in phases:
         phase_resnet(smi, args.out_dir)
     if main_case is None or launches is None:

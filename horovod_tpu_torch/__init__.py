@@ -9,20 +9,32 @@ Hopper GPUs.
                                                      weight_decay=1e-4))
     step = hvd.make_train_step(loss_fn, opt)
 
-Collectives run on ``torch.distributed`` (NCCL on the GPU, gloo on the
-CPU).  The flash-attention kernels are CUDA C++ for ``sm_90a``
-(``ops/csrc``), built by ``nvcc`` at first use.  The package imports
+The eager collectives are Horovod's: named, negotiated by rank 0's
+coordinator each cycle of a background thread, fused, and executed in one
+order on every rank (``ops/collective.py``); ``frontends.torch`` is the
+``horovod.torch`` surface over them, with the hook-driven
+``DistributedOptimizer``.  Collectives run on ``torch.distributed`` (NCCL
+on the GPU, gloo on the CPU).  The flash-attention kernels are CUDA C++
+for ``sm_90a`` (``ops/csrc``), built by ``nvcc`` at first use.  The package imports
 neither jax nor horovod_tpu; the tests hold it against horovod_tpu.
 """
 
 from .core.state import (NotInitializedError, cross_rank, cross_size,
                          device, init, is_initialized, local_rank,
                          local_size, rank, shutdown, size)
-from .ops.collective import (allgather, allgather_async, allreduce,
-                             allreduce_async, barrier, broadcast,
-                             broadcast_async, poll, synchronize)
+from .ops.collective import (HorovodError, add_process_set, allgather,
+                             allgather_async, allreduce, allreduce_async,
+                             alltoall, alltoall_async, barrier, broadcast,
+                             broadcast_async, global_process_set,
+                             grouped_allgather, grouped_allgather_async,
+                             grouped_allreduce, grouped_allreduce_async,
+                             grouped_reducescatter,
+                             grouped_reducescatter_async, join, poll,
+                             quiesce, reducescatter, reducescatter_async,
+                             remove_process_set, synchronize)
 from .ops.compression import Compression
 from .ops.objects import allgather_object, broadcast_object
+from .ops.process_set import ProcessSet
 from .ops.wire import ReduceOp
 from .parallel.data import (DistributedOptimizer, allreduce_gradients,
                             broadcast_parameters, partition_fusion_buckets)
@@ -35,17 +47,25 @@ from .utils.tree import tree_leaves
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
 Adasum = ReduceOp.ADASUM
+Min = ReduceOp.MIN
+Max = ReduceOp.MAX
+Product = ReduceOp.PRODUCT
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
-    "NotInitializedError", "ReduceOp", "Sum", "allgather",
+    "HorovodError", "Max", "Min", "NotInitializedError", "ProcessSet",
+    "Product", "ReduceOp", "Sum", "add_process_set", "allgather",
     "allgather_async", "allgather_object", "allreduce",
-    "allreduce_async", "allreduce_gradients", "barrier", "barrier_fence",
-    "broadcast", "broadcast_async", "broadcast_object",
-    "broadcast_parameters", "cross_rank", "cross_size", "device", "init",
-    "is_initialized", "local_rank", "local_size", "make_eval_step",
-    "make_train_step", "make_train_step_with_state",
-    "partition_fusion_buckets", "poll", "prefetch_to_device", "rank",
-    "shard_batch", "shard_local_batch", "shutdown", "size",
-    "synchronize", "tree_leaves",
+    "allreduce_async", "allreduce_gradients", "alltoall",
+    "alltoall_async", "barrier", "barrier_fence", "broadcast",
+    "broadcast_async", "broadcast_object", "broadcast_parameters",
+    "cross_rank", "cross_size", "device", "global_process_set",
+    "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
+    "grouped_allreduce_async", "grouped_reducescatter",
+    "grouped_reducescatter_async", "init", "is_initialized", "join",
+    "local_rank", "local_size", "make_eval_step", "make_train_step",
+    "make_train_step_with_state", "partition_fusion_buckets", "poll",
+    "prefetch_to_device", "quiesce", "rank", "reducescatter",
+    "reducescatter_async", "remove_process_set", "shard_batch",
+    "shard_local_batch", "shutdown", "size", "synchronize", "tree_leaves",
 ]

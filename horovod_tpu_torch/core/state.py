@@ -13,19 +13,28 @@ as in the original Horovod.  ``init()`` joins a process group:
 The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``.
 Local rank and size come from the ranks sharing a host name, exchanged
 once at init (the reference's node split).
+
+Beside that group ``init`` creates what the negotiated collectives
+(:mod:`..ops.collective`) run on: a gloo control group (more than one
+rank), an eager data group of the device's backend, so that negotiated
+collectives never share a communicator with the monolithic step's, rank
+0's coordinator, the background thread (cycle ``HOROVOD_CYCLE_TIME`` ms,
+default 5) and the process-set table.  ``shutdown`` agrees on a SHUTDOWN
+response with every rank, stops the thread and fails pending handles.
 """
 
 from __future__ import annotations
 
 import os
 import socket
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, parallel/data.py:76-80
+DEFAULT_CYCLE_TIME_MS = 5.0  # the reference's core/state.py:241
 
 
 class NotInitializedError(RuntimeError):
@@ -48,6 +57,12 @@ class _State:
     cross_rank: int = 0
     cross_size: int = 1
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
+    tick_seconds: float = DEFAULT_CYCLE_TIME_MS / 1000.0
+    control_group: Any = None  # gloo, more than one rank
+    data_group: Any = None  # the negotiated collectives' data
+    process_sets: dict = field(default_factory=dict)
+    next_process_set_id: int = 1
+    runtime: Any = None  # ops.collective.Runtime
 
 
 _state = _State()
@@ -117,13 +132,33 @@ def init(device=None) -> None:
         local_size=hosts.count(mine), cross_rank=unique.index(mine),
         cross_size=len(unique),
         fusion_threshold_bytes=int(os.environ.get(
-            "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)))
+            "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)),
+        tick_seconds=float(os.environ.get(
+            "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS)) / 1000.0,
+        control_group=dist.new_group(backend="gloo") if size > 1 else None,
+        data_group=dist.new_group(backend=backend))
+    from ..ops import collective
+
+    _state.runtime = collective.Runtime(_state)
+    _state.runtime.start()
 
 
 def shutdown() -> None:
-    """Leave the process group (if ``init`` created it) and reset."""
-    if _state.owns_group and dist.is_initialized():
-        dist.destroy_process_group()
+    """Agree on shutdown with every rank, stop the background thread
+    (pending handles fail with the shut-down error), leave the groups
+    ``init`` created, and reset."""
+    if _state.runtime is not None:
+        _state.runtime.shutdown()
+    if dist.is_initialized():
+        for ps in _state.process_sets.values():
+            ps.close()
+        if _state.owns_group:
+            dist.destroy_process_group()
+        else:
+            for group in [ps.group for ps in _state.process_sets.values()] \
+                    + [_state.control_group, _state.data_group]:
+                if group is not None:
+                    dist.destroy_process_group(group)
     _state.__dict__.update(_State().__dict__)
 
 
@@ -179,3 +214,8 @@ def fusion_threshold_bytes() -> int:
         return _state.fusion_threshold_bytes
     return int(os.environ.get("HOROVOD_FUSION_THRESHOLD",
                               DEFAULT_FUSION_THRESHOLD))
+
+
+def process_sets() -> dict:
+    """The registered process sets by id (the global set is not in it)."""
+    return _state.process_sets

@@ -8,11 +8,19 @@ examples/transformer_lm.py.
     # tokens/sec JSON line:
     python -m horovod_tpu_torch.examples.transformer_lm --bench
 
+    # the hook-driven optimizer of the horovod.torch surface instead of
+    # the monolithic reduce after backward:
+    python -m horovod_tpu_torch.examples.transformer_lm --hooks --device cpu
+
     # several GPUs: one process per GPU under a launcher that sets RANK,
     # WORLD_SIZE, MASTER_ADDR, MASTER_PORT (torchrun does).
 
 The flow is Horovod's: init -> broadcast_parameters ->
-DistributedOptimizer(AdamW(3e-4)) -> make_train_step -> steps.
+DistributedOptimizer(AdamW(3e-4)) -> make_train_step -> steps.  With
+``--hooks`` the optimizer is ``frontends.torch.DistributedOptimizer``
+over the named parameter leaves: each gradient's negotiated
+``allreduce_async_`` starts from its hook during backward and ``step()``
+synchronizes them.
 """
 
 from __future__ import annotations
@@ -24,10 +32,12 @@ import time
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.frontends import torch as hvd_torch
 from horovod_tpu_torch.models.transformer import (TransformerConfig,
                                                   init_transformer,
                                                   make_loss_fn,
                                                   synthetic_lm_batch)
+from horovod_tpu_torch.utils.tree import tree_named_leaves
 
 
 def bench_config(seq: int = 1024, loss_chunk: int = 0) -> TransformerConfig:
@@ -45,12 +55,13 @@ def tiny_config(seq: int = 64) -> TransformerConfig:
 
 def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
           timed_from: int = 0, device=None, seed: int = 0,
-          lr: float = 3e-4) -> dict:
+          lr: float = 3e-4, hooks: bool = False) -> dict:
     """Initialize, then run ``steps`` train steps on one fixed synthetic
-    batch (``batch`` is global; each rank takes its share).  Returns the
+    batch (``batch`` is global; each rank takes its share); ``hooks``
+    reduces the gradients through the hook-driven optimizer.  Returns the
     per-step losses, the wall time of steps ``timed_from..`` (ended by a
-    device synchronise), the parameter count, and the step, parameters
-    and batch for further steps."""
+    device synchronise), the parameter count, and the step, parameters,
+    batch and optimizer for further steps."""
     hvd.init(device=device)
     dev = hvd.device()
     if batch % hvd.size():
@@ -61,8 +72,10 @@ def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
     hvd.broadcast_parameters(params, root_rank=0)
     leaves = hvd.tree_leaves(params)
     # optax.adamw's weight decay is 1e-4; torch's default is 1e-2.
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4))
+    adamw = torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4)
+    opt = (hvd_torch.DistributedOptimizer(
+        adamw, named_parameters=tree_named_leaves(params)) if hooks
+        else hvd.DistributedOptimizer(adamw))
     step = hvd.make_train_step(make_loss_fn(cfg), opt)
     tokens, targets = synthetic_lm_batch(
         torch.Generator().manual_seed(seed + 1), batch, seq, cfg.vocab_size)
@@ -84,7 +97,7 @@ def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
     elapsed = time.perf_counter() - t0
     return {"losses": [float(x) for x in losses], "timed_seconds": elapsed,
             "n_params": sum(p.numel() for p in leaves), "step": step,
-            "params": params, "data": data}
+            "params": params, "data": data, "optimizer": opt}
 
 
 def main() -> None:
@@ -97,6 +110,9 @@ def main() -> None:
     ap.add_argument("--loss-chunk", type=int, default=0,
                     help="chunked cross-entropy: never hold the full "
                          "[batch, seq, vocab] logits")
+    ap.add_argument("--hooks", action="store_true",
+                    help="reduce each gradient from its hook during "
+                         "backward (frontends.torch.DistributedOptimizer)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -110,7 +126,7 @@ def main() -> None:
         cfg = tiny_config(seq)
         batch, steps, warmup = args.batch or 4, args.steps or 30, 0
     run = train(cfg, batch=batch, seq=seq, steps=warmup + steps,
-                timed_from=warmup, device=args.device)
+                timed_from=warmup, device=args.device, hooks=args.hooks)
     dev = hvd.device()
     if args.bench:
         print(json.dumps({
@@ -120,7 +136,7 @@ def main() -> None:
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
             "ranks": hvd.size(), "params": run["n_params"], "batch": batch,
-            "seq": seq, "loss_chunk": args.loss_chunk,
+            "seq": seq, "loss_chunk": args.loss_chunk, "hooks": args.hooks,
             "step_ms": run["timed_seconds"] / steps * 1e3}))
     else:
         first, last = run["losses"][0], run["losses"][-1]

@@ -1,0 +1,400 @@
+"""Negotiation: name-keyed readiness, cross-rank validation, fusion, stall
+watch (copied from horovod_tpu/ops/coordinator.py:51-486, ``PyCoordinator``).
+
+Rank 0 runs one coordinator per process set.  Every rank's requests reach
+it through the control exchange (:mod:`.transport`); a tensor is ready
+once every rank of its set asked for it (or joined), and the ready
+tensors of one cycle become responses, fused under the threshold, that
+every rank executes in the same order:
+
+* name-keyed request table with readiness counting
+  (≙ ``IncrementTensorCount``, operations.cc:222-247),
+* cross-rank type/dtype/shape/root/device validation with the reference's
+  messages (≙ ``ConstructMPIResponse``, operations.cc:255-461),
+* response fusion (≙ operations.cc:1328-1374, :func:`.cache.plan_fusion`),
+* stall detection (≙ ``CheckForStalledTensors``, operations.cc:1072-1115;
+  ``HOROVOD_STALL_WARNING_SECONDS``, default 60).
+
+The copy leaves out the reference's telemetry, lock-order and race
+instrumentation, flight recorder and native twin; responses are byte for
+byte the reference's.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from . import cache as _cache
+from . import wire
+from .wire import DataType, Request, RequestType, Response, ResponseType
+
+
+def stall_warning_seconds() -> float:
+    """Seconds a tensor may sit in negotiation before a stall warning
+    (≙ STALL_WARNING_TIME, operations.cc:208)."""
+    return float(os.environ.get("HOROVOD_STALL_WARNING_SECONDS", "60"))
+
+
+@dataclass
+class _PendingTensor:
+    requests: List[Request] = field(default_factory=list)
+    ranks: set = field(default_factory=set)
+    first_seen: float = 0.0
+    # Payload bytes of one rank's tensor, from the first request.
+    nbytes: int = 0
+
+
+def _withdraw_message(name: str, rank: int) -> str:
+    return (f"Collective {name} was abandoned: rank {rank} timed out "
+            f"waiting for the remaining ranks; the operation fails on "
+            f"all ranks.")
+
+
+class PyCoordinator:
+    """The coordinator of one process set (``size`` ranks, set-local
+    numbering).  Lock-guarded, like the reference's single mutex
+    (operations.cc:113)."""
+
+    def __init__(self, size: int, fusion_threshold: int):
+        self.size = size
+        self.fusion_threshold = fusion_threshold
+        self._lock = threading.Lock()
+        self.table: Dict[str, _PendingTensor] = {}
+        self.ready: List[str] = []
+        # dtype and submit-time bytes per constructed response, for the
+        # fusion loop.
+        self._resp_dtype: Dict[str, DataType] = {}
+        self._resp_nbytes: Dict[str, int] = {}
+        # ERROR responses queued by withdraw(); drained first.
+        self._withdrawn: List[Response] = []
+        # Ranks that called join(): ready for every tensor, zeros at
+        # execution.  When all joined, a JOIN response carries the last.
+        self.joined: set = set()
+        self._last_joined: int = -1
+        self._join_release: List[Response] = []
+
+    def withdraw(self, name: str, rank: int) -> None:
+        """A rank abandoned ``name`` (synchronize timeout): drop the
+        pending entry and queue an ERROR response for every rank.  No-op
+        when negotiation already completed."""
+        with self._lock:
+            if name in self.ready:
+                return
+            self.table.pop(name, None)
+            self._withdrawn.append(Response(
+                ResponseType.ERROR, [name],
+                error_message=_withdraw_message(name, rank)))
+
+    def submit(self, req: Request, now: Optional[float] = None) -> bool:
+        """Record one rank's request; True when every rank has reported
+        the tensor.  Joined ranks count as ready for every tensor; a JOIN
+        request may itself complete pending tensors (and, from the last
+        rank, the join barrier)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if req.request_type == RequestType.JOIN:
+                self.joined.add(req.request_rank)
+                self._last_joined = req.request_rank
+                for name, entry in list(self.table.items()):
+                    if len(entry.ranks | self.joined) == self.size \
+                            and name not in self.ready:
+                        self.ready.append(name)
+                if len(self.joined) == self.size:
+                    # Released after the data responses of the same poll:
+                    # a joined rank still contributes zeros to those.
+                    self._join_release.append(Response(
+                        ResponseType.JOIN,
+                        tensor_sizes=[self._last_joined]))
+                    self.joined = set()
+                    return True
+                return False
+            entry = self.table.get(req.tensor_name)
+            if entry is None:
+                entry = _PendingTensor(first_seen=now)
+                n = 1
+                for d in req.tensor_shape:
+                    n *= int(d)
+                entry.nbytes = n * wire.dtype_size(req.tensor_type)
+                self.table[req.tensor_name] = entry
+            if req.request_rank in entry.ranks:
+                raise ValueError(
+                    f"Duplicate request for tensor {req.tensor_name} from "
+                    f"replica {req.request_rank}; a name may be used by at "
+                    f"most one pending collective per replica.")
+            entry.requests.append(req)
+            entry.ranks.add(req.request_rank)
+            if len(entry.ranks | self.joined) == self.size:
+                self.ready.append(req.tensor_name)
+                return True
+            return False
+
+    def construct_response(self, name: str) -> Response:
+        with self._lock:
+            return self._construct_response_locked(name)
+
+    def _construct_response_locked(self, name: str) -> Response:
+        entry = self.table.pop(name)
+        reqs = sorted(entry.requests, key=lambda r: r.request_rank)
+        first = reqs[0]
+        error = None
+
+        # Data-type agreement (operations.cc:266-279).
+        for r in reqs[1:]:
+            if r.tensor_type != first.tensor_type:
+                error = (f"Mismatched data types: One rank had type "
+                         f"{wire.dtype_name(first.tensor_type)}, but another "
+                         f"rank had type {wire.dtype_name(r.tensor_type)}.")
+                break
+        # Operation agreement (operations.cc:283-296).
+        if error is None:
+            for r in reqs[1:]:
+                if r.request_type != first.request_type:
+                    error = (f"Mismatched collective operations: One rank did "
+                             f"an {first.request_type.name.lower()}, but "
+                             f"another rank did an "
+                             f"{r.request_type.name.lower()}.")
+                    break
+        op = first.request_type
+        # Allreduce: full shape agreement (operations.cc:299-330).
+        if error is None and op == RequestType.ALLREDUCE:
+            for r in reqs[1:]:
+                if r.tensor_shape != first.tensor_shape:
+                    error = (f"Mismatched allreduce tensor shapes: One rank "
+                             f"sent a tensor of shape "
+                             f"{list(first.tensor_shape)}, but another rank "
+                             f"sent a tensor of shape "
+                             f"{list(r.tensor_shape)}.")
+                    break
+        # Reducescatter: shape agreement, and never completes via joins.
+        if error is None and op == RequestType.REDUCESCATTER:
+            for r in reqs[1:]:
+                if r.tensor_shape != first.tensor_shape:
+                    error = (f"Mismatched reducescatter tensor shapes: One "
+                             f"rank sent a tensor of shape "
+                             f"{list(first.tensor_shape)}, but another rank "
+                             f"sent a tensor of shape "
+                             f"{list(r.tensor_shape)}.")
+                    break
+            if error is None and len(reqs) < self.size:
+                error = ("Reducescatter cannot complete after a rank has "
+                         "joined: every rank must participate to receive "
+                         "its chunk of the result.")
+        # Allreduce/reducescatter: reduce-op agreement.
+        if error is None and op in (RequestType.ALLREDUCE,
+                                    RequestType.REDUCESCATTER):
+            for r in reqs[1:]:
+                if r.reduce_op != first.reduce_op:
+                    error = (f"Mismatched reduce operations: One rank "
+                             f"specified reduce op "
+                             f"{wire.reduce_op_name(first.reduce_op)}, but "
+                             f"another rank specified reduce op "
+                             f"{wire.reduce_op_name(r.reduce_op)}.")
+                    break
+            if error is None and op == RequestType.ALLREDUCE \
+                    and len(reqs) < self.size and \
+                    first.reduce_op not in (wire.ReduceOp.SUM,
+                                            wire.ReduceOp.AVERAGE):
+                error = (f"Allreduce with reduce op "
+                         f"{wire.reduce_op_name(first.reduce_op)} cannot "
+                         f"complete after a rank has joined: a joined "
+                         f"rank's zero contribution is only an identity "
+                         f"for sum/average.")
+        # Allgather: same ndim, same non-first dims (operations.cc:334-392).
+        tensor_sizes: List[int] = []
+        if error is None and op == RequestType.ALLGATHER:
+            if len(first.tensor_shape) == 0:
+                error = "Rank zero tried to gather a rank-zero tensor."
+            else:
+                for r in reqs[1:]:
+                    if len(r.tensor_shape) != len(first.tensor_shape):
+                        error = (
+                            f"Mismatched allgather tensor shapes: One rank "
+                            f"sent a tensor of rank {len(first.tensor_shape)},"
+                            f" but another rank sent a tensor of rank "
+                            f"{len(r.tensor_shape)}.")
+                        break
+                    for dim in range(1, len(first.tensor_shape)):
+                        if r.tensor_shape[dim] != first.tensor_shape[dim]:
+                            error = (
+                                f"Mismatched allgather tensor shapes: One "
+                                f"rank sent a tensor with dimension {dim} "
+                                f"equal to {first.tensor_shape[dim]}, but "
+                                f"another rank sent a tensor with dimension "
+                                f"{dim} equal to {r.tensor_shape[dim]}.")
+                            break
+                    if error:
+                        break
+            if error is None:
+                # Rank-indexed extents; joined ranks contribute 0 rows.
+                by_rank = {r.request_rank: r.tensor_shape[0] for r in reqs}
+                tensor_sizes = [by_rank.get(r, 0) for r in range(self.size)]
+        # Alltoall: trailing-dim agreement, splits covering dim 0, never
+        # via joins; tensor_sizes carries the split matrix by sender.
+        alltoall_sizes: List[int] = []
+        if error is None and op == RequestType.ALLTOALL:
+            if len(first.tensor_shape) == 0:
+                error = "An alltoall tensor needs at least one dimension."
+            for r in reqs[1:]:
+                if error:
+                    break
+                if len(r.tensor_shape) != len(first.tensor_shape) or \
+                        r.tensor_shape[1:] != first.tensor_shape[1:]:
+                    error = (f"Mismatched alltoall tensor shapes: One rank "
+                             f"sent a tensor of shape "
+                             f"{list(first.tensor_shape)}, but another "
+                             f"rank sent a tensor of shape "
+                             f"{list(r.tensor_shape)}.")
+            if error is None and len(reqs) < self.size:
+                error = ("Alltoall cannot complete after a rank has "
+                         "joined: every rank must both send and receive.")
+            if error is None:
+                for r in reqs:
+                    d0 = r.tensor_shape[0]
+                    if not r.splits:
+                        if d0 % self.size != 0:
+                            error = (f"Alltoall without splits needs dim 0 "
+                                     f"divisible by the rank count "
+                                     f"({self.size}); rank "
+                                     f"{r.request_rank} sent {d0} rows.")
+                            break
+                        row = [d0 // self.size] * self.size
+                    elif len(r.splits) != self.size or \
+                            sum(r.splits) != d0 or \
+                            any(s < 0 for s in r.splits):
+                        error = (f"Invalid alltoall splits from rank "
+                                 f"{r.request_rank}: {list(r.splits)} "
+                                 f"must have one non-negative entry per "
+                                 f"rank ({self.size}) summing to its dim "
+                                 f"0 ({d0}).")
+                        break
+                    else:
+                        row = list(r.splits)
+                    alltoall_sizes.extend(row)
+        # Broadcast: root and shape agreement (operations.cc:396-431).
+        if error is None and op == RequestType.BROADCAST:
+            for r in reqs[1:]:
+                if r.root_rank != first.root_rank:
+                    error = (f"Mismatched broadcast root ranks: One rank "
+                             f"specified root rank {first.root_rank}, but "
+                             f"another rank specified root rank "
+                             f"{r.root_rank}.")
+                    break
+            if error is None:
+                for r in reqs[1:]:
+                    if r.tensor_shape != first.tensor_shape:
+                        error = (f"Mismatched broadcast tensor shapes: One "
+                                 f"rank sent a tensor of shape "
+                                 f"{list(first.tensor_shape)}, but another "
+                                 f"rank sent a tensor of shape "
+                                 f"{list(r.tensor_shape)}.")
+                        break
+            if error is None and len(reqs) < self.size \
+                    and first.root_rank not in {r.request_rank
+                                                for r in reqs}:
+                error = (f"Broadcast root rank {first.root_rank} has "
+                         f"joined; a joined rank cannot be the source "
+                         f"of a broadcast.")
+        # Device agreement (operations.cc:418-440).
+        if error is None:
+            for r in reqs[1:]:
+                if (r.device == wire.CPU_DEVICE_ID) != (
+                        first.device == wire.CPU_DEVICE_ID):
+                    error = (f"Mismatched host/device selection: One rank "
+                             f"specified device {first.device}, but another "
+                             f"rank specified device {r.device}.")
+                    break
+
+        if error is not None:
+            return Response(ResponseType.ERROR, [name], error_message=error,
+                            process_set_id=first.process_set_id)
+        self._resp_dtype[name] = first.tensor_type
+        self._resp_nbytes[name] = entry.nbytes
+        devices = [r.device for r in reqs]
+        common = dict(devices=devices, tensor_type=first.tensor_type,
+                      tensor_shapes=[tuple(first.tensor_shape)],
+                      process_set_id=first.process_set_id)
+        if op == RequestType.ALLREDUCE:
+            return Response(ResponseType.ALLREDUCE, [name],
+                            reduce_op=first.reduce_op, **common)
+        if op == RequestType.REDUCESCATTER:
+            return Response(ResponseType.REDUCESCATTER, [name],
+                            reduce_op=first.reduce_op, **common)
+        if op == RequestType.ALLTOALL:
+            return Response(ResponseType.ALLTOALL, [name],
+                            tensor_sizes=alltoall_sizes, **common)
+        if op == RequestType.ALLGATHER:
+            return Response(ResponseType.ALLGATHER, [name],
+                            tensor_sizes=tensor_sizes, **common)
+        return Response(ResponseType.BROADCAST, [name],
+                        tensor_sizes=[first.root_rank], **common)
+
+    def poll_responses(self, sizes_bytes: Dict[str, int]) -> List[Response]:
+        """Drain ready tensors into (possibly fused) responses: withdrawn
+        ERRORs first, the JOIN release last.  ``sizes_bytes`` maps tensor
+        name to payload bytes (rank 0's queue); a name not in it falls
+        back to the submit-time size."""
+        with self._lock:
+            withdrawn, self._withdrawn = self._withdrawn, []
+            release, self._join_release = self._join_release, []
+            ready, self.ready = self.ready, []
+            responses = [self._construct_response_locked(n) for n in ready]
+            dtypes = dict(self._resp_dtype)
+            nbytes_map = dict(self._resp_nbytes)
+
+        metas = [_cache._FusionMeta(
+            response_type=r.response_type, devices=tuple(r.devices),
+            reduce_op=r.reduce_op, process_set_id=r.process_set_id,
+            dtype=dtypes.get(r.tensor_names[0]),
+            nbytes=sizes_bytes.get(r.tensor_names[0],
+                                   nbytes_map.get(r.tensor_names[0], 0)))
+            for r in responses]
+        fused: List[Response] = list(withdrawn)
+        for group in _cache.plan_fusion(metas,
+                                        lambda _psid: self.fusion_threshold):
+            r = responses[group[0]]
+            for j in group[1:]:
+                nxt = responses[j]
+                r.tensor_names.extend(nxt.tensor_names)
+                r.tensor_shapes.extend(nxt.tensor_shapes)
+            fused.append(r)
+        with self._lock:
+            for r in fused:
+                for n in r.tensor_names:
+                    self._resp_dtype.pop(n, None)
+                    self._resp_nbytes.pop(n, None)
+        fused.extend(release)
+        return fused
+
+    def check_stalled(self, now: Optional[float] = None,
+                      threshold: Optional[float] = None) -> List[str]:
+        now = time.monotonic() if now is None else now
+        threshold = stall_warning_seconds() if threshold is None \
+            else threshold
+        warnings = []
+        with self._lock:
+            items = [(name, entry.first_seen, set(entry.ranks))
+                     for name, entry in self.table.items()]
+        for name, first_seen, ranks in items:
+            if now - first_seen > threshold:
+                ready = sorted(ranks)
+                missing = sorted(set(range(self.size)) - ranks)
+                warnings.append(
+                    f"Tensor {name} has been pending for "
+                    f"{now - first_seen:.0f}s; ready replicas: {ready}; "
+                    f"waiting on replicas: {missing}. One or more replicas "
+                    f"submitted this collective and are waiting for the "
+                    f"remaining replicas to do the same.")
+        return warnings
+
+    def set_fusion_threshold(self, v: int) -> None:
+        with self._lock:
+            self.fusion_threshold = v
+
+    def close(self) -> None:
+        with self._lock:
+            self.table.clear()
+            self.ready.clear()

@@ -6,8 +6,12 @@ by dtype in first-appearance order, packed greedily up to
 ``HOROVOD_FUSION_THRESHOLD`` bytes (default 64 MB), one flat buffer and one
 allreduce per bucket.  Leaves come in the reference's pytree order
 (:mod:`..utils.tree`), so the bucket plans equal the reference's exactly.
-Overlapping the reduction with the backward pass (gradient hooks) is
-later work.
+
+This module is the port of the reference's compiled, un-negotiated path:
+its collectives are direct ``torch.distributed`` calls on the job's
+group, every rank issuing them in the same order.  The hook-driven
+optimizer that overlaps the reduction with the backward pass rides the
+negotiated collectives instead (:mod:`..frontends.torch`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ import torch
 import torch.distributed as dist
 
 from ..core import state as _state
-from ..ops import collective as C
 from ..ops.compression import NoneCompressor
 from ..ops.wire import ReduceOp
 from ..utils.tree import tree_flatten, tree_unflatten
@@ -163,13 +166,21 @@ class DistributedOptimizer:
 
 def broadcast_parameters(params, root_rank: int = 0):
     """Copy ``root_rank``'s parameters into every rank's, in place (all
-    broadcasts started, then synchronized; reference :445).  ``params``
-    is a pytree of tensors; returns it."""
+    broadcasts started, then waited for; reference :445).  ``params`` is a
+    pytree of tensors; returns it.  Like :func:`allreduce_gradients`, a
+    direct ``torch.distributed`` call on the job's group, not a negotiated
+    collective."""
+    _state._check_initialized()
+    if not 0 <= root_rank < _state.size():
+        raise ValueError(f"root_rank {root_rank} outside "
+                         f"[0, {_state.size()}).")
+    dev = _state.device()
     leaves, _ = tree_flatten(params)
-    handles = [C.broadcast_async(leaf, root_rank,
-                                 name=f"broadcast.param.{i}")
-               for i, leaf in enumerate(leaves)]
+    bufs = [leaf.detach().to(dev) for leaf in leaves]
+    works = [dist.broadcast(b, src=root_rank, async_op=True) for b in bufs]
     with torch.no_grad():
-        for leaf, h in zip(leaves, handles):
-            leaf.copy_(C.synchronize(h))
+        for leaf, buf, work in zip(leaves, bufs, works):
+            work.wait()
+            if buf.data_ptr() != leaf.data_ptr():
+                leaf.copy_(buf)
     return params

@@ -8,6 +8,16 @@ over ranks.  PyTorch runs eagerly, so a step is a plain function; the
 parameters are updated in place by the optimizer.  The overlapped
 schedules and the multi-axis (tensor/sequence/pipeline/expert) step are
 later work.
+
+The gradients take one of two paths.  :class:`.data.DistributedOptimizer`
+reduces them after the backward pass with direct ``torch.distributed``
+calls on the job's group (the reference's compiled, un-negotiated path).
+The hook-driven ``frontends.torch.DistributedOptimizer`` reduces each
+gradient as backward produces it, through the negotiated collectives on
+their own group.  The loss and metric averages are negotiated
+collectives either way.  Rule: a caller does not keep negotiated async
+ops in flight across a monolithic step (the two groups' kernels must not
+interleave in different orders on different ranks).
 """
 
 from __future__ import annotations
@@ -24,7 +34,9 @@ from .input import device_put_batch
 
 
 def _distributed(optimizer, average, fusion_threshold, op):
-    if isinstance(optimizer, DistributedOptimizer):
+    from ..frontends.torch import _DistributedOptimizer as HookOptimizer
+
+    if isinstance(optimizer, (DistributedOptimizer, HookOptimizer)):
         return optimizer
     return DistributedOptimizer(optimizer, average=average,
                                 fusion_threshold=fusion_threshold, op=op)
@@ -37,7 +49,8 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
 
     Args:
       loss_fn: ``loss_fn(params, batch) -> scalar`` on this rank's batch.
-      optimizer: a :class:`DistributedOptimizer`, or a
+      optimizer: a :class:`DistributedOptimizer`, the hook-driven
+        ``frontends.torch.DistributedOptimizer``, or a
         ``torch.optim.Optimizer`` over the parameter leaves, which is
         wrapped in one with ``average``, ``fusion_threshold`` and ``op``
         (as for :func:`~.data.allreduce_gradients`).
@@ -52,7 +65,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, batch)
         loss.backward()
-        optimizer.step()  # the bucketed allreduce, then the update
+        optimizer.step()  # the gradients' allreduce, then the update
         return C.allreduce(loss.detach(), average=True, name="train.loss")
 
     return step

@@ -47,3 +47,16 @@ def tree_map(fn: Callable, tree) -> Any:
 
 def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
+
+
+def tree_named_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order, the path of
+    dict keys and list indices joined by ``/`` (``"layers/wq"``): the
+    ``named_parameters`` of a parameter tree."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, x in enumerate(tree)
+                for item in tree_named_leaves(x, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]

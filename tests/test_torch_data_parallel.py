@@ -159,8 +159,9 @@ def test_size_one_state_and_collectives(port_cpu):
         port_cpu.broadcast(x, 1)
     with pytest.raises(ValueError, match="mutually exclusive"):
         port_cpu.allreduce(x, average=True, op=port_cpu.Sum)
-    with pytest.raises(NotImplementedError):
-        port_cpu.allreduce(x, op=port_cpu.ReduceOp.MAX)
+    assert torch.equal(port_cpu.allreduce(x, op=port_cpu.ReduceOp.MAX), x)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        port_cpu.allreduce(x, op=port_cpu.Adasum)
 
 
 def test_adasum_and_sparse_raise_with_roadmap_items(port_cpu):

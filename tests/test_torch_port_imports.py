@@ -32,21 +32,34 @@ def _package_modules():
 
 def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
     names = [name for _, name in _package_modules()]
-    code = ("import importlib, sys\n"
+    code = ("import importlib, sys, threading\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['horovod_tpu'] = None\n"
+            "threads = threading.active_count()\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "loaded = [m for m, mod in sys.modules.items() if mod is not None"
             " and m.split('.')[0] in ('jax', 'horovod_tpu')]\n"
             "assert not loaded, loaded\n"
+            "assert threading.active_count() == threads, 'import started a "
+            "thread'\n"
             "print('IMPORTS_OK')\n")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "IMPORTS_OK" in out.stdout, out.stderr
-    assert len(names) >= 15
+    assert {"horovod_tpu_torch.ops.wire", "horovod_tpu_torch.ops.cache",
+            "horovod_tpu_torch.ops.coordinator",
+            "horovod_tpu_torch.ops.process_set",
+            "horovod_tpu_torch.ops.handles",
+            "horovod_tpu_torch.ops.transport",
+            "horovod_tpu_torch.ops.collective",
+            "horovod_tpu_torch.frontends.torch",
+            "horovod_tpu_torch.frontends.torch_sync_bn",
+            "horovod_tpu_torch.examples.pytorch_mnist",
+            "horovod_tpu_torch.examples.collectives_tour",
+            "horovod_tpu_torch.examples.uneven_join"} <= set(names)
 
 
 def _imported_roots(tree):

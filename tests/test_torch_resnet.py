@@ -475,11 +475,11 @@ WORKER = textwrap.dedent("""
     h = hvd.allgather_async(torch.arange(2 * rank, dtype=torch.int32))
     assert torch.equal(hvd.synchronize(h),
                        torch.tensor([0, 1], dtype=torch.int32))
-    with pytest.raises(ValueError, match="dimension 1 equal to 3"):
+    with pytest.raises(hvd.HorovodError, match="dimension 1 equal to 3"):
         hvd.allgather(torch.zeros(1, 3 + rank))
-    with pytest.raises(ValueError, match="Mismatched data types"):
+    with pytest.raises(hvd.HorovodError, match="Mismatched data types"):
         hvd.allgather(torch.zeros(1, dtype=(torch.float32, torch.int64)[rank]))
-    with pytest.raises(ValueError, match="rank-zero tensor"):
+    with pytest.raises(hvd.HorovodError, match="rank-zero tensor"):
         hvd.allgather(torch.tensor(1.0))
     # Objects.
     objs = hvd.allgather_object({"rank": rank, "pad": "x" * (100 * rank)})
