@@ -32,7 +32,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              step, and the profiled step must show each redesigned
              kernel (forward, dK/dV, dQ) n_layers times and none of the
              first form's.
-6. eager   - the negotiated collectives on one rank with NCCL, and the
+6. eager   - first, cProfile of 1,000 synchronous 4-byte negotiated
+             allreduces (tools/negotiation_profile.py) on the CPU and on
+             the card, the response cache off and on; then the
+             negotiated collectives on one rank with NCCL, and the
              hook-driven horovod.torch DistributedOptimizer: every
              collective (allreduce Sum/Average/Min/Max/Product, a grouped
              allreduce fused into one response, ragged allgather,
@@ -40,17 +43,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
              set, join) in float32, bfloat16, float16 and int32 against
              plain torch on the card; a stream-order check (a 256 MB
              tensor written on a side stream, allreduce_async_ right
-             after, 20 times, exact); GPT-2-small through
-             examples/transformer_lm.py's hook path held bitwise to the
-             monolithic make_train_step over 3 steps from the same init
-             and batches; both paths timed in turns (monolithic, hook,
-             hook, monolithic; 2 warm-up and 5 timed steps each), each
-             flash kernel 12 times a step; step ms, tokens/s, negotiated
-             tensors, fused responses and NCCL calls a step,
-             one profiled step (idle share, whether the executor's first
-             device work starts before the last dQ kernel), the latency of a
-             4-byte and a 64 MB negotiated allreduce.
-7. resnet  - ResNet data parallelism, which runs no kernel of the port's
+             after, 20 times, exact); Adasum on one rank (the input back
+             exactly in f32/bf16/f16, int32 refused) and the feature
+             queries; GPT-2-small through examples/transformer_lm.py's
+             hook path held bitwise to the monolithic make_train_step,
+             and with the response cache on to off, over 3 steps from
+             the same init and batches; timed in turns (monolithic,
+             hook, hook with the cache off twice, hook, monolithic; 2
+             warm-up and 5 timed steps each), each flash kernel 12 times
+             a step; step ms, tokens/s, negotiated tensors, cache hits
+             and misses (18 hits, 0 misses a step with the cache),
+             fused responses (the same with the cache off) and NCCL
+             calls a step; one profiled step (idle share, whether the
+             executor's first device work starts before the last dQ
+             kernel); one step under start_timeline/stop_timeline (the
+             file parses; each of the 18 tensors has its NEGOTIATE span,
+             its top-level span marked cache hit or miss, and its
+             NCCL_ALLREDUCE activity); the latency of a 4-byte and a
+             64 MB negotiated allreduce with the cache on, off, off, on
+             (a fixed name; the 4-byte one also unnamed, which the cache
+             never serves).
+7. word2vec - skip-gram word2vec with sparse embedding gradients
+             (examples/word2vec.py) at upstream Horovod's
+             tensorflow_word2vec.py configuration: vocabulary 50,000,
+             embedding 128, batch 128, 64 negatives, window 2, a seeded
+             Zipf corpus of 1,000,000 tokens, 200 steps on the card; the
+             loss must fall and every tensor stay on the card; one step
+             on the card against the same step on the CPU from the same
+             weights and batch (1e-5 relative); steps/s, pairs/s, the
+             sparse bytes a step against the dense table's 25.6 MB, and
+             one profiled step (idle share).
+8. resnet  - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -82,7 +105,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager",
-          "resnet")
+          "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -621,13 +644,17 @@ def eager_stream_order(fhvd, reps=20):
     return reps
 
 
-def negotiated_latency(fhvd, nbytes, iters):
+def negotiated_latency(fhvd, nbytes, iters, name=None):
     """Wall ms of one synchronous in-place Sum allreduce through
-    negotiation, device completion included; the share of it until the
+    negotiation, device completion included (mean, and median of the
+    single calls: the host's spread is wide); the share of it until the
     background thread has executed the response (``executed_ms``); and
     the same allreduce as one direct ``torch.distributed`` call on the
     job's group from this thread (``direct_ms``): the difference is the
-    control plane's cost."""
+    control plane's cost.  ``name`` fixes the tensor's name, as a
+    training loop's are (the response cache serves it from the second
+    call on); without one every call takes a new automatic name, which
+    the cache never serves."""
     import torch.distributed as dist
     from horovod_tpu_torch.ops import handles
 
@@ -640,16 +667,18 @@ def negotiated_latency(fhvd, nbytes, iters):
         finish(self, *args, **kwargs)
 
     for _ in range(3):
-        fhvd.allreduce_(x, op=fhvd.Sum)
+        fhvd.allreduce_(x, op=fhvd.Sum, name=name)
     torch.cuda.synchronize()
     total = executed = 0.0
+    each = []
     handles.Handle.finish = timed_finish
     try:
         for _ in range(iters):
             t0 = time.perf_counter()
-            fhvd.allreduce_(x, op=fhvd.Sum)
+            fhvd.allreduce_(x, op=fhvd.Sum, name=name)
             torch.cuda.synchronize()
-            total += time.perf_counter() - t0
+            each.append(time.perf_counter() - t0)
+            total += each[-1]
             executed += finished[-1] - t0
     finally:
         handles.Handle.finish = finish
@@ -660,7 +689,8 @@ def negotiated_latency(fhvd, nbytes, iters):
         dist.all_reduce(x)
         torch.cuda.synchronize()
     direct = time.perf_counter() - t0
-    return {"ms": total / iters * 1e3, "executed_ms": executed / iters * 1e3,
+    return {"ms": total / iters * 1e3, "median_ms": float(np.median(each))
+            * 1e3, "executed_ms": executed / iters * 1e3,
             "direct_ms": direct / iters * 1e3}
 
 
@@ -693,6 +723,116 @@ def executor_overlap(trace_path):
                 min(e["ts"] for e in side) < max(e["ts"] for e in dq)}
 
 
+def reinit_cache(hvd, cache: bool) -> None:
+    """A new ``init`` on the card with the response cache on or off
+    (``HVD_TPU_RESPONSE_CACHE`` is read at ``init``)."""
+    hvd.shutdown()
+    os.environ["HVD_TPU_RESPONSE_CACHE"] = "1" if cache else "0"
+    hvd.init(device="cuda")
+
+
+def negotiation_profiles(top=12):
+    """``tools/negotiation_profile.py``: 1,000 synchronous 4-byte
+    negotiated allreduces under cProfile, on the CPU (gloo) and on the
+    card (NCCL), with the response cache off (the path before the cache)
+    and on; the top functions by cumulative time, ms an op."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "negotiation_profile", os.path.join(HERE, "tools",
+                                            "negotiation_profile.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = {}
+    for device in ("cpu", "cuda"):
+        for cache in ("0", "1"):
+            os.environ["HVD_TPU_RESPONSE_CACHE"] = cache
+            res = mod.profile(device, 1000, top)
+            out[f"{device}.cache{cache}"] = {
+                "ms_per_op": res["ms_per_op"],
+                "profiled_ms_per_op": res["profiled_ms_per_op"],
+                "direct_ms_per_op": res["direct_ms_per_op"],
+                "top_cumulative": [
+                    (r["function"], round(r["cum_ms_per_op"], 4),
+                     round(r["own_ms_per_op"], 4))
+                    for r in res["by_cumulative"]]}
+    os.environ["HVD_TPU_RESPONSE_CACHE"] = "1"
+    return out
+
+
+def eager_adasum_and_features(hvd):
+    """Adasum on one rank is no round: the input back exactly in every
+    float dtype; int32 is refused with the reference's message.  The
+    feature queries must be true of this build."""
+    dev = torch.device("cuda")
+    x = torch.randn(33, 7, generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        got = hvd.allreduce(x.to(dt), op=hvd.Adasum)
+        if got.dtype != dt or got.device.type != "cuda" or \
+                not bool(torch.equal(got, x.to(dt))):
+            raise AssertionError(f"Adasum on one rank changed {dt} input")
+    try:
+        hvd.allreduce(torch.ones(4, dtype=torch.int32, device=dev),
+                      op=hvd.Adasum)
+        raise AssertionError("Adasum accepted int32")
+    except ValueError as exc:
+        if "floating-point" not in str(exc):
+            raise
+    names = ("mpi_built", "mpi_enabled", "nccl_built", "gloo_built",
+             "gloo_enabled", "cuda_built", "rocm_built", "ccl_built",
+             "ddl_built", "xla_built", "native_built",
+             "mpi_threads_supported")
+    answers = {n: getattr(hvd, n)() for n in names}
+    if not (answers["nccl_built"] and answers["gloo_built"]
+            and answers["cuda_built"]) or answers["mpi_enabled"]:
+        raise AssertionError(f"feature queries: {answers}")
+    return answers
+
+
+def timeline_step(hvd, step, out_dir, collective="NCCL_ALLREDUCE"):
+    """One more hook step between start_timeline and stop_timeline: the
+    file must parse, and each negotiated tensor must show a NEGOTIATE
+    span, its top-level span marked cache hit or miss, and activities."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "eager_timeline.json")
+    torch.cuda.synchronize()
+    hvd.start_timeline(path)
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    hvd.stop_timeline()
+    with open(path) as f:
+        events = json.load(f)
+    rows = {e["pid"]: e["args"]["name"] for e in events
+            if e.get("name") == "process_name"}
+    per: dict = {}
+    for e in events:
+        name = rows.get(e.get("pid"))
+        if name is None or e.get("ph") != "B":
+            continue
+        per.setdefault(name, []).append((e.get("name"),
+                                         (e.get("args") or {}).get("cache")))
+    tensors = {}
+    for name, spans in per.items():
+        neg = [n for n, _ in spans if n.startswith("NEGOTIATE_")]
+        top = [c for n, c in spans if n == "ALLREDUCE"]
+        acts = [n for n, _ in spans if n not in ("ALLREDUCE",)
+                and not n.startswith("NEGOTIATE_")]
+        if len(neg) != 1 or len(top) != 1 or top[0] not in ("hit", "miss") \
+                or collective not in acts:
+            raise AssertionError(f"timeline: tensor {name}: {spans}")
+        tensors[name] = top[0]
+    if len(tensors) != 18:
+        raise AssertionError(f"timeline: {len(tensors)} tensors, not 18: "
+                             f"{sorted(tensors)}")
+    return {"events": len(events), "tensors": len(tensors),
+            "cache": {c: sum(v == c for v in tensors.values())
+                      for c in ("hit", "miss")},
+            "step_ms_with_timeline": step_ms, "file": path}
+
+
 def phase_eager(fa, smi_line, out_dir):
     import horovod_tpu_torch as hvd
     import horovod_tpu_torch.frontends.torch as fhvd
@@ -701,6 +841,11 @@ def phase_eager(fa, smi_line, out_dir):
     from horovod_tpu_torch.utils.tree import tree_leaves
 
     torch.cuda.empty_cache()
+    # First, where a negotiated allreduce's host time goes.
+    log({"phase": "eager_profile", "what": "cProfile of 1,000 synchronous "
+         "4 B negotiated allreduces (tools/negotiation_profile.py), ms an "
+         "op; top functions (function, cumulative, own)",
+         "device": smi_line, **negotiation_profiles()})
     hvd.init(device="cuda")
     checked = eager_collectives(hvd, C)
     log({"phase": "eager", "check": "collectives against plain torch on the "
@@ -709,10 +854,13 @@ def phase_eager(fa, smi_line, out_dir):
     reps = eager_stream_order(fhvd)
     log({"phase": "eager", "check": "stream order, 256 MB on a side stream",
          "repetitions": reps, "exact": True})
+    log({"phase": "eager", "check": "Adasum on one rank and the feature "
+         "queries", "features": eager_adasum_and_features(hvd)})
 
-    # The hook path against the monolithic step: 3 steps each from the
-    # same init and batches; two monolithic runs show the run-to-run
-    # difference the hook path is held to.
+    # The hook path against the monolithic step, and the hook path with
+    # the response cache on against off: 3 steps each from the same init
+    # and batches; two monolithic runs show the run-to-run difference
+    # the hook path is held to; the cache must change no bit.
     cfg = transformer_lm.bench_config()
     batch, seq = 8, 1024
 
@@ -729,31 +877,52 @@ def phase_eager(fa, smi_line, out_dir):
 
     mono_a, mono_b = three_steps(False), three_steps(False)
     hook = three_steps(True)
+    reinit_cache(hvd, False)
+    hook_off = three_steps(True)
+    reinit_cache(hvd, True)
     run_to_run, hook_vs_mono = diff(mono_a, mono_b), diff(hook, mono_a)
+    cache_on_vs_off = diff(hook, hook_off)
     log({"phase": "eager", "check": "hook path against make_train_step, "
+         "and the hook path with the response cache on against off, "
          "GPT-2-small, 3 steps", "monolithic_run_to_run_max_diff": run_to_run,
          "hook_vs_monolithic_max_diff": hook_vs_mono,
-         "losses_monolithic": mono_a[0], "losses_hook": hook[0]})
+         "hook_cache_on_vs_off_max_diff": cache_on_vs_off,
+         "losses_monolithic": mono_a[0], "losses_hook": hook[0],
+         "losses_hook_cache_off": hook_off[0]})
     if hook_vs_mono > run_to_run:
         raise AssertionError(
             f"the hook path differs from the monolithic step by "
             f"{hook_vs_mono}, two monolithic runs by {run_to_run}")
-    del mono_a, mono_b, hook
+    if cache_on_vs_off != 0.0:
+        raise AssertionError(f"the response cache changed the hook path by "
+                             f"{cache_on_vs_off}")
+    del mono_a, mono_b, hook, hook_off
     torch.cuda.empty_cache()
 
-    # Timed in turns, monolithic, hook, hook, monolithic (2 + 5 steps
-    # each); one hook step profiled.
+    # Timed in turns: monolithic, hook (cache on), hook (off), hook
+    # (off), hook (on), monolithic; 2 warm-up and 5 timed steps each, the
+    # counts of the timed steps only.  One hook step profiled, one under
+    # the timeline.
     warmup, steps = 2, 5
-    timed = {"monolithic": [], "hook": []}
-    for hooks in (False, True, True, False):
-        path = "hook" if hooks else "monolithic"
+    turns = (("monolithic", False, True), ("hook", True, True),
+             ("hook_cache_off", True, False), ("hook_cache_off", True, False),
+             ("hook", True, True), ("monolithic", False, True))
+    timed = {"monolithic": [], "hook": [], "hook_cache_off": []}
+    for path, hooks, cache in turns:
+        reinit_cache(hvd, cache)
         fa.reset_launches()
-        C.reset_stats()
-        run = transformer_lm.train(cfg, batch=batch, seq=seq,
-                                   steps=warmup + steps, timed_from=warmup,
+        run = transformer_lm.train(cfg, batch=batch, seq=seq, steps=warmup,
                                    device="cuda", seed=0, hooks=hooks)
+        C.reset_stats()
+        losses = list(run["losses"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(run["step"](run["params"], run["data"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
         launches, stats = dict(fa.launches), C.stats()
-        losses = run["losses"]
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"loss not finite and falling: {losses}")
         if any(c != cfg.n_layers * (warmup + steps)
@@ -768,41 +937,141 @@ def phase_eager(fa, smi_line, out_dir):
                             + [p.grad for p in leaves if p.grad is not None]
                             + list(run["data"])):
             raise AssertionError("a tensor of the step is off the card")
-        n = warmup + steps
+        per_step = {k: v / steps for k, v in stats.items()}
+        if hooks and per_step["tensors"] != 18:
+            raise AssertionError(f"hook step: {per_step['tensors']} "
+                                 f"negotiated tensors, not 18")
+        if path == "hook" and (per_step["cache_hits"] != 18
+                               or per_step["cache_misses"] != 0):
+            raise AssertionError(f"hook step with the cache after warm-up: "
+                                 f"{per_step}")
         timed[path].append({
-            "step_ms": run["timed_seconds"] / steps * 1e3,
-            "tokens_per_s": batch * seq * steps / run["timed_seconds"],
-            "negotiated_tensors_per_step": stats["tensors"] / n,
-            "responses_per_step": stats["responses"] / n,
-            "nccl_calls_per_step": stats["collective_calls"] / n,
-            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "step_ms": seconds / steps * 1e3,
+            "tokens_per_s": batch * seq * steps / seconds,
+            "negotiated_tensors_per_step": per_step["tensors"],
+            "cache_hits_per_step": per_step["cache_hits"],
+            "cache_misses_per_step": per_step["cache_misses"],
+            "responses_per_step": per_step["responses"],
+            "nccl_calls_per_step": per_step["collective_calls"],
+            "launches_per_step": {k: v / (warmup + steps)
+                                  for k, v in launches.items()},
             "losses": losses})
-        if hooks and "hook_profile" not in timed:
+
+        def one_step():
+            run["step"](run["params"], run["data"])
+
+        if path == "hook" and "hook_profile" not in timed:
             C.reset_stats()
-            prof = profile_step(lambda: run["step"](run["params"],
-                                                    run["data"]),
-                                out_dir, "eager")
+            prof = profile_step(one_step, out_dir, "eager")
             prof.update(executor_overlap(os.path.join(
                 out_dir, "eager_trace.json")))
             prof["responses"] = C.stats()["responses"]
             timed["hook_profile"] = prof
+            timed["hook_timeline"] = timeline_step(hvd, one_step, out_dir)
         del run, leaves, state
         torch.cuda.empty_cache()
-    for path in ("monolithic", "hook"):
+    for path in ("monolithic", "hook", "hook_cache_off"):
         timed[f"{path}_mean_step_ms"] = float(np.mean(
             [r["step_ms"] for r in timed[path]]))
+    if [r["responses_per_step"] for r in timed["hook"]] != \
+            [r["responses_per_step"] for r in timed["hook_cache_off"]]:
+        raise AssertionError("fused responses a step differ with the cache")
     log({"phase": "eager_trainer", "model": "GPT-2-small", "batch": batch,
          "seq": seq, "dtype": "bfloat16", "device": smi_line, **timed})
 
-    lat = {}
-    for label, nbytes, iters in (("4B", 4, 200), ("64MB", 64 * 2 ** 20, 20)):
-        lat[label] = {**negotiated_latency(fhvd, nbytes, iters),
-                      "bytes": nbytes,
-                      # pack (read + write) and unpack (read + write)
-                      "bound_ms": 4 * nbytes / PEAK_BYTES * 1e3}
+    # Negotiated latency, the cache on, off, off, on.
+    lat: dict = {}
+    for cache in (True, False, False, True):
+        reinit_cache(hvd, cache)
+        key = "cache_on" if cache else "cache_off"
+        for label, nbytes, iters, name in (
+                ("4B", 4, 200, "latency.4B"),
+                ("4B_unnamed", 4, 200, None),
+                ("64MB", 64 * 2 ** 20, 20, "latency.64MB")):
+            lat.setdefault(key, {}).setdefault(label, []).append({
+                **negotiated_latency(fhvd, nbytes, iters, name),
+                "bytes": nbytes,
+                # pack (read + write) and unpack (read + write)
+                "bound_ms": 4 * nbytes / PEAK_BYTES * 1e3})
     log({"phase": "eager_latency", "what": "synchronous in-place Sum "
-         "allreduce through negotiation, one rank, NCCL", "device": smi_line,
-         **lat})
+         "allreduce through negotiation, one rank, NCCL, the response "
+         "cache on and off in turns; a fixed name, and (4B_unnamed) a "
+         "new automatic name each call", "device": smi_line, **lat})
+    hvd.shutdown()
+
+
+def phase_word2vec(smi_line, out_dir):
+    """Skip-gram word2vec with sparse embedding gradients on the card:
+    upstream Horovod's examples/tensorflow_word2vec.py configuration
+    (vocabulary 50,000, embedding 128, batch 128, 64 negatives, window 2)
+    on a seeded Zipf corpus of 1,000,000 tokens, 200 steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import word2vec as ex
+    from horovod_tpu_torch.models import word2vec as W
+    from horovod_tpu_torch.ops import collective as C
+
+    torch.cuda.empty_cache()
+    vocab, dim, batch, negatives, steps, warmup = 50_000, 128, 128, 64, \
+        200, 20
+    hvd.init(device="cuda")
+    C.reset_stats()
+    run = ex.train(vocab=vocab, dim=dim, batch=batch, negatives=negatives,
+                   steps=steps, corpus_len=1_000_000, device="cuda",
+                   timed_from=warmup)
+    stats = C.stats()
+    model, losses = run["model"], run["losses"]
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-20:]) < np.mean(losses[:20]):
+        raise AssertionError(f"word2vec loss did not fall: {losses[:3]} .. "
+                             f"{losses[-3:]}")
+    grad = model.embeddings.grad
+    tensors = list(model.parameters()) + [p.grad for p in model.parameters()]
+    if any(t.device.type != "cuda" for t in tensors) or not grad.is_sparse:
+        raise AssertionError("word2vec: a tensor is off the card, or the "
+                             "embedding's gradient is not sparse")
+    rows = grad.coalesce().values().shape[0]
+    sparse_bytes = rows * dim * 4 + rows * 8  # f32 values, int64 indices
+    timed_s = run["timed_seconds"]
+
+    # One step on the card against the same step on the CPU, from the
+    # same weights and batch (the allreduces of one rank are exact).
+    cpu = W.Word2Vec(W.Word2VecParams(*(p.detach().cpu().clone()
+                                        for p in model.params())))
+    rng = np.random.RandomState(123)
+    b_card = ex.batch_tensors(rng, run["corpus"], batch, negatives, vocab,
+                              "cuda")
+    loss_card = ex.train_step(model, *b_card, 0.2, steps)
+    loss_cpu = ex.train_step(cpu, *(t.cpu() for t in b_card), 0.2, steps)
+    errs = {"loss": _rel_err(loss_card.cpu(), loss_cpu)}
+    for name, p, q in zip(("embeddings", "nce_weights", "nce_biases"),
+                          model.params(), cpu.params()):
+        errs[name] = _rel_err(p.detach().cpu(), q.detach())
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"word2vec step, card against CPU: {errs}")
+
+    def one_step():
+        ex.train_step(model, *ex.batch_tensors(rng, run["corpus"], batch,
+                                                negatives, vocab, "cuda"),
+                      0.2, steps + 1)
+
+    prof = profile_step(one_step, out_dir, "word2vec")
+    log({"phase": "word2vec", "config": "upstream tensorflow_word2vec.py: "
+         "vocab 50000, dim 128, batch 128, 64 negatives, window 2; seeded "
+         "Zipf corpus of 1,000,000 tokens", "steps": steps,
+         "losses_first": losses[:5], "losses_last": losses[-5:],
+         "steps_per_s": (steps - warmup) / timed_s,
+         "pairs_per_s": (steps - warmup) * batch / timed_s,
+         "step_ms": timed_s / (steps - warmup) * 1e3,
+         "negotiated_per_step": {k: v / steps for k, v in stats.items()},
+         "embedding_rows_last_step": rows,
+         "sparse_bytes_per_step": sparse_bytes,
+         "dense_bytes": vocab * dim * 4,
+         "card_vs_cpu_rel_err": errs, "device": smi_line,
+         "profile": {k: prof[k] for k in ("device_busy_ms",
+                                          "profiled_step_ms",
+                                          "device_idle_share",
+                                          "device_events", "enqueue_ms")},
+         "top_kernels": prof["top"][:6]})
     hvd.shutdown()
 
 
@@ -1037,6 +1306,8 @@ def main() -> int:
                 else None)
     if "eager" in phases:
         phase_eager(fa, smi, args.out_dir)
+    if "word2vec" in phases:
+        phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
         phase_resnet(smi, args.out_dir)
     if main_case is None or launches is None:

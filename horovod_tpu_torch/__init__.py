@@ -19,9 +19,13 @@ for ``sm_90a`` (``ops/csrc``), built by ``nvcc`` at first use.  The package impo
 neither jax nor horovod_tpu; the tests hold it against horovod_tpu.
 """
 
+from .core.features import (ccl_built, cuda_built, ddl_built, gloo_built,
+                            gloo_enabled, mpi_built, mpi_enabled,
+                            native_built, nccl_built, rocm_built, xla_built)
 from .core.state import (NotInitializedError, cross_rank, cross_size,
                          device, init, is_initialized, local_rank,
-                         local_size, rank, shutdown, size)
+                         local_size, mpi_threads_supported, rank, shutdown,
+                         size, start_timeline, stop_timeline)
 from .ops.collective import (HorovodError, add_process_set, allgather,
                              allgather_async, allreduce, allreduce_async,
                              alltoall, alltoall_async, barrier, broadcast,
@@ -35,6 +39,7 @@ from .ops.collective import (HorovodError, add_process_set, allgather,
 from .ops.compression import Compression
 from .ops.objects import allgather_object, broadcast_object
 from .ops.process_set import ProcessSet
+from .ops.sparse import IndexedSlices
 from .ops.wire import ReduceOp
 from .parallel.data import (DistributedOptimizer, allreduce_gradients,
                             broadcast_parameters, partition_fusion_buckets)
@@ -53,19 +58,24 @@ Product = ReduceOp.PRODUCT
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
-    "HorovodError", "Max", "Min", "NotInitializedError", "ProcessSet",
-    "Product", "ReduceOp", "Sum", "add_process_set", "allgather",
+    "HorovodError", "IndexedSlices", "Max", "Min", "NotInitializedError",
+    "ProcessSet", "Product", "ReduceOp", "Sum", "add_process_set",
+    "allgather",
     "allgather_async", "allgather_object", "allreduce",
     "allreduce_async", "allreduce_gradients", "alltoall",
     "alltoall_async", "barrier", "barrier_fence", "broadcast",
     "broadcast_async", "broadcast_object", "broadcast_parameters",
-    "cross_rank", "cross_size", "device", "global_process_set",
+    "ccl_built", "cross_rank", "cross_size", "cuda_built", "ddl_built",
+    "device", "gloo_built", "gloo_enabled", "global_process_set",
     "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_reducescatter",
     "grouped_reducescatter_async", "init", "is_initialized", "join",
     "local_rank", "local_size", "make_eval_step", "make_train_step",
-    "make_train_step_with_state", "partition_fusion_buckets", "poll",
-    "prefetch_to_device", "quiesce", "rank", "reducescatter",
-    "reducescatter_async", "remove_process_set", "shard_batch",
-    "shard_local_batch", "shutdown", "size", "synchronize", "tree_leaves",
+    "make_train_step_with_state", "mpi_built", "mpi_enabled",
+    "mpi_threads_supported", "native_built", "nccl_built",
+    "partition_fusion_buckets", "poll", "prefetch_to_device", "quiesce",
+    "rank", "reducescatter", "reducescatter_async", "remove_process_set",
+    "rocm_built", "shard_batch", "shard_local_batch", "shutdown", "size",
+    "start_timeline", "stop_timeline", "synchronize", "tree_leaves",
+    "xla_built",
 ]

@@ -140,6 +140,13 @@ def init(device=None) -> None:
     from ..ops import collective
 
     _state.runtime = collective.Runtime(_state)
+    # Timeline: rank 0 only, the reference's env contract
+    # (operations.cc:1201-1204).
+    timeline_path = os.environ.get("HOROVOD_TIMELINE")
+    if timeline_path and rank == 0:
+        from ..utils.timeline import Timeline
+
+        _state.runtime.set_timeline(Timeline(timeline_path))
     _state.runtime.start()
 
 
@@ -160,6 +167,33 @@ def shutdown() -> None:
                 if group is not None:
                     dist.destroy_process_group(group)
     _state.__dict__.update(_State().__dict__)
+
+
+def start_timeline(file_path: str) -> None:
+    """Begin (or switch to a new file) the Chrome-trace timeline at run
+    time (≙ the post-v0.13 ``hvd.start_timeline``).  Rank 0 only, like
+    ``HOROVOD_TIMELINE``; other ranks return.  A cycle in flight finishes
+    before the old file closes."""
+    _check_initialized()
+    if _state.rank != 0:
+        return
+    from ..utils.timeline import Timeline
+
+    _state.runtime.set_timeline(Timeline(file_path))
+
+
+def stop_timeline() -> None:
+    """Stop the timeline and finish its file (≙ ``hvd.stop_timeline``)."""
+    _check_initialized()
+    _state.runtime.set_timeline(None)
+
+
+def mpi_threads_supported() -> bool:
+    """API parity (≙ horovod_mpi_threads_supported, operations.cc:
+    1531-1539): there is no MPI, and any thread may call the
+    collectives, so True."""
+    _check_initialized()
+    return True
 
 
 def _check_initialized() -> None:

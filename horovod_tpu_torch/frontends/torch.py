@@ -29,8 +29,11 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from ..core.features import (  # noqa: F401  (feature queries)
+    cuda_built, gloo_built, mpi_built, mpi_enabled, nccl_built, rocm_built)
 from ..core.state import (init, is_initialized, local_rank,  # noqa: F401
-                          local_size, rank, shutdown, size)
+                          local_size, mpi_threads_supported, rank, shutdown,
+                          size, start_timeline, stop_timeline)
 from ..ops import collective as _C
 from ..ops.collective import (Adasum, Average, HorovodError,  # noqa: F401
                               Max, Min, Product, Sum, add_process_set,
@@ -40,15 +43,6 @@ from ..ops.compression import Compression  # noqa: F401
 from ..ops.objects import allgather_object, broadcast_object  # noqa: F401
 from ..ops.process_set import ProcessSet  # noqa: F401
 from .torch_sync_bn import SyncBatchNorm  # noqa: F401
-
-
-def start_timeline(*args, **kwargs):
-    raise NotImplementedError(
-        "the timeline (utils/timeline.py) is not in this slice of the port "
-        "(ROADMAP.md A.2)")
-
-
-stop_timeline = start_timeline
 
 
 class _Pending:

@@ -21,6 +21,7 @@ Execution, per response, on the data group (NCCL on ``cuda``, gloo on
   pack, one collective, Average's divide once on the flat buffer (floor
   for integers), then a view or copy out per tensor -- 1 pack + 1
   collective (+ 1 divide) launches, plus one copy per in-place tensor;
+  Adasum, one tensor, by pairwise exchanges (below);
 * ALLGATHER by the negotiated dim 0 of each rank (padded to the longest);
 * BROADCAST from the negotiated root; ALLTOALL by the negotiated split
   matrix (``all_to_all_single``); REDUCESCATTER (Sum, Average);
@@ -46,29 +47,50 @@ flight across a monolithic step (:mod:`..parallel.data` reduces on its
 own communicator; two communicators whose kernels interleave differently
 on two ranks can deadlock).
 
-Adasum raises ``NotImplementedError`` (ROADMAP.md A.6).  The response
-cache, the timeline and the reference's telemetry are later work.
+The response cache (:mod:`.cache`, on unless
+``HVD_TPU_RESPONSE_CACHE=0`` on rank 0): a request equal to a cached
+negotiation's goes as its entry index, and a cycle whose tensors every
+rank hit replays the stored responses on rank 0 -- ``submit``,
+``construct_response`` and ``plan_fusion`` do not run -- and, all replay,
+goes to the workers as entry indices.  Every rank observes the response
+stream in order (insertion, ``CACHE_FLUSH`` markers, the process-set
+registration rule); flushes come with ``join``, a withdrawal, a program
+change, capacity, ``add_process_set``/``remove_process_set`` and
+shutdown.  With one rank there is no exchange, and the replay still
+skips the negotiation.  ``Handle.cache_hit`` tells which requests hit.
+
+Rank 0's timeline (:mod:`..utils.timeline`, ``HOROVOD_TIMELINE`` or
+``start_timeline``) gets the NEGOTIATE spans at enqueue and negotiation,
+then each tensor's QUEUE, WAIT_FOR_DATA (GPU), MEMCPY_IN_FUSION_BUFFER,
+``NCCL_``/``GLOO_`` collective and MEMCPY_OUT_FUSION_BUFFER activities.
+
+ALLREDUCE with Adasum (ROADMAP.md A.6; never fused) runs pairwise
+exchanges with ``batch_isend_irecv``: the recursive-doubling ladder, or
+VHDD when n > 2 and the tensor has at least 2n elements.  The
+reference's telemetry is later work (A.5).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import sys
 import threading
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..core import state as _state
+from . import cache as _cache
 from . import process_set as _ps
 from . import transport as _tp
 from . import wire
-from .coordinator import PyCoordinator, stall_warning_seconds
+from .coordinator import Coordinator, stall_warning_seconds
 from .handles import Handle, HandleManager, HorovodError
 from .wire import ReduceOp, Request, RequestType, Response, ResponseType
 
@@ -100,6 +122,12 @@ _DATA_RESPONSES = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
                    ResponseType.BROADCAST, ResponseType.REDUCESCATTER,
                    ResponseType.ALLTOALL)
 
+# Timeline activity of each unfused data response (utils/timeline.py).
+_ACTIVITY = {ResponseType.ALLGATHER: "ALLGATHER",
+             ResponseType.BROADCAST: "BCAST",
+             ResponseType.ALLTOALL: "ALLTOALL",
+             ResponseType.REDUCESCATTER: "REDUCESCATTER"}
+
 
 def _numel(shape) -> int:
     n = 1
@@ -116,6 +144,109 @@ def _divide(x: torch.Tensor, denom: int) -> torch.Tensor:
     return x.floor_divide_(denom)
 
 
+# ---------------------------------------------------------------------------
+# Adasum (ROADMAP.md A.6; horovod_tpu/ops/collective.py:445-538)
+# ---------------------------------------------------------------------------
+
+def _exchange(send: torch.Tensor, peer: int, group) -> torch.Tensor:
+    """Swap ``send`` with the rank ``peer`` (a global rank) of ``group``:
+    one send and one receive, batched (NCCL and gloo both take P2P)."""
+    recv = torch.empty_like(send)
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send.contiguous(), peer, group),
+            dist.P2POp(dist.irecv, recv, peer, group)]):
+        work.wait()
+    return recv
+
+
+def _adasum_coeffs(dot, na, nb):
+    """The pairwise Adasum scales: ``1 - a.b / 2|a|^2`` and
+    ``1 - a.b / 2|b|^2`` (0 correction for a zero vector)."""
+    zero = torch.zeros_like(dot)
+    ca = 1.0 - torch.where(na > 0, dot / (2.0 * na), zero)
+    cb = 1.0 - torch.where(nb > 0, dot / (2.0 * nb), zero)
+    return ca, cb
+
+
+def _adasum_ladder(v: torch.Tensor, group, n: int, me: int, glob) -> \
+        torch.Tensor:
+    """Recursive doubling (≙ ``_adasum_ladder`` :445): log2(n) rounds,
+    each swapping the whole vector with the partner at distance 2^r and
+    combining ``ca * v + cb * other``.  The formula is symmetric, so
+    both partners get the same bits with no agreement round."""
+    for r in range(int(math.log2(n))):
+        other = _exchange(v, glob(me ^ (1 << r)), group)
+        ca, cb = _adasum_coeffs(torch.dot(v, other), torch.dot(v, v),
+                                torch.dot(other, other))
+        v = ca * v + cb * other
+    return v
+
+
+def _adasum_vhdd(v: torch.Tensor, group, n: int, me: int, glob) -> \
+        torch.Tensor:
+    """Vector halving, distance doubling (≙ ``_adasum_vhdd`` :473): at
+    round r partners swap complementary halves of their fragment,
+    combine, and recurse; after log2(n) rounds each rank owns 1/n of the
+    combined vector and a mirrored doubling phase gathers it -- about
+    2|v| on the wire against the ladder's log2(n)|v|.
+
+    Each round's three dot products span the whole 2^(r+1)-rank block,
+    whose members hold disjoint pieces of the block's (a, b) pair.  The
+    reference sums them with a grouped ``psum``; ``torch.distributed``
+    has no grouped reduce within one group, and a subgroup per block and
+    round would be log2(n) sets of communicators, each created by every
+    rank.  So every rank all-gathers its three partial sums (3n floats a
+    round) and adds its block's rows, in rank order: every member of a
+    block computes the same bits."""
+    orig = v.numel()
+    pad = (-orig) % n
+    if pad:
+        v = torch.cat([v, v.new_zeros(pad)])
+    logn = int(math.log2(n))
+    frag = v
+    for r in range(logn):
+        half = frag.numel() // 2
+        lo, hi = frag[:half], frag[half:]
+        keep_lo = ((me >> r) & 1) == 0
+        mine, send = (lo, hi) if keep_lo else (hi, lo)
+        recv = _exchange(send, glob(me ^ (1 << r)), group)
+        a, b = (mine, recv) if keep_lo else (recv, mine)  # block-0's: a
+        part = torch.stack([torch.dot(a, b), torch.dot(a, a),
+                            torch.dot(b, b)])
+        parts = [torch.empty_like(part) for _ in range(n)]
+        dist.all_gather(parts, part, group=group)
+        first = (me >> (r + 1)) << (r + 1)
+        dot, na, nb = torch.stack(parts[first:first + (2 << r)]).sum(0)
+        ca, cb = _adasum_coeffs(dot, na, nb)
+        frag = ca * a + cb * b
+    for r in range(logn - 1, -1, -1):
+        recv = _exchange(frag, glob(me ^ (1 << r)), group)
+        keep_lo = ((me >> r) & 1) == 0
+        frag = torch.cat([frag, recv] if keep_lo else [recv, frag])
+    return frag[:orig]
+
+
+def _adasum(x: torch.Tensor, group, n: int, me: int,
+            ranks=None) -> torch.Tensor:
+    """Adasum of ``x`` over the ``n`` ranks of ``group`` (``me`` is this
+    rank's index there; ``ranks`` the set's global ranks, None for the
+    world), in ``promote_types(dtype, float32)`` as the reference.  VHDD
+    when n > 2 and x has at least 2n elements, else the ladder (:532):
+    at n = 2 both move the same bytes and the ladder makes one call a
+    round instead of two.  n = 1 returns x (no round)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    v = x.reshape(-1).to(acc, copy=True)
+
+    def glob(i):
+        return i if ranks is None else ranks[i]
+
+    if n > 2 and x.numel() >= 2 * n:
+        v = _adasum_vhdd(v, group, n, me, glob)
+    else:
+        v = _adasum_ladder(v, group, n, me, glob)
+    return v.to(x.dtype).reshape(x.shape)
+
+
 @dataclass
 class _QueuedOp:
     name: str
@@ -127,6 +258,8 @@ class _QueuedOp:
     ps: Any = None  # ProcessSet for non-global ops
     out: Optional[torch.Tensor] = None  # in-place target
     ready: Any = None  # CUDA event on the caller's stream
+    request: Optional[Request] = None  # for the cache's insertion
+    cache_hit: bool = False  # sent as a cache hit, not as the request
 
 
 class Runtime:
@@ -150,9 +283,15 @@ class Runtime:
         self.channel = (_tp.ControlChannel(st.control_group, st.rank,
                                            st.size)
                         if st.size > 1 else None)
-        self.coordinator = (PyCoordinator(st.size,
-                                          st.fusion_threshold_bytes)
+        self.cache = (_cache.ResponseCache(rank=st.rank)
+                      if self._cache_agreed() else None)
+        self._hits: List[Tuple[int, int]] = []  # guarded by _lock
+        # Rank 0's Chrome trace (utils/timeline.py), or None.
+        self.timeline = None
+        self.coordinator = (Coordinator(st.size, st.fusion_threshold_bytes,
+                                        cache=self.cache)
                             if st.rank == 0 else None)
+        self.joining = False
         self._unrouted: List[Request] = []  # rank 0: sets not yet known
         self._last_stall_check = time.monotonic()
         self._stream = (torch.cuda.Stream(device=self.device)
@@ -167,8 +306,38 @@ class Runtime:
     def _zero_stats() -> Dict[str, int]:
         """tensors: tensors executed in data responses; responses: data
         responses executed; collective_calls: torch.distributed calls on
-        the data groups."""
-        return {"tensors": 0, "responses": 0, "collective_calls": 0}
+        the data groups; cache_hits / cache_misses: this rank's requests
+        sent as a hit on its cache replica / sent whole."""
+        return {"tensors": 0, "responses": 0, "collective_calls": 0,
+                "cache_hits": 0, "cache_misses": 0}
+
+    def _cache_agreed(self) -> bool:
+        """``HVD_TPU_RESPONSE_CACHE`` as rank 0 reads it: every replica
+        must exist for entry indices to mean the same tensor, so the job
+        follows rank 0."""
+        enabled = _cache.cache_enabled()
+        if self.channel is not None:
+            flag = torch.tensor([int(enabled)], dtype=torch.int64)
+            dist.broadcast(flag, src=0, group=self.st.control_group)
+            enabled = bool(flag.item())
+        return enabled
+
+    def _coordinators(self) -> list:
+        """Rank 0: the global set's coordinator, then the sets' by id."""
+        return [self.coordinator] + [
+            ps.coordinator for _, ps in sorted(_state.process_sets().items())
+            if ps.coordinator is not None]
+
+    def set_timeline(self, timeline) -> None:
+        """Swap rank 0's timeline (None stops it) between cycles; the old
+        file is finished after the cycle in flight."""
+        with self.cycle_lock:
+            old, self.timeline = self.timeline, timeline
+            if self.coordinator is not None:
+                for coord in self._coordinators():
+                    coord.timeline = timeline
+        if old is not None:
+            old.close()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -189,6 +358,7 @@ class Runtime:
         self._work.set()
         self._thread.join()
         self._poison(self.shutdown_message)
+        self.set_timeline(None)
 
     def _loop(self) -> None:
         """≙ the reference's background loop: a cycle every
@@ -221,6 +391,8 @@ class Runtime:
                 f"Horovod has been shut down: the control exchange "
                 f"failed on rank {self.rank}: {exc!r}")
             self._stopped.set()
+            if self.cache is not None:
+                self.cache.flush("control exchange failed")
             self._poison(self.shutdown_message)
 
     # -- enqueue side (any thread) ----------------------------------------
@@ -244,7 +416,8 @@ class Runtime:
         ``splits``; all requests enter the same cycle's batch."""
         if self.peer_shutdown:
             raise HorovodError(self.shutdown_message)
-        ops, msgs = [], []
+        ops, msgs, hits = [], [], []
+        cache = self.cache
         for spec in specs:
             x, ps = spec["tensor"], spec["ps"]
             home = x.device
@@ -259,12 +432,7 @@ class Runtime:
             h = self.handles.allocate(
                 spec["name"], home=home if out is None else out.device,
                 keep=(x, out))
-            ops.append(_QueuedOp(
-                name=spec["name"], op=spec["op"], tensor=x,
-                red_op=spec["red_op"], handle=h,
-                nbytes=max(_numel(x.shape), 1) * wire.dtype_size(dt),
-                ps=ps, out=out, ready=ready))
-            msgs.append(_tp.encode_request(Request(
+            req = Request(
                 request_rank=self.rank if ps is None else ps.rank(),
                 request_type=spec["op"], tensor_type=dt,
                 tensor_name=spec["name"], root_rank=spec["root_rank"],
@@ -272,7 +440,21 @@ class Runtime:
                         else wire.CPU_DEVICE_ID),
                 tensor_shape=tuple(x.shape), reduce_op=spec["red_op"],
                 process_set_id=0 if ps is None else ps.process_set_id,
-                splits=tuple(spec["splits"]))))
+                splits=tuple(spec["splits"]))
+            # A request equal to a cached negotiation's goes as its entry
+            # index (ops/cache.py); rank 0 replays the stored response.
+            hit = cache.worker_lookup(req) if cache is not None else None
+            if hit is None:
+                msgs.append(_tp.encode_request(req))
+            else:
+                hits.append(hit)
+            h.cache_hit = hit is not None
+            ops.append(_QueuedOp(
+                name=spec["name"], op=spec["op"], tensor=x,
+                red_op=spec["red_op"], handle=h,
+                nbytes=max(_numel(x.shape), 1) * wire.dtype_size(dt),
+                ps=ps, out=out, ready=ready, request=req,
+                cache_hit=hit is not None))
         with self._lock:
             taken = [o.name for o in ops if o.name in self._ops]
             if taken or len({o.name for o in ops}) < len(ops):
@@ -286,6 +468,15 @@ class Runtime:
             for o in ops:
                 self._ops[o.name] = o
             self._outbox.extend(msgs)
+            self._hits.extend(hits)
+            self.stats["cache_hits"] += len(hits)
+            self.stats["cache_misses"] += len(msgs)
+        tl = self.timeline
+        if tl is not None:
+            for o in ops:
+                tl.negotiate_start(o.name, o.op.name)
+                if o.cache_hit:
+                    tl.cache_event(o.name, hit=True)
         self._work.set()
         return [o.handle.id for o in ops]
 
@@ -309,25 +500,52 @@ class Runtime:
                 return
             self._work.clear()
             with self._lock:
-                batch, self._outbox = b"".join(self._outbox), []
+                batch = b"".join(self._outbox) + _tp.encode_hits(self._hits)
+                self._outbox, self._hits = [], []
             if self.channel is None:
                 batches = [batch]
             else:
                 batches = self.channel.gather(batch)
             responses: List[Response] = []
+            cache = self.cache
             if self.rank == 0:
-                responses = self._negotiate(batches)
+                responses, groups, epoch, compact, n_other, replay_ids = \
+                    self._negotiate(batches)
+                # Rank 0 reaches its own stream position before it
+                # publishes the stream.
+                if cache is not None:
+                    for resp in responses:
+                        cache.observe_response(
+                            resp, replay=id(resp) in replay_ids)
             if self.channel is not None:
-                payload = (wire.pack_response_list(responses)
-                           if self.rank == 0 and responses else b"")
+                payload = b""
+                if self.rank == 0 and responses:
+                    # A cycle that is all replay goes as entry indices.
+                    payload = (_tp.encode_replay(groups, epoch)
+                               if compact and groups and n_other == 0
+                               else _tp.encode_responses(responses))
                 payload = self.channel.broadcast(payload)
-                if self.rank != 0:
-                    responses = (wire.unpack_response_list(payload)
-                                 if payload else [])
+                if self.rank != 0 and payload:
+                    kind, body = _tp.decode_payload(payload)
+                    responses = (cache.rebuild_groups(*body)
+                                 if kind == _tp.PAYLOAD_REPLAY else body)
+                    if cache is not None:
+                        for resp in responses:
+                            # Insertion keeps this rank's own requests;
+                            # replayed responses find their names present.
+                            with self._lock:
+                                own = {n: self._ops[n].request
+                                       for n in resp.tensor_names
+                                       if n in self._ops}
+                            cache.observe_response(
+                                resp, own_requests={self.rank: own})
+            tl = self.timeline
+            if tl is not None:
+                self._timeline_queue(tl, responses)
             for resp in responses:
                 if self._stopped.is_set():
                     break
-                self._execute(resp)
+                self._execute(resp, tl)
 
     def _coordinator_for(self, psid: int):
         if psid == 0:
@@ -335,17 +553,44 @@ class Runtime:
         ps = _ps.get(psid)
         return None if ps is None else ps.coordinator
 
-    def _negotiate(self, batches: List[bytes]) -> List[Response]:
-        """Rank 0: submit every rank's batch, poll every coordinator
-        (the global set first, then the sets by id), watch for stalls."""
+    def _resubmit_orphans(self, orphans: List[Request]) -> None:
+        """Cached submissions a flush downgraded go back through the
+        real negotiation, each to its set's coordinator."""
+        for req in orphans:
+            coord = self._coordinator_for(req.process_set_id)
+            if coord is None:
+                continue  # the set was removed; its submitter times out
+            try:
+                coord.submit(req)
+            except ValueError:
+                pass  # duplicate: the rank submitted it again meanwhile
+
+    def _negotiate(self, batches: List[bytes]):
+        """Rank 0: account every rank's cache hits, submit its requests,
+        poll every coordinator (the global set first, then the sets by
+        id), watch for stalls.  Returns the cycle's responses in the
+        stream order every replica relies on -- the cache's flush marker,
+        the replayed responses, then the freshly negotiated ones -- with
+        the replay's entry-index groups and epoch, whether the replay may
+        go compact, the number of responses that are not replays, and
+        the ids of the replayed ones (never inserted again)."""
         errors: List[Response] = []
         shutdown = False
         pending, self._unrouted = self._unrouted, []
         withdrawals = []
+        cache = self.cache
         for r, b in enumerate(batches):
             for kind, body in _tp.decode_batch(b):
                 if kind == _tp.KIND_REQUEST:
                     pending.append(body)
+                elif kind == _tp.KIND_HITS:
+                    epoch, idxs = body
+                    for idx in idxs:
+                        # A hit that raced a flush comes back as its
+                        # stored request: a real submit (downgrade).
+                        down = cache.hit_from_wire(idx, r, epoch)
+                        if down is not None:
+                            pending.append(down)
                 elif kind == _tp.KIND_WITHDRAW:
                     withdrawals.append((r, body))
                 else:
@@ -366,14 +611,28 @@ class Runtime:
             if coord is not None:
                 ps = _ps.get(psid)
                 coord.withdraw(name, r if ps is None else ps.local_rank_of(r))
+        coords = self._coordinators()
+        marker, replayed, groups, epoch, compact = None, [], [], 0, True
+        if cache is not None:
+            self._resubmit_orphans(cache.check_capacity())
+            marker = cache.take_flush_marker()
+            thresholds = {psid: ps.coordinator.fusion_threshold
+                          for psid, ps in _state.process_sets().items()
+                          if ps.coordinator is not None}
+            thresholds[0] = self.coordinator.fusion_threshold
+            replayed, groups, epoch, compact = cache.take_ready(
+                lambda psid: thresholds.get(psid, 0))
+            tl = self.timeline
+            if tl is not None:
+                # The NEGOTIATE span of a cache-served tensor closes here.
+                for resp in replayed:
+                    for n in resp.tensor_names:
+                        tl.negotiate_end(n)
         with self._lock:
             meta = {n: o.nbytes for n, o in self._ops.items()}
-        coords = [self.coordinator] + [
-            ps.coordinator for _, ps in sorted(_state.process_sets().items())
-            if ps.coordinator is not None]
-        responses = errors
+        negotiated = errors
         for coord in coords:
-            responses += coord.poll_responses(meta)
+            negotiated += coord.poll_responses(meta)
         now = time.monotonic()
         stall_s = stall_warning_seconds()
         if now - self._last_stall_check > stall_s:
@@ -382,12 +641,34 @@ class Runtime:
                 for w in coord.check_stalled(now, stall_s):
                     print(f"WARNING: {w}", file=sys.stderr, flush=True)
         if shutdown:
-            responses.append(Response(ResponseType.SHUTDOWN,
-                                      error_message=SHUT_DOWN_ERROR_MESSAGE))
-        return responses
+            negotiated.append(Response(ResponseType.SHUTDOWN,
+                                       error_message=SHUT_DOWN_ERROR_MESSAGE))
+        # The marker first: replicas flush before inserting anything this
+        # cycle negotiated.
+        head = [marker] if marker is not None else []
+        return (head + replayed + negotiated, groups, epoch, compact,
+                len(head) + len(negotiated),
+                frozenset(id(r) for r in replayed))
+
+    def _timeline_queue(self, tl, responses: List[Response]) -> None:
+        """Rank 0: open each held tensor's top-level span and its QUEUE
+        activity; the QUEUE ends when its response starts executing."""
+        with self._lock:
+            held = dict(self._ops)
+        for resp in responses:
+            if resp.response_type not in _DATA_RESPONSES:
+                continue
+            for n in resp.tensor_names:
+                o = held.get(n)
+                if o is not None:
+                    tl.start(n, resp.response_type.name,
+                             args={"phase": "EXECUTE",
+                                   "cache": "hit" if o.cache_hit
+                                   else "miss"})
+                    tl.activity_start(n, "QUEUE")
 
     # -- execution (background thread, response order) ---------------------
-    def _execute(self, resp: Response) -> None:
+    def _execute(self, resp: Response, tl=None) -> None:
         rt = resp.response_type
         if rt == ResponseType.ERROR:
             err = HorovodError(resp.error_message)
@@ -404,26 +685,36 @@ class Runtime:
             self.shutdown_message = resp.error_message \
                 or SHUT_DOWN_ERROR_MESSAGE
             self._stopped.set()
+            if self.cache is not None:
+                # Cached cycles never replay across the teardown.
+                self.cache.flush("shutdown")
             self._poison(self.shutdown_message)
             return
         if rt not in _DATA_RESPONSES:
-            return
+            return  # CACHE_FLUSH: the cache observed it already
         ps = _ps.get(resp.process_set_id) if resp.process_set_id else None
         if resp.process_set_id and (ps is None or not ps.included()):
             return  # not a member: the set's members run it
         ops = self._take(resp.tensor_names)
+        if tl is not None:
+            for name in ops:
+                tl.activity_end(name)  # QUEUE
         try:
             if self._stream is None:
-                outs = self._run(resp, ops, ps)
+                outs = self._run(resp, ops, ps, tl)
                 event = None
             else:
                 with torch.cuda.stream(self._stream):
-                    for o in ops.values():
+                    for name, o in ops.items():
+                        if tl is not None:
+                            tl.activity_start(name, "WAIT_FOR_DATA")
                         self._stream.wait_event(o.ready)
                         o.tensor.record_stream(self._stream)
                         if o.out is not None and o.out.is_cuda:
                             o.out.record_stream(self._stream)
-                    outs = self._run(resp, ops, ps)
+                        if tl is not None:
+                            tl.activity_end(name)
+                    outs = self._run(resp, ops, ps, tl)
                     event = torch.cuda.Event()
                     event.record(self._stream)
         except Exception as exc:  # noqa: BLE001 — the collective failed:
@@ -432,18 +723,23 @@ class Runtime:
                 f"{rt.name.lower()} of {resp.tensor_names} failed on rank "
                 f"{self.rank}: {exc!r}")
             err.__cause__ = exc
-            for o in ops.values():
+            for name, o in ops.items():
+                if tl is not None:
+                    tl.end(name)
                 o.handle.finish(error=err)
             return
         self.stats["responses"] += 1
         self.stats["tensors"] += len(resp.tensor_names)
         for name, o in ops.items():
+            if tl is not None:
+                tl.end(name, dtype=str(o.tensor.dtype))
             o.handle.finish(result=outs[name], event=event)
 
-    def _run(self, resp: Response, ops: Dict[str, _QueuedOp], ps):
+    def _run(self, resp: Response, ops: Dict[str, _QueuedOp], ps, tl=None):
         """Launch one data response; returns {name: result} for the ops
         this rank holds.  Tensors this rank does not hold (it joined, or
-        withdrew locally) contribute zeros of the negotiated shape."""
+        withdrew locally) contribute zeros of the negotiated shape.  With
+        a timeline (rank 0) each held tensor's activities are marked."""
         group = self.st.data_group if ps is None else ps.group
         n = self.size if ps is None else ps.size()
         me = self.rank if ps is None else ps.rank()
@@ -451,6 +747,18 @@ class Runtime:
         dev = self.device
         rt = resp.response_type
         self.stats["collective_calls"] += 1
+        backend = "NCCL" if dev.type == "cuda" else "GLOO"
+
+        def mark(activity=None):
+            """End each held tensor's current activity (if any) and start
+            ``activity`` (if any)."""
+            if tl is None:
+                return
+            for name in ops:
+                if activity is None:
+                    tl.activity_end(name)
+                else:
+                    tl.activity_start(name, activity)
 
         def zeros(shape):
             return torch.zeros(tuple(shape), dtype=dtype, device=dev)
@@ -461,24 +769,42 @@ class Runtime:
             o.out.copy_(value.view(o.out.shape))
             return o.out
 
+        if rt == ResponseType.ALLREDUCE and \
+                resp.reduce_op == ReduceOp.ADASUM:
+            # Never fused (plan_fusion), so one tensor; no pack.
+            (nm,) = resp.tensor_names
+            o = ops.get(nm)
+            x = o.tensor if o is not None else zeros(resp.tensor_shapes[0])
+            mark(f"{backend}_ADASUM")
+            out = _adasum(x, group, n, me,
+                          None if ps is None else ps.ranks)
+            mark()
+            return {} if o is None else {nm: deliver(o, out)}
         if rt == ResponseType.ALLREDUCE:
+            mark("MEMCPY_IN_FUSION_BUFFER")
             parts = [ops[nm].tensor.reshape(-1) if nm in ops
                      else zeros((_numel(s),))
                      for nm, s in zip(resp.tensor_names, resp.tensor_shapes)]
             flat = torch.cat(parts)
+            mark()
+            mark(f"{backend}_ALLREDUCE")
             dist.all_reduce(flat, op=_DIST_OP[resp.reduce_op], group=group)
             if resp.reduce_op == ReduceOp.AVERAGE:
                 _divide(flat, n)
+            mark()
+            mark("MEMCPY_OUT_FUSION_BUFFER")
             outs, off = {}, 0
             for nm, s in zip(resp.tensor_names, resp.tensor_shapes):
                 k = _numel(s)
                 if nm in ops:
                     outs[nm] = deliver(ops[nm], flat[off:off + k].view(s))
                 off += k
+            mark()
             return outs
         (nm,) = resp.tensor_names  # the other kinds are never fused
         shape = tuple(resp.tensor_shapes[0])
         o = ops.get(nm)
+        mark(f"{backend}_{_ACTIVITY[rt]}")
         if rt == ResponseType.ALLGATHER:
             sizes = resp.tensor_sizes
             rest, longest = shape[1:], max(sizes)
@@ -514,6 +840,7 @@ class Runtime:
                             group=group)
             if resp.reduce_op == ReduceOp.AVERAGE:
                 _divide(out, n)
+        mark()
         return {} if o is None else {nm: deliver(o, out)}
 
     # -- waiting (caller threads) -------------------------------------------
@@ -564,10 +891,14 @@ class Runtime:
             raise HorovodError(self.shutdown_message)
         self.join_result = None
         self._join_done.clear()
+        self.joining = True
         self._post([_tp.encode_request(Request(
             self.rank, RequestType.JOIN, wire.DataType.UINT8, "hvd.join"))])
         timeout = float(os.environ.get("HOROVOD_TPU_JOIN_TIMEOUT", "600"))
-        self._cycle_until(self._join_done, timeout)
+        try:
+            self._cycle_until(self._join_done, timeout)
+        finally:
+            self.joining = False
         if self.peer_shutdown:
             raise HorovodError(self.shutdown_message)
         if self.join_result is None:
@@ -626,15 +957,35 @@ def _check_process_set(process_set):
     return process_set
 
 
+def _check_reduce_op(red_op: ReduceOp, dtype, process_set=None) -> None:
+    """Adasum's preconditions, with the reference's messages
+    (:2337-2353)."""
+    if red_op != ReduceOp.ADASUM:
+        return
+    n = _state.size() if process_set is None else process_set.size()
+    if n & (n - 1) != 0:
+        raise ValueError(
+            f"op=Adasum requires a power-of-two contributor count for "
+            f"its recursive-doubling ppermute ladder; got {n}.")
+    if not (dtype.is_floating_point or dtype.is_complex):
+        raise ValueError(
+            f"op=Adasum is defined on floating-point gradients; got "
+            f"dtype {str(dtype).replace('torch.', '')}.")
+    if _runtime().joining:
+        raise HorovodError(
+            "op=Adasum cannot run while this rank has joined: a zero "
+            "contribution is only an identity for sum/average.")
+
+
 def _spec(tensor, op: RequestType, name: Optional[str], prefix: str,
           process_set=None, red_op: ReduceOp = ReduceOp.SUM,
           root_rank: int = -1, splits=(), out=None) -> dict:
     rt = _runtime()
     ps = _check_process_set(process_set)
-    if op == RequestType.ALLREDUCE and red_op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "op=Adasum is not in this slice of the port (ROADMAP.md A.6)")
-    return dict(tensor=torch.as_tensor(tensor), op=op, red_op=red_op,
+    tensor = torch.as_tensor(tensor)
+    if op == RequestType.ALLREDUCE:
+        _check_reduce_op(red_op, tensor.dtype, ps)
+    return dict(tensor=tensor, op=op, red_op=red_op,
                 name=name or rt.auto_name(prefix, ps), ps=ps,
                 root_rank=root_rank, splits=splits, out=out)
 
@@ -660,7 +1011,22 @@ def allreduce_async(tensor, average=None, name: Optional[str] = None,
 
 def allreduce(tensor, average=None, name: Optional[str] = None, op=None,
               process_set=None):
-    """Synchronous allreduce -- see :func:`allreduce_async`."""
+    """Synchronous allreduce -- see :func:`allreduce_async`.
+    :class:`~.sparse.IndexedSlices` inputs take the sparse path, a
+    negotiated allgather of values and indices (≙ the reference's
+    :2885-2901, tensorflow/__init__.py:67-78)."""
+    from . import sparse as _sparse
+
+    if isinstance(tensor, _sparse.IndexedSlices):
+        red = _resolve_op(average, op)
+        if red not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+            raise ValueError(
+                f"sparse (IndexedSlices) allreduce supports only "
+                f"sum/average — it is a gather of (values, indices), "
+                f"reference tensorflow/__init__.py:67-78; got op="
+                f"{wire.reduce_op_name(red)}.")
+        return _sparse.allreduce(tensor, average=red == ReduceOp.AVERAGE,
+                                 name=name, process_set=process_set)
     return synchronize(allreduce_async(tensor, average, name, op,
                                        process_set))
 
@@ -873,9 +1239,22 @@ def add_process_set(ranks):
     ps = _ps.ProcessSet(psid, ranks, dist.new_group(
         list(ranks), backend="nccl" if rt.device.type == "cuda" else "gloo"))
     if rt.coordinator is not None:
-        ps.coordinator = PyCoordinator(ps.size(), st.fusion_threshold_bytes)
+        # The set shares the one cache replica (entry indices span every
+        # set) and counts hits in global ranks.
+        ps.coordinator = Coordinator(
+            ps.size(), st.fusion_threshold_bytes, timeline=rt.timeline,
+            cache=rt.cache, ranks=ranks)
     st.process_sets[psid] = ps
+    _flush_for_membership(rt, f"add_process_set({psid})")
     return ps
+
+
+def _flush_for_membership(rt: Runtime, reason: str) -> None:
+    """With more than one rank every replica flushes on the
+    registration allgather (a rule of the response stream); one rank
+    has no such allgather and flushes here."""
+    if rt.cache is not None and rt.channel is None:
+        rt._resubmit_orphans(rt.cache.flush(reason))
 
 
 def remove_process_set(process_set) -> bool:
@@ -900,6 +1279,7 @@ def remove_process_set(process_set) -> bool:
     ps = st.process_sets.pop(psid)
     ps.close()
     dist.destroy_process_group(ps.group)
+    _flush_for_membership(_runtime(), f"remove_process_set({psid})")
     return True
 
 

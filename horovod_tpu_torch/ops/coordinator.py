@@ -1,5 +1,7 @@
 """Negotiation: name-keyed readiness, cross-rank validation, fusion, stall
-watch (copied from horovod_tpu/ops/coordinator.py:51-486, ``PyCoordinator``).
+watch (copied from horovod_tpu/ops/coordinator.py:51-486, ``PyCoordinator``),
+and the ``Coordinator`` facade that puts the response cache and the
+timeline's marks above it (:565-803).
 
 Rank 0 runs one coordinator per process set.  Every rank's requests reach
 it through the control exchange (:mod:`.transport`); a tensor is ready
@@ -17,7 +19,9 @@ every rank executes in the same order:
 
 The copy leaves out the reference's telemetry, lock-order and race
 instrumentation, flight recorder and native twin; responses are byte for
-byte the reference's.
+byte the reference's.  One repair: a request for a tensor that a JOIN has
+already made ready is not listed twice (the reference's next poll raises
+``KeyError`` there, ROADMAP.md C.1).
 """
 
 from __future__ import annotations
@@ -128,7 +132,11 @@ class PyCoordinator:
             entry.requests.append(req)
             entry.ranks.add(req.request_rank)
             if len(entry.ranks | self.joined) == self.size:
-                self.ready.append(req.tensor_name)
+                # A JOIN may already have made it ready; a second entry
+                # would make the next poll construct it twice (the
+                # reference's KeyError, ROADMAP.md C.1).
+                if req.tensor_name not in self.ready:
+                    self.ready.append(req.tensor_name)
                 return True
             return False
 
@@ -398,3 +406,151 @@ class PyCoordinator:
         with self._lock:
             self.table.clear()
             self.ready.clear()
+
+
+_DATA_RESPONSE_TYPES = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
+                        ResponseType.BROADCAST, ResponseType.REDUCESCATTER,
+                        ResponseType.ALLTOALL)
+
+
+class Coordinator:
+    """A :class:`PyCoordinator` with the timeline's negotiation marks and
+    the response cache's fast path above it (port of
+    horovod_tpu/ops/coordinator.py:565-803, ``Coordinator``).
+
+    With a :class:`~.cache.ResponseCache` attached, a submitted request
+    equal to a cached negotiation's is accounted as a hit instead of
+    entering the request table, and fully-hit cycles replay from the
+    cache (``cache.take_ready`` in the cycle): ``submit`` and
+    ``construct_response`` never run for them.  Negotiated requests are
+    kept per rank (``_inflight``) and staged into the cache at poll time,
+    so the insertion that follows in the response stream stores each
+    rank's exact request.  The reference's native implementation, program
+    tracker and telemetry are not in the port (A.2 item 6, A.5)."""
+
+    def __init__(self, size: int, fusion_threshold: int, timeline=None,
+                 cache=None, ranks=None):
+        self.timeline = timeline
+        self._impl = PyCoordinator(size, fusion_threshold)
+        self.size = size
+        self.cache = cache
+        # Global rank per set-local index (identity for the global set):
+        # cache entries count readiness in global ranks, so hits from the
+        # wire and full requests of a process set share one table.
+        self._ranks = tuple(ranks) if ranks is not None \
+            else tuple(range(size))
+        self._inflight_lock = threading.Lock()
+        # name -> {global rank -> Request} of requests in negotiation,
+        # kept for cache insertion once the response is broadcast.
+        self._inflight: Dict[str, Dict[int, Request]] = {}
+        # True when the impl has seen a submit or withdraw since the last
+        # poll; in the steady state every request is a hit and polling an
+        # untouched impl is pure overhead.  Set AFTER the impl call and
+        # cleared BEFORE the poll (the reference's ordering contract).
+        self._impl_dirty = True
+
+    @property
+    def fusion_threshold(self) -> int:
+        return self._impl.fusion_threshold
+
+    def submit(self, req: Request) -> bool:
+        done, _ = self.submit_ex(req)
+        return done
+
+    def submit_ex(self, req: Request) -> "tuple[bool, bool]":
+        """Submit one request; returns (negotiation complete, served
+        from the cache)."""
+        if self.timeline is not None:
+            self.timeline.negotiate_rank_ready(req.tensor_name,
+                                               req.request_rank,
+                                               first=req.request_rank == 0)
+        if self.cache is not None:
+            if req.request_type == RequestType.JOIN:
+                # Joined ranks complete tensors they never requested:
+                # such negotiations must not become entries.
+                self._resubmit(self.cache.disarm("hvd.join()"))
+            else:
+                kind, info = self.cache.lookup_and_hit(req)
+                if self.timeline is not None:
+                    self.timeline.cache_event(req.tensor_name,
+                                              hit=kind == "hit")
+                    st = self.cache.stats
+                    self.timeline.cache_counter(st.hits, st.misses)
+                if kind == "hit":
+                    # The NEGOTIATE span of a cache-served tensor closes
+                    # at replay, in the cycle.
+                    return bool(info), True
+                if kind == "conflict":
+                    # The program changed: the cache flushed; the peers'
+                    # cached submissions go through the real path, and
+                    # so does this one (the usual mismatch messages).
+                    self._resubmit(info)
+                self._retain(req)
+        try:
+            done = self._impl.submit(req)
+        finally:
+            self._impl_dirty = True
+        if done and self.timeline is not None:
+            self.timeline.negotiate_end(req.tensor_name)
+        return done, False
+
+    def _retain(self, req: Request) -> None:
+        local = req.request_rank
+        grank = self._ranks[local] if 0 <= local < len(self._ranks) \
+            else local
+        with self._inflight_lock:
+            self._inflight.setdefault(req.tensor_name, {})[grank] = req
+
+    def _resubmit(self, orphans: List[Request]) -> None:
+        """Feed cached submissions back through the real negotiation
+        (flush, conflict and withdraw downgrades)."""
+        for req in orphans:
+            try:
+                self._retain(req)
+                self._impl.submit(req)
+            except ValueError:
+                pass  # duplicate: the rank submitted it again meanwhile
+            finally:
+                self._impl_dirty = True
+
+    def withdraw(self, name: str, rank: int) -> None:
+        if self.cache is not None:
+            # A withdrawal means the ranks' programs diverged: invalidate,
+            # downgrading cached submissions so the impl's withdraw fails
+            # the op group-wide with the usual message.
+            self._resubmit(self.cache.flush(
+                f"withdraw of {name!r} by rank {rank}", broadcast=True))
+        try:
+            self._impl.withdraw(name, rank)
+        finally:
+            self._impl_dirty = True
+
+    def set_fusion_threshold(self, v: int) -> None:
+        self._impl.set_fusion_threshold(v)
+        if self.cache is not None:
+            # Entries stay valid; the memoized packing plans do not.
+            self.cache.invalidate_plans(f"fusion threshold -> {v}")
+
+    def poll_responses(self, sizes_bytes: Dict[str, int]) -> List[Response]:
+        if self.cache is not None and not self._impl_dirty:
+            return []  # every request since the last poll was a hit
+        self._impl_dirty = False
+        resps = self._impl.poll_responses(sizes_bytes)
+        if self.cache is not None and resps:
+            staged = []
+            with self._inflight_lock:
+                for r in resps:
+                    for n in r.tensor_names:
+                        reqs = self._inflight.pop(n, None)
+                        if reqs and r.response_type in _DATA_RESPONSE_TYPES:
+                            staged.append((n, reqs))
+            for n, reqs in staged:
+                self.cache.stage_negotiated(n, reqs)
+        return resps
+
+    def check_stalled(self, now: Optional[float] = None,
+                      threshold: Optional[float] = None) -> List[str]:
+        return self._impl.check_stalled(now, threshold)
+
+    def close(self) -> None:
+        self._impl.close()

@@ -27,7 +27,7 @@ class Handle:
     """One negotiated collective."""
 
     __slots__ = ("id", "name", "home", "done", "result", "error", "event",
-                 "keep")
+                 "keep", "cache_hit")
 
     def __init__(self, hid: int, name: str, home=None,
                  keep: Any = None) -> None:
@@ -39,6 +39,9 @@ class Handle:
         self.error: Optional[BaseException] = None
         self.event = None  # torch.cuda.Event, or None on the CPU
         self.keep = keep
+        # Its request was served from the response cache (a hit sent in
+        # place of the request, ops/cache.py).
+        self.cache_hit = False
 
     def finish(self, result: Any = None, event=None,
                error: Optional[BaseException] = None) -> None:

@@ -19,7 +19,18 @@ list, never as a side call.  With one rank there is no exchange.
 
 A batch is a sequence of messages, each a one-byte kind and a body:
 ``KIND_REQUEST`` + :meth:`wire.Request.pack`; ``KIND_WITHDRAW`` +
-``<HH`` (process set, name length) + name; ``KIND_SHUTDOWN``.
+``<HH`` (process set, name length) + name; ``KIND_SHUTDOWN``;
+``KIND_HITS`` + ``<II`` (cache epoch, count) + ``count`` × ``<I``
+response-cache entry indices: the requests of this rank that hit its
+cache replica (:mod:`.cache`), in place of the reference's TCP
+``FRAME_REQUEST_BATCH`` bit-vectors (horovod_tpu/ops/transport.py:
+101-110,163).
+
+Rank 0's broadcast is one kind byte and a body: ``PAYLOAD_RESPONSES`` +
+:func:`wire.pack_response_list`, or, for a cycle that is all cache
+replay, ``PAYLOAD_REPLAY`` + ``<II`` (epoch, groups) + per fused
+response ``<I`` count + that many ``<I`` entry indices, which the
+workers rebuild from their replica.
 """
 
 from __future__ import annotations
@@ -30,9 +41,11 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .wire import Request
+from . import wire
+from .wire import Request, Response
 
-KIND_REQUEST, KIND_WITHDRAW, KIND_SHUTDOWN = 0, 1, 2
+KIND_REQUEST, KIND_WITHDRAW, KIND_SHUTDOWN, KIND_HITS = 0, 1, 2, 3
+PAYLOAD_RESPONSES, PAYLOAD_REPLAY = 0, 1
 
 
 def encode_request(req: Request) -> bytes:
@@ -48,8 +61,25 @@ def encode_shutdown() -> bytes:
     return struct.pack("<B", KIND_SHUTDOWN)
 
 
+def encode_hits(hits: List[Tuple[int, int]]) -> bytes:
+    """``(epoch, entry index)`` pairs as one record per run of equal
+    epochs (a flush between two submissions changes the epoch)."""
+    out, i = [], 0
+    while i < len(hits):
+        epoch = hits[i][0]
+        j = i
+        while j < len(hits) and hits[j][0] == epoch:
+            j += 1
+        idxs = [idx for _, idx in hits[i:j]]
+        out.append(struct.pack(f"<BII{len(idxs)}I", KIND_HITS, epoch,
+                               len(idxs), *idxs))
+        i = j
+    return b"".join(out)
+
+
 def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
-    """``[(kind, body)]``: a Request, a (process set, name) pair, or None."""
+    """``[(kind, body)]``: a Request, a (process set, name) pair, None, or
+    an (epoch, [entry index]) pair."""
     out: List[Tuple[int, object]] = []
     off = 0
     while off < len(buf):
@@ -66,10 +96,45 @@ def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
             off += nlen
         elif kind == KIND_SHUTDOWN:
             out.append((kind, None))
+        elif kind == KIND_HITS:
+            epoch, count = struct.unpack_from("<II", buf, off)
+            off += 8
+            out.append((kind, (epoch, list(struct.unpack_from(
+                f"<{count}I", buf, off)))))
+            off += 4 * count
         else:
             raise ValueError(f"control batch: unknown message kind {kind} "
                              f"at byte {off - 1}")
     return out
+
+
+def encode_responses(responses: List[Response]) -> bytes:
+    return struct.pack("<B", PAYLOAD_RESPONSES) + \
+        wire.pack_response_list(responses)
+
+
+def encode_replay(groups: List[List[int]], epoch: int) -> bytes:
+    parts = [struct.pack("<BII", PAYLOAD_REPLAY, epoch, len(groups))]
+    for g in groups:
+        parts.append(struct.pack(f"<I{len(g)}I", len(g), *g))
+    return b"".join(parts)
+
+
+def decode_payload(buf: bytes):
+    """``(PAYLOAD_RESPONSES, [Response])`` or ``(PAYLOAD_REPLAY,
+    (groups, epoch))``."""
+    (kind,) = struct.unpack_from("<B", buf, 0)
+    if kind == PAYLOAD_RESPONSES:
+        return kind, wire.unpack_response_list(bytes(buf[1:]))
+    if kind != PAYLOAD_REPLAY:
+        raise ValueError(f"response broadcast: unknown payload kind {kind}")
+    epoch, n = struct.unpack_from("<II", buf, 1)
+    off, groups = 9, []
+    for _ in range(n):
+        (k,) = struct.unpack_from("<I", buf, off)
+        groups.append(list(struct.unpack_from(f"<{k}I", buf, off + 4)))
+        off += 4 + 4 * k
+    return kind, (groups, epoch)
 
 
 def _as_tensor(data: bytes, length: int) -> torch.Tensor:

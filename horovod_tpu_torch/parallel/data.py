@@ -12,6 +12,11 @@ its collectives are direct ``torch.distributed`` calls on the job's
 group, every rank issuing them in the same order.  The hook-driven
 optimizer that overlaps the reduction with the backward pass rides the
 negotiated collectives instead (:mod:`..frontends.torch`).
+
+``op=Adasum`` combines the whole gradient as one vector (reference
+:126); :class:`~..ops.sparse.IndexedSlices` leaves, and the sparse COO
+gradients of ``nn.Embedding(sparse=True)`` in the optimizer, go as an
+allgather of values and indices (reference :205-260, :342-430).
 """
 
 from __future__ import annotations
@@ -22,19 +27,28 @@ import torch
 import torch.distributed as dist
 
 from ..core import state as _state
+from ..ops import sparse as _sparse
 from ..ops.compression import NoneCompressor
+from ..ops.sparse import IndexedSlices
 from ..ops.wire import ReduceOp
 from ..utils.tree import tree_flatten, tree_unflatten
 
 
+def _is_slices(x) -> bool:
+    return isinstance(x, IndexedSlices)
+
+
+def _is_sparse(x) -> bool:
+    """IndexedSlices, or a sparse COO tensor (its rows as one)."""
+    return _is_slices(x) or (isinstance(x, torch.Tensor) and x.is_sparse)
+
+
 def _resolve_grad_op(average: bool, op) -> ReduceOp:
-    """``op`` supersedes ``average``; gradients take Average or Sum."""
+    """``op`` supersedes ``average``; gradients take Average, Sum or
+    Adasum."""
     red = (ReduceOp.AVERAGE if average else ReduceOp.SUM) if op is None \
         else ReduceOp(op)
-    if red == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "op=Adasum is not in this slice of the port (ROADMAP.md A.6)")
-    if red not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+    if red not in (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.ADASUM):
         raise ValueError(
             f"gradient reduction supports op=Average/Sum/Adasum; got "
             f"{red.name.lower()} (min/max/product are not gradient "
@@ -76,6 +90,64 @@ def partition_fusion_buckets(leaves, threshold: int):
     return buckets
 
 
+_SPARSE_ADASUM = ("op=Adasum does not support sparse (IndexedSlices) "
+                  "gradients; pass sparse_as_dense=True to densify them "
+                  "first.")
+
+
+def _adasum_gradients(grads):
+    """Whole-gradient Adasum (reference :126): the leaves as one vector
+    in ``promote_types`` of their dtypes with a float32 floor, combined
+    by :func:`..ops.collective._adasum` on the job's group (a power-of-two
+    rank count), then split back and cast to each leaf's dtype."""
+    from ..ops.collective import _adasum
+
+    leaves, spec = tree_flatten(grads, _is_slices)
+    if any(_is_sparse(g) for g in leaves):
+        raise ValueError(_SPARSE_ADASUM)
+    n = _state.size()
+    if n & (n - 1) != 0:
+        raise ValueError(
+            f"op=Adasum requires a power-of-two replica count for its "
+            f"recursive-doubling ppermute ladder; got {n}.")
+    if not leaves:
+        return grads
+    acc = torch.float32
+    for g in leaves:
+        acc = torch.promote_types(acc, g.dtype)
+    v = _adasum(torch.cat([g.reshape(-1).to(acc) for g in leaves]), None,
+                n, _state.rank())
+    out, off = [], 0
+    for g in leaves:
+        out.append(v[off:off + g.numel()].view(g.shape).to(g.dtype))
+        off += g.numel()
+    return tree_unflatten(spec, out)
+
+
+def _gather_sparse(g: IndexedSlices) -> IndexedSlices:
+    """Every rank's rows of ``g`` on every rank, in rank order: the nnz
+    differ per rank, so an exchange of sizes, then ``all_gather`` of the
+    values and indices padded to the longest."""
+    n = _state.size()
+    count = torch.tensor([g.values.shape[0]], dtype=torch.int64,
+                         device=g.values.device)
+    counts = [torch.empty_like(count) for _ in range(n)]
+    dist.all_gather(counts, count)
+    sizes = [int(c) for c in counts]
+    longest = max(sizes)
+
+    def gather(x):
+        if x.shape[0] < longest:
+            x = torch.cat([x, x.new_zeros((longest - x.shape[0],)
+                                          + tuple(x.shape[1:]))])
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous())
+        return torch.cat([p[:s] for p, s in zip(parts, sizes)])
+
+    return IndexedSlices(gather(g.values), gather(g.indices),
+                         tuple(g.dense_shape))
+
+
 def allreduce_gradients(grads, average: bool = True,
                         fusion_threshold: Optional[int] = None,
                         compression=None, op=None):
@@ -86,35 +158,49 @@ def allreduce_gradients(grads, average: bool = True,
     casts the wire buffers down and restores the dtype after; with
     Average the division follows the decompress, in the restored dtype
     (reference :237-241).  The inputs are not modified.
+
+    ``op=Adasum`` ignores the threshold and ``compression``: its dot
+    products are defined on the whole full-precision gradient.
+    :class:`~..ops.sparse.IndexedSlices` leaves, and sparse COO tensors
+    (``nn.Embedding(sparse=True)``'s gradient), bypass the buckets and go
+    as an allgather of values and indices (uncompressed; Average divides
+    the values); they come back as they went, IndexedSlices or COO.
     """
     _state._check_initialized()
     red = _resolve_grad_op(average, op)
+    if red == ReduceOp.ADASUM:
+        return _adasum_gradients(grads)
     compression = compression or NoneCompressor
     threshold = (_state.fusion_threshold_bytes() if fusion_threshold is None
                  else fusion_threshold)
-    leaves, spec = tree_flatten(grads)
-    if any(g.is_sparse for g in leaves):
-        raise NotImplementedError(
-            "sparse gradients are not in this slice of the port "
-            "(ROADMAP.md A.2)")
-    wire, ctxs = zip(*(compression.compress(g) for g in leaves)) \
-        if leaves else ((), ())
+    leaves, spec = tree_flatten(grads, _is_slices)
+    dense = [i for i, g in enumerate(leaves) if not _is_sparse(g)]
+    wire, ctxs = zip(*(compression.compress(leaves[i]) for i in dense)) \
+        if dense else ((), ())
     pending = []
     for bucket in partition_fusion_buckets(wire, threshold):
         flat = torch.cat([wire[i].reshape(-1) for i in bucket])
         pending.append((bucket, flat, dist.all_reduce(flat, async_op=True)))
+    n_ranks = _state.size()
     out = [None] * len(leaves)
+    for i, g in enumerate(leaves):
+        if _is_sparse(g):
+            sl = _gather_sparse(g if _is_slices(g)
+                                else _sparse.from_sparse_coo(g))
+            if red == ReduceOp.AVERAGE:
+                sl = sl._replace(values=sl.values / n_ranks)
+            out[i] = sl if _is_slices(g) else _sparse.to_sparse_coo(sl)
+    reduced = [None] * len(dense)
     for bucket, flat, work in pending:
         work.wait()
         off = 0
         for i in bucket:
             n = wire[i].numel()
-            out[i] = flat[off:off + n].view(wire[i].shape)
+            reduced[i] = flat[off:off + n].view(wire[i].shape)
             off += n
-    n_ranks = _state.size()
-    out = [compression.decompress(o, ctx) for o, ctx in zip(out, ctxs)]
-    if red == ReduceOp.AVERAGE:
-        out = [o / n_ranks for o in out]
+    for j, (o, ctx) in enumerate(zip(reduced, ctxs)):
+        o = compression.decompress(o, ctx)
+        out[dense[j]] = o / n_ranks if red == ReduceOp.AVERAGE else o
     return tree_unflatten(spec, out)
 
 
@@ -127,16 +213,24 @@ class DistributedOptimizer:
 
     Build the inner optimizer over ``tree_leaves(params)`` so that its
     parameter order, and so the bucket plan, is the reference's.
+
+    ``op=Adasum`` combines the whole gradient (power-of-two ranks).  A
+    sparse COO ``.grad`` (``nn.Embedding(sparse=True)``) goes as an
+    allgather of its rows and comes back sparse, for torch's sparse-aware
+    optimizers (``SGD``, ``SparseAdam``); ``sparse_as_dense=True``
+    densifies it first (≙ the reference's device_dense routing,
+    tensorflow/__init__.py:49-60).
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, average: bool = True,
                  fusion_threshold: Optional[int] = None, compression=None,
-                 op=None):
+                 op=None, sparse_as_dense: bool = False):
         self._inner = optimizer
         self._average = average
         self._op = None if op is None else _resolve_grad_op(average, op)
         self._fusion_threshold = fusion_threshold
         self._compression = compression
+        self._sparse_as_dense = sparse_as_dense
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -150,8 +244,11 @@ class DistributedOptimizer:
         parameter without a gradient contributes zeros, so that every rank
         reduces the same buckets."""
         params = self._params()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        grads = []
+        for p in params:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads.append(g.to_dense() if g.is_sparse and self._sparse_as_dense
+                         else g)
         reduced = allreduce_gradients(
             grads, average=self._average,
             fusion_threshold=self._fusion_threshold,

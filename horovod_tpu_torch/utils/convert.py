@@ -43,3 +43,13 @@ def params_from_jax(tree, device=None, requires_grad: bool = True):
 def params_to_numpy(params):
     """The port's tree of tensors -> the same tree of numpy arrays."""
     return tree_map(_to_numpy, params)
+
+
+def word2vec_from_jax(params, device=None, sparse: bool = True):
+    """The reference's ``Word2VecParams`` (numpy or JAX arrays, in its
+    field order) -> the port's :class:`~..models.word2vec.Word2Vec` on
+    ``device``, the same values."""
+    from ..models.word2vec import Word2Vec, Word2VecParams
+
+    return Word2Vec(Word2VecParams(*(_to_torch(x, device) for x in params)),
+                    sparse=sparse)

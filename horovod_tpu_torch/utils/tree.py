@@ -8,18 +8,23 @@ fusion-bucket plans and broadcast names match the reference leaf for leaf
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
-def tree_flatten(tree) -> Tuple[List[Any], Any]:
-    """``(leaves, spec)``; :func:`tree_unflatten` rebuilds the tree."""
+def tree_flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                 ) -> Tuple[List[Any], Any]:
+    """``(leaves, spec)``; :func:`tree_unflatten` rebuilds the tree.  A
+    node for which ``is_leaf`` is true is a leaf (as jax's ``is_leaf``:
+    an ``IndexedSlices``, a tuple, stays whole)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree], None
     if isinstance(tree, dict):
         keys = sorted(tree)
-        parts = [tree_flatten(tree[k]) for k in keys]
+        parts = [tree_flatten(tree[k], is_leaf) for k in keys]
         return ([leaf for leaves, _ in parts for leaf in leaves],
                 ("dict", keys, [spec for _, spec in parts]))
     if isinstance(tree, (list, tuple)):
-        parts = [tree_flatten(x) for x in tree]
+        parts = [tree_flatten(x, is_leaf) for x in tree]
         return ([leaf for leaves, _ in parts for leaf in leaves],
                 (type(tree).__name__, None, [spec for _, spec in parts]))
     return [tree], None

@@ -12,7 +12,9 @@
   with uneven steps, the mismatch errors with the reference's messages,
   a withdrawal on timeout, a stall warning, SyncBatchNorm and the hook
   optimizer across ranks, and names enqueued in a different order on
-  each rank.  Its results are held against the reference's eager
+  each rank; the response cache across ranks (a flush at
+  ``add_process_set``, every request a hit from the hook optimizer's
+  second step on, the same bits as a new init with the cache off).  Its results are held against the reference's eager
   collectives on 3 CPU devices (per-replica inputs via ``hvd.shard``):
   exact for integers, Min/Max, broadcast, allgather and alltoall; float32
   Sum/Average/Product within 1e-6 relative (the order of the ranks'
@@ -106,8 +108,10 @@ def test_one_rank_collectives_and_validation(port_cpu):
     assert thvd.join() == 0
     with pytest.raises(ValueError, match="not both"):
         thvd.allreduce(x, average=True, op=thvd.Sum)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        thvd.allreduce(x, op=thvd.Adasum)
+    # Adasum on one rank: no round, the input back exactly.
+    assert torch.equal(thvd.allreduce(x, op=thvd.Adasum), x)
+    with pytest.raises(ValueError, match="floating-point"):
+        thvd.allreduce(torch.arange(3), op=thvd.Adasum)
     with pytest.raises(ValueError, match="root_rank"):
         thvd.broadcast(x, 1)
     with pytest.raises(ValueError, match="at least one dimension"):
@@ -214,11 +218,23 @@ WORKER = textwrap.dedent("""
     import horovod_tpu_torch as hvd
     import horovod_tpu_torch.frontends.torch as fhvd
     from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.ops import transport
 
     rank, store, data_path, out_path = (int(sys.argv[1]), sys.argv[2],
                                         sys.argv[3], sys.argv[4])
     dist.init_process_group("gloo", store=dist.FileStore(store, 3),
                             rank=rank, world_size=3)
+    # Count the broadcasts a worker decodes: full lists and cache replays
+    # sent as entry indices.
+    payloads = {transport.PAYLOAD_RESPONSES: 0, transport.PAYLOAD_REPLAY: 0}
+    decode = transport.decode_payload
+
+    def counting_decode(buf):
+        kind, body = decode(buf)
+        payloads[kind] += 1
+        return kind, body
+
+    transport.decode_payload = counting_decode
     hvd.init(device="cpu")
     data = dict(np.load(data_path))
     DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -263,8 +279,11 @@ WORKER = textwrap.dedent("""
         for dt in ("float32", "int32"):
             keep(f"rs.{op}.{dt}", hvd.reducescatter(
                 mine("rs", dt), op=getattr(hvd.ReduceOp, op)))
-    # The set [0, 2]: set-local ranks on the wire, a global root.
+    # The set [0, 2]: set-local ranks on the wire, a global root.  Its
+    # registration allgather flushes every rank's cache replica.
+    epoch = C._runtime().cache.epoch
     ps = hvd.add_process_set([0, 2])
+    out["cache.flushed.by.set"] = np.array(C._runtime().cache.epoch > epoch)
     assert ps.included() == (rank != 1)
     if rank != 1:
         keep("ps.ar", hvd.allreduce(mine("x.float32"), op=hvd.Sum,
@@ -273,6 +292,14 @@ WORKER = textwrap.dedent("""
                                     process_set=ps))
         keep("ps.bc", hvd.broadcast(mine("x.float32"), root_rank=2,
                                     process_set=ps))
+        # A set's request served from the cache: rank 1 holds a
+        # placeholder entry and rebuilds the replay it does not run.
+        C.reset_stats()
+        for i in range(3):
+            keep(f"ps.cached.{i}", hvd.allreduce(
+                mine("x.float32"), op=hvd.Sum, name="ps.cached",
+                process_set=ps))
+        out["ps.cached.hits"] = np.array(C.stats()["cache_hits"])
     else:
         try:
             hvd.allreduce(torch.ones(1), process_set=ps)
@@ -330,21 +357,36 @@ WORKER = textwrap.dedent("""
     y = bn(xs[rank].detach().clone().requires_grad_())
     keep("sbn.out", y.detach())
     keep("sbn.running_mean", bn.running_mean)
-    # The hook optimizer: 2 SGD steps on each rank's rows, names
-    # registered in a rank-dependent order.
-    w = torch.nn.Parameter(torch.from_numpy(data["w0"]))
-    b = torch.nn.Parameter(torch.zeros(2))
-    named = [("w", w), ("b", b)][::1 if rank % 2 else -1]
-    opt = fhvd.DistributedOptimizer(torch.optim.SGD([w, b], lr=0.1),
-                                    named_parameters=named)
-    fhvd.broadcast_parameters({"w": w.data, "b": b.data}, root_rank=0)
-    for step in range(2):
-        opt.zero_grad()
-        rows = torch.from_numpy(data["hx"][rank])
-        ((rows @ w + b) ** 2).sum().backward()
-        opt.step()
-    keep("hook.w", w.detach())
-    keep("hook.b", b.detach())
+    # The hook optimizer: 3 SGD steps on each rank's rows, names
+    # registered in a rank-dependent order; the response cache serves
+    # every request after the first step.  Then the same with the cache
+    # off (a new init): the same bits.
+    def hook_steps(tag):
+        w = torch.nn.Parameter(torch.from_numpy(data["w0"].copy()))
+        b = torch.nn.Parameter(torch.zeros(2))
+        named = [("w", w), ("b", b)][::1 if rank % 2 else -1]
+        opt = fhvd.DistributedOptimizer(torch.optim.SGD([w, b], lr=0.1),
+                                        named_parameters=named)
+        fhvd.broadcast_parameters({"w": w.data, "b": b.data}, root_rank=0)
+        hits = []
+        for step in range(3):
+            C.reset_stats()
+            opt.zero_grad()
+            rows = torch.from_numpy(data["hx"][rank])
+            ((rows @ w + b) ** 2).sum().backward()
+            opt.step()
+            hits.append((C.stats()["cache_hits"], C.stats()["cache_misses"]))
+        keep(f"{tag}.w", w.detach())
+        keep(f"{tag}.b", b.detach())
+        out[f"{tag}.hits"] = np.array(hits)
+
+    hook_steps("hook")
+    out["replay.payloads"] = np.array(payloads[transport.PAYLOAD_REPLAY])
+    hvd.shutdown()
+    os.environ["HVD_TPU_RESPONSE_CACHE"] = "0"
+    hvd.init(device="cpu")
+    assert C._runtime().cache is None
+    hook_steps("hook.nocache")
     np.savez(out_path, **out)
     hvd.shutdown()
     dist.destroy_process_group()
@@ -518,6 +560,21 @@ def test_three_gloo_ranks_match_the_reference(tmp_path):
             rtol=1e-6)
         np.testing.assert_array_equal(outs[r]["ps.ag"], ref["ps.ag"])
         np.testing.assert_array_equal(outs[r]["ps.bc"], d["x.float32"][2])
+        for i in range(3):
+            np.testing.assert_array_equal(outs[r][f"ps.cached.{i}"],
+                                          outs[r]["ps.ar"])
+        assert int(outs[r]["ps.cached.hits"]) == 2
+    # The response cache across ranks: a flush at add_process_set, hits
+    # from the second step on, and the bits of the cache off.
+    for out in outs:
+        assert bool(out["cache.flushed.by.set"])
+        # Workers rebuilt all-replay cycles from their replica.
+        assert (int(out["replay.payloads"]) > 0) == (out is not outs[0])
+        assert out["hook.hits"].tolist() == [[0, 2], [2, 0], [2, 0]]
+        assert out["hook.nocache.hits"].tolist() == [[0, 2]] * 3
+        for key in ("hook.w", "hook.b"):
+            np.testing.assert_array_equal(out[key], out[key.replace(
+                "hook", "hook.nocache")])
     assert "ps.ar" not in outs[1]
     assert str(outs[0]["withdraw"]) == (
         "Collective orphan was abandoned: rank 0 timed out waiting for the "
@@ -537,7 +594,7 @@ def test_three_gloo_ranks_match_the_reference(tmp_path):
     w = torch.nn.Parameter(torch.from_numpy(d["w0"]))
     b = torch.nn.Parameter(torch.zeros(2))
     opt = torch.optim.SGD([w, b], lr=0.1)
-    for _ in range(2):
+    for _ in range(3):
         opt.zero_grad()
         loss = sum(((torch.from_numpy(d["hx"][r]) @ w + b) ** 2).sum()
                    for r in range(N)) / N

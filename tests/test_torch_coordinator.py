@@ -249,3 +249,142 @@ def test_torch_dtypes_map_to_the_reference_wire_types():
         assert twire.dtype_size(twire.dtype_of(t)) == t.itemsize
     with pytest.raises(ValueError, match="Unsupported dtype"):
         twire.dtype_of(torch.complex64)
+
+
+# -- the JOIN re-ready repair (ROADMAP.md C.1) ------------------------------
+
+def test_join_then_late_request_gives_one_response():
+    """A rank's request for a tensor a JOIN already made ready: the
+    reference appends the name to its ready list a second time and its
+    next poll raises KeyError; the port gives the one response."""
+    got = {}
+    for name, coord_mod, w in (("ref", jcoord, jwire),
+                               ("port", tcoord, twire)):
+        coord = coord_mod.PyCoordinator(2, 1 << 20)
+
+        def req(rank):
+            return w.Request(rank, w.RequestType.ALLREDUCE,
+                             w.DataType.FLOAT32, "t", tensor_shape=(2,))
+
+        assert coord.submit(req(0), now=0.0) is False
+        coord.submit(w.Request(1, w.RequestType.JOIN, w.DataType.UINT8,
+                               "hvd.join"), now=0.0)
+        assert coord.submit(req(1), now=0.0) is True
+        try:
+            got[name] = coord.poll_responses({})
+        except KeyError as exc:
+            got[name] = exc
+    assert isinstance(got["ref"], KeyError)
+    assert [(r.response_type, r.tensor_names) for r in got["port"]] == \
+        [(twire.ResponseType.ALLREDUCE, ["t"])]
+
+
+# -- the response cache on the same 200 sequences ----------------------------
+
+def _cached(mod_coord, mod_cache, size, threshold, python_impl=None):
+    cache = mod_cache.ResponseCache(rank=0)
+    coord = mod_coord.Coordinator(size, threshold, cache=cache)
+    if python_impl is not None:
+        # The port copies the reference's Python coordinator; hold the
+        # reference to it, not to its native twin.
+        coord._impl = python_impl(size, threshold)
+    return coord, cache
+
+
+def _tick(coord, cache, threshold):
+    """One rank-0 cycle as ops/collective.py orders it: the flush
+    marker, the replayed responses, the fresh ones; every response
+    observed in that order."""
+    marker = cache.take_flush_marker()
+    replayed, _, _, _ = cache.take_ready(lambda psid: threshold)
+    negotiated = coord.poll_responses({})
+    resps = ([marker] if marker is not None else []) + replayed + negotiated
+    for r in resps:
+        cache.observe_response(r, replay=any(r is x for x in replayed))
+    return resps
+
+
+def _per_tensor(w, resps):
+    """A poll's responses as sorted per-tensor records: what each tensor
+    executes, whatever the fusion and with the cache's markers left out."""
+    out = []
+    for r in resps:
+        if r.response_type == w.ResponseType.CACHE_FLUSH:
+            continue
+        for i, n in enumerate(r.tensor_names):
+            shape = (tuple(r.tensor_shapes[i]) if len(r.tensor_shapes) > 1
+                     else tuple(tuple(s) for s in r.tensor_shapes))
+            out.append((n, int(r.response_type), r.error_message,
+                        tuple(r.devices), tuple(r.tensor_sizes),
+                        None if r.tensor_type is None else int(r.tensor_type),
+                        shape, int(r.reduce_op), r.process_set_id))
+    if not out and any(r.response_type == w.ResponseType.JOIN
+                       for r in resps):
+        out.append(("join",))
+    return sorted(out, key=repr)
+
+
+@pytest.mark.parametrize("block", range(10))
+def test_cached_coordinator_streams_match_the_reference_and_cache_off(block):
+    """Each seeded sequence runs twice (two "steps", the second one
+    served from the cache where its requests repeat).  The port's cached
+    stream is byte-identical to the reference's cached stream, poll for
+    poll, markers and replays included; its per-tensor records equal the
+    port's with the cache off.  A rank's request for a name it still has
+    pending is left out: the runtime refuses it at enqueue, and a cache
+    hit, in the reference as here, does not re-check duplicates (the
+    uncached test above holds the duplicate message).  Where the reference's own poll raises the
+    KeyError of its JOIN re-ready fault (ROADMAP.md C.1; a joined rank
+    carried into the second step), the comparison with it stops there
+    and the port's stream is still held to the cache-off stream."""
+    from horovod_tpu.ops import cache as jcache
+    from horovod_tpu_torch.ops import cache as tcache
+
+    for seed in range(block * 20, block * 20 + 20):
+        size, threshold, events = _sequence(seed)
+        ref, rcache = _cached(jcoord, jcache, size, threshold,
+                              jcoord.PyCoordinator)
+        port, pcache = _cached(tcoord, tcache, size, threshold)
+        off = tcoord.PyCoordinator(size, threshold)
+        ref_ok = True
+        for step in range(2):
+            for ev in events:
+                if ev[0] == "submit" and ev[1]["tensor_name"] in off.table \
+                        and ev[1]["request_rank"] in \
+                        off.table[ev[1]["tensor_name"]].ranks:
+                    continue
+                if ev[0] in ("submit", "join"):
+                    f = ev[1] if ev[0] == "submit" else dict(
+                        request_rank=ev[1], request_type="JOIN",
+                        tensor_type="UINT8", tensor_name="hvd.join",
+                        reduce_op="AVERAGE")
+                    jreq, treq = _requests(f)
+                    outcome = []
+                    for coord, req in ((ref, jreq), (port, treq),
+                                       (off, treq)):
+                        try:
+                            outcome.append(coord.submit(req))
+                        except ValueError as exc:
+                            outcome.append(str(exc))
+                    assert outcome[1] == outcome[2] or \
+                        isinstance(outcome[1], str), (seed, step, ev)
+                    assert not ref_ok or outcome[0] == outcome[1], \
+                        (seed, step, ev)
+                elif ev[0] == "withdraw":
+                    for coord in (ref, port, off):
+                        coord.withdraw(ev[1], ev[2])
+                else:
+                    got = _tick(port, pcache, threshold)
+                    if ref_ok:
+                        try:
+                            want = _tick(ref, rcache, threshold)
+                        except KeyError:
+                            ref_ok = False
+                    if ref_ok:
+                        assert twire.pack_response_list(got) == \
+                            jwire.pack_response_list(want), (seed, step)
+                    assert _per_tensor(twire, got) == _per_tensor(
+                        twire, off.poll_responses({})), (seed, step)
+        if ref_ok:
+            assert pcache.stats.hits == rcache.stats.hits, seed
+            assert pcache.live_entries() == rcache.live_entries(), seed

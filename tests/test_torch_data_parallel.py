@@ -160,18 +160,24 @@ def test_size_one_state_and_collectives(port_cpu):
     with pytest.raises(ValueError, match="mutually exclusive"):
         port_cpu.allreduce(x, average=True, op=port_cpu.Sum)
     assert torch.equal(port_cpu.allreduce(x, op=port_cpu.ReduceOp.MAX), x)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        port_cpu.allreduce(x, op=port_cpu.Adasum)
+    assert torch.equal(port_cpu.allreduce(x, op=port_cpu.Adasum), x)
 
 
 def test_adasum_and_sparse_raise_with_roadmap_items(port_cpu):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        port_cpu.DistributedOptimizer(torch.optim.SGD(
-            [torch.zeros(2, requires_grad=True)], lr=0.1),
-            op=port_cpu.Adasum)
+    # Adasum (A.6) and sparse gradients (A.2) are ported: one rank's
+    # Adasum is the identity, a sparse COO leaf comes back sparse, and
+    # the reference's own refusal of sparse Adasum leaves remains.
+    w = torch.nn.Parameter(torch.ones(2))
+    opt = port_cpu.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                        op=port_cpu.Adasum)
+    (w * torch.tensor([1.0, 2.0])).sum().backward()
+    opt.step()
+    assert torch.allclose(w.detach(), torch.tensor([0.9, 0.8]))
     sparse = torch.sparse_coo_tensor([[0]], [1.0], (3,))
-    with pytest.raises(NotImplementedError, match="A.2"):
-        port_cpu.allreduce_gradients([sparse])
+    (out,) = port_cpu.allreduce_gradients([sparse])
+    assert out.is_sparse and torch.equal(out.to_dense(), sparse.to_dense())
+    with pytest.raises(ValueError, match="sparse_as_dense=True"):
+        port_cpu.allreduce_gradients([sparse], op=port_cpu.Adasum)
 
 
 def test_not_initialized_raises():

@@ -13,6 +13,7 @@ horovod_tpu.frontends.torch.
 """
 
 import gc
+import json
 
 import jax
 import numpy as np
@@ -41,7 +42,7 @@ def _poll_until_done(h):
         pass
 
 
-def test_inplace_identity_and_values(port):
+def test_inplace_identity_and_values(port, tmp_path):
     t = torch.arange(4.0)
     assert fhvd.allreduce_(t, average=False) is t
     h = fhvd.allreduce_async_(t, name="poll.id")
@@ -66,8 +67,14 @@ def test_inplace_identity_and_values(port):
     assert torch.equal(fhvd.reducescatter(torch.ones(2), op=fhvd.Sum),
                        torch.ones(2))
     assert torch.equal(fhvd.allgather(torch.ones(2, 1)), torch.ones(2, 1))
-    with pytest.raises(NotImplementedError, match="A.2"):
-        fhvd.start_timeline("timeline.json")
+    # The timeline (A.2) is ported: a valid Chrome trace of the op.
+    path = tmp_path / "timeline.json"
+    fhvd.start_timeline(str(path))
+    fhvd.allreduce(torch.ones(2), name="timeline.op")
+    fhvd.stop_timeline()
+    names = {e.get("name") for e in json.loads(path.read_text())}
+    assert {"NEGOTIATE_ALLREDUCE", "ALLREDUCE",
+            "GLOO_ALLREDUCE"} <= names
 
 
 def test_inplace_fire_and_forget_pins_nothing(port):
