@@ -63,7 +63,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
              64 MB negotiated allreduce with the cache on, off, off, on
              (a fixed name; the 4-byte one also unnamed, which the cache
              never serves).
-7. word2vec - skip-gram word2vec with sparse embedding gradients
+7. quant   - the quantized allreduce's codec kernels (ops/csrc/quant.cu:
+             quant_pack, unpack_dequantize) against their plain PyTorch
+             versions on the card, bitwise (torch.equal of the bytes), at
+             the embedding's bucket (25,165,824 elements) and a 64 MB
+             bucket, int8 and int4, stochastic and nearest, f32, bf16 and
+             f16 inputs, with an all-zero block, a block with one huge
+             value, f32 subnormals, r = 4 with a row sum; each kernel and
+             its plain version timed (int8 stochastic, bf16 and f32) with
+             the bound (bytes / 3.35 TB/s); a one-rank hvd.allreduce
+             under set_compression("int8"), bitwise the plain
+             reference_allreduce, within one step per phase of the exact
+             sum, the residual carried to the next tick; GPT-2-small
+             through the hook path under no policy, int8 and int4 (LN and
+             biases uncompressed) from the same init and batches, 3 steps
+             each: the first loss bitwise the uncompressed one, losses
+             finite, falling and within 2% of the uncompressed; then
+             timed in turns (none, int8, int8, none; 2 warm-up and 5
+             timed steps): step ms, tokens/s, the two kernels' launches a
+             step (2 per quantized bucket each, asserted), logical and
+             wire bytes a step, each flash kernel 12 times a step, and
+             one profiled int8 step: the two kernels' device time
+             against the bytes the quantized path must move.
+8. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -73,7 +95,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-8. resnet  - ResNet data parallelism, which runs no kernel of the port's
+9. resnet  - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -94,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -104,7 +127,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "long", "trainer", "eager",
+PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
@@ -1000,6 +1023,327 @@ def phase_eager(fa, smi_line, out_dir):
     hvd.shutdown()
 
 
+# The quant phase: the int8/int4 codec kernels (ops/csrc/quant.cu) against
+# their plain versions, bit for bit; a one-rank quantized allreduce; and
+# GPT-2-small's hook path under the int8 and int4 policies.
+QUANT_SHAPES = (("embedding", 25_165_824), ("fused_64MB", 16 * 2 ** 20))
+QUANT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# LayerNorm scales and biases and the FFN biases stay uncompressed.
+QUANT_RULES = [(r"ln(1|2|_f)/|(b_in|b_out|bias)$", "none")]
+
+
+def quant_format(bits, stochastic, block=256):
+    from horovod_tpu_torch.ops import compression as qc
+
+    return qc.WireFormat(kind="quant", name=f"int{bits}", bits=bits,
+                         block=block, stochastic=stochastic)
+
+
+def quant_bytes(r, C, fmt, in_item, residual):
+    """Bytes quant_pack must move: rows read once; codes, scales and the
+    residual (in the input dtype) written once."""
+    return r * C * (in_item + fmt.bits / 8 + (in_item if residual else 0)) \
+        + r * (C // fmt.block) * 2
+
+
+def unpack_bytes(r, C, fmt, sum_rows):
+    """Bytes unpack_dequantize must move: the frames read once, f32
+    out."""
+    return r * (C * fmt.bits / 8 + (C // fmt.block) * 2) \
+        + (C if sum_rows else r * C) * 4
+
+
+def quant_rows(r, C, dtype, seed):
+    """Seeded rows (C a multiple of 256) whose blocks span many
+    magnitudes (within float16's range), with an all-zero block, a block
+    with one huge value and, in f32, a block of subnormals."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mag = torch.exp(3 * torch.randn(r, C // 256, 1, generator=gen,
+                                    device="cuda")).clamp(1e-6, 1e3)
+    x = (torch.randn(r, C // 256, 256, generator=gen, device="cuda")
+         * mag).reshape(r, C)
+    x[:, :256] = 0.0
+    x[:, 300] = 3e4
+    if dtype == torch.float32 and C >= 1024:
+        x[:, 512:768] = torch.linspace(-1e-39, 1e-39, 256, device="cuda")
+    return x.to(dtype)
+
+
+def quant_kernel_case(tq, fmt, r, C, dtype, seed, sum_rows=True,
+                      timing=False):
+    """Each kernel against its plain version on the same inputs, bit for
+    bit (torch.equal of the bytes)."""
+    from horovod_tpu_torch.ops import compression as qc
+
+    rows = quant_rows(r, C, dtype, seed)
+    key = qc.step_key(seed, 3)
+    res, res_plain = torch.empty_like(rows), torch.empty_like(rows)
+    wire = tq.quant_pack(rows, fmt, key, res)
+    wire_plain = tq.quant_pack_plain(rows, fmt, key, res_plain)
+    out = {"quant_pack_equal": bool(torch.equal(wire, wire_plain)),
+           "residual_equal": bool(torch.equal(res.view(torch.uint8),
+                                              res_plain.view(torch.uint8)))}
+    errs = {"quant_pack": max(
+        float((tq.unpack_dequantize_plain(wire, C, fmt, False)
+               - tq.unpack_dequantize_plain(wire_plain, C, fmt, False))
+              .abs().max()),
+        float((res.float() - res_plain.float()).abs().max()))}
+    for flag in (False, True) if r > 1 else (sum_rows,):
+        got = tq.unpack_dequantize(wire, C, fmt, flag)
+        want = tq.unpack_dequantize_plain(wire, C, fmt, flag)
+        out[f"unpack_sum_{flag}_equal"] = bool(torch.equal(
+            got.view(torch.int32), want.view(torch.int32)))
+        errs["unpack_dequantize"] = max(errs.get("unpack_dequantize", 0.0),
+                                        float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    if not all(out.values()):  # the equality flags
+        raise AssertionError(f"quant kernels differ from their plain "
+                             f"versions: {fmt} r{r} C{C} {dtype}: {out}")
+    out.update({f"{k}_max_abs_err": v for k, v in errs.items()})
+    if timing:
+        item = rows.element_size()
+        out["quant_pack_ms"] = cuda_time_ms(
+            lambda: tq.quant_pack(rows, fmt, key, res), iters=10)
+        out["quant_pack_plain_ms"] = cuda_time_ms(
+            lambda: tq.quant_pack_plain(rows, fmt, key, res_plain), iters=3,
+            warmup=1)
+        out["quant_pack_bound_ms"] = quant_bytes(
+            r, C, fmt, item, True) / PEAK_BYTES * 1e3
+        out["unpack_dequantize_ms"] = cuda_time_ms(
+            lambda: tq.unpack_dequantize(wire, C, fmt, sum_rows), iters=10)
+        out["unpack_dequantize_plain_ms"] = cuda_time_ms(
+            lambda: tq.unpack_dequantize_plain(wire, C, fmt, sum_rows),
+            iters=3, warmup=1)
+        out["unpack_dequantize_bound_ms"] = unpack_bytes(
+            r, C, fmt, sum_rows) / PEAK_BYTES * 1e3
+    return out
+
+
+def quant_one_rank_allreduce(hvd, qc, MK):
+    """hvd.allreduce under set_compression("int8") on one rank: bitwise
+    the plain reference_allreduce of the same input and tick, within one
+    quantization step per phase of the exact sum, and the residual
+    carried to the next tick."""
+    hvd.set_compression(default="int8")
+    fmt = qc.wire_format("int8")
+    T = 3_000_001  # a tail that needs padding
+    x = torch.randn(T, generator=torch.Generator(device="cuda").manual_seed(
+        5), device="cuda")
+    res = torch.zeros(1, T, device="cuda")
+    Tp = qc.padded_length(T, 1, fmt.block)
+
+    def blocks(v):
+        return torch.nn.functional.pad(v, (0, Tp - T)).view(-1, fmt.block)
+
+    for tick in range(2):
+        vin = x + res[0]  # what this tick sends: x and the last residual
+        got = hvd.allreduce(x, op=hvd.Sum, name="quant.one_rank")
+        want, res = qc.reference_allreduce(x[None], fmt, tick, residuals=res)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"one-rank int8 allreduce, tick {tick}: "
+                                 f"differs from reference_allreduce")
+        # Within one step of each phase's codebook of the exact sum: the
+        # phase-1 scales, and phase 2's of the reduced chunk.
+        key = qc.step_key(qc.quant_seed(), tick)
+        q1, s1 = qc.quantize_blocks(blocks(vin).reshape(1, -1), fmt,
+                                    qc._noise_key(key, 1, 0))
+        red = qc.dequantize_blocks(q1, s1, fmt)
+        step1 = s1.float().reshape(-1)
+        step2 = qc._pow2_scale(red.view(-1, fmt.block).abs().amax(-1), 8)
+        err = blocks((got - vin).abs()).amax(-1)
+        if not bool((err <= step1 + step2).all()):
+            raise AssertionError("one-rank int8 allreduce: an error beyond "
+                                 "one quantization step per phase")
+    kept = MK.residual_count()
+    if kept != 1:
+        raise AssertionError("the error-feedback residual was not kept")
+    hvd.set_compression()
+    return {"elements": T, "ticks": 2, "bitwise": True,
+            "max_abs_err_vs_sent": float((got - vin).abs().max()),
+            "residuals_kept": kept}
+
+
+def quant_trace_ms(trace_path):
+    """Device ms of each quantization kernel in a chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    out = {}
+    for name in ("quant_pack_kernel", "unpack_dequantize_kernel"):
+        hits = [e["dur"] for e in events if name in e["name"]]
+        out[name] = {"ms": sum(hits) / 1e3, "launches": len(hits)}
+    return out
+
+
+def record_quant_calls(tq, step):
+    """One step with the two wrappers recording each call's shape, for
+    the bytes the quantized path must move a step."""
+    calls = []
+    pack, unpack = tq.quant_pack, tq.unpack_dequantize
+
+    def pack_rec(rows, fmt, key, residual_out=None):
+        calls.append(quant_bytes(rows.shape[0], rows.shape[1], fmt,
+                                 rows.element_size(),
+                                 residual_out is not None))
+        return pack(rows, fmt, key, residual_out)
+
+    def unpack_rec(wire, C, fmt, sum_rows):
+        calls.append(unpack_bytes(wire.shape[0], C, fmt, sum_rows))
+        return unpack(wire, C, fmt, sum_rows)
+
+    tq.quant_pack, tq.unpack_dequantize = pack_rec, unpack_rec
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        tq.quant_pack, tq.unpack_dequantize = pack, unpack
+    return sum(calls)
+
+
+def phase_quant(fa, smi_line, out_dir):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.ops import compression as qc
+    from horovod_tpu_torch.ops import megakernel as MK
+    from horovod_tpu_torch.ops import quant as tq
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    # 1. Each kernel against its plain version, bit for bit.
+    cases, seed = [], 0
+    for (label, C), dtype, bits, stochastic in itertools.product(
+            QUANT_SHAPES, QUANT_DTYPES, (8, 4), (True, False)):
+        seed += 1
+        quant_kernel_case(tq, quant_format(bits, stochastic), 1, C, dtype,
+                          seed)
+        cases.append(f"{label} {dtype} int{bits} "
+                     f"{'stochastic' if stochastic else 'nearest'}")
+    for bits in (8, 4):  # r = 4 with a row sum; a padded tail
+        quant_kernel_case(tq, quant_format(bits, True), 4, 4096,
+                          torch.float32, 100 + bits)
+        quant_kernel_case(tq, quant_format(bits, True), 4, 1024,
+                          torch.bfloat16, 110 + bits)
+        cases += [f"r4 C4096 f32 int{bits}", f"r4 C1024 bf16 int{bits}"]
+    log({"phase": "quant", "check": "quant_pack and unpack_dequantize "
+         "against their plain versions, bitwise", "cases": len(cases),
+         "all_equal": True, "case_list": cases})
+    # Timed at the embedding's bucket: bf16 (the hook path's gradients)
+    # and f32, int8 stochastic with the residual; unpack with the row sum.
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, C in QUANT_SHAPES:
+            timed[f"{label} {dtype}"] = quant_kernel_case(
+                tq, quant_format(8, True), 1, C, dtype, 200, timing=True)
+    log({"phase": "quant", "timing": "int8 stochastic, r = 1, residual "
+         "out; unpack with the row sum; bound = bytes / 3.35 TB/s",
+         "device": smi_line, **timed})
+    torch.cuda.empty_cache()
+
+    # 2. A one-rank quantized allreduce through hvd.allreduce.
+    hvd.init(device="cuda")
+    log({"phase": "quant", "check": "one-rank hvd.allreduce, int8",
+         **quant_one_rank_allreduce(hvd, qc, MK)})
+
+    # 3. GPT-2-small through the hook path: none, int8, int4 from the
+    # same init and batches, 3 steps each.
+    cfg = transformer_lm.bench_config()
+    batch, seq = 8, 1024
+
+    def run_with(policy, steps):
+        hvd.set_compression(default=policy, rules=QUANT_RULES) \
+            if policy else hvd.set_compression()
+        return transformer_lm.train(cfg, batch=batch, seq=seq, steps=steps,
+                                    device="cuda", seed=0, hooks=True)
+
+    losses = {}
+    for policy in (None, "int8", "int4"):
+        run = run_with(policy, 3)
+        losses[policy or "none"] = run["losses"]
+        del run
+        torch.cuda.empty_cache()
+    ref = losses["none"]
+    for policy in ("int8", "int4"):
+        got = losses[policy]
+        if got[0] != ref[0]:
+            raise AssertionError(f"{policy}: the first step's loss {got[0]} "
+                                 f"is not the uncompressed {ref[0]}")
+        if not all(np.isfinite(got)) or not got[-1] < got[0]:
+            raise AssertionError(f"{policy}: losses not finite and falling: "
+                                 f"{got}")
+        if any(abs(a - b) > 0.02 * abs(b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{policy}: losses {got} beyond 2% of the "
+                                 f"uncompressed {ref}")
+    log({"phase": "quant", "check": "GPT-2-small hook path, 3 steps from "
+         "the same init and batches", "losses": losses})
+
+    # Timed in turns: none, int8, int8, none; 2 warm-up and 5 timed steps.
+    warmup, steps = 2, 5
+    turns = {"none": [], "int8": []}
+    main_launches = None
+    for policy in ("none", "int8", "int8", "none"):
+        fa.reset_launches()
+        tq.reset_launches()
+        MK.reset_stats()
+        run = run_with(None if policy == "none" else policy, warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run["step"](run["params"], run["data"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total = warmup + steps
+        q_launches, stats = dict(tq.launches), MK.stats
+        if policy == "int8" and main_launches is None:
+            main_launches = q_launches
+        if any(c != cfg.n_layers * total for c in fa.launches.values()):
+            raise AssertionError(f"each flash kernel must launch "
+                                 f"{cfg.n_layers} times a step: "
+                                 f"{fa.launches}")
+        buckets = stats.quant_launches
+        if policy == "int8" and (buckets == 0 or any(
+                c != 2 * buckets for c in q_launches.values())):
+            raise AssertionError(f"int8: {q_launches} launches for "
+                                 f"{buckets} quantized buckets, not 2 each")
+        if policy == "none" and any(q_launches.values()):
+            raise AssertionError(f"uncompressed: {q_launches}")
+        row = {"step_ms": seconds / steps * 1e3,
+               "tokens_per_s": batch * seq * steps / seconds,
+               "buckets_per_step": stats.launches / total,
+               "quantized_buckets_per_step": buckets / total,
+               "launches_per_step": {k: v / total
+                                     for k, v in q_launches.items()},
+               "logical_bytes_per_step": stats.logical_bytes / total,
+               "wire_bytes_per_step": stats.wire_bytes / total}
+        if policy == "int8" and "profile" not in turns:
+            def one_step():
+                run["step"](run["params"], run["data"])
+
+            bound_ms = record_quant_calls(tq, one_step) / PEAK_BYTES * 1e3
+            prof = profile_step(one_step, out_dir, "quant")
+            prof["quant_kernels"] = quant_trace_ms(
+                os.path.join(out_dir, "quant_trace.json"))
+            prof["quant_kernels_ms"] = sum(
+                v["ms"] for v in prof["quant_kernels"].values())
+            prof["quant_bound_ms"] = bound_ms
+            turns["profile"] = prof
+        leaves = tree_leaves(run["params"])
+        if any(t.device.type != "cuda" for t in leaves):
+            raise AssertionError("a parameter is off the card")
+        turns[policy].append(row)
+        del run, leaves
+        torch.cuda.empty_cache()
+    for policy in ("none", "int8"):
+        turns[f"{policy}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in turns[policy]]))
+    log({"phase": "quant_trainer", "model": "GPT-2-small", "batch": batch,
+         "seq": seq, "dtype": "bfloat16", "policy": "int8, LN and biases "
+         "none", "device": smi_line, **turns})
+    hvd.set_compression()
+    hvd.shutdown()
+    emb = timed["embedding torch.bfloat16"]
+    return {"launches": main_launches, "result": emb}
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -1306,6 +1650,8 @@ def main() -> int:
                 else None)
     if "eager" in phases:
         phase_eager(fa, smi, args.out_dir)
+    quant = (phase_quant(fa, smi, args.out_dir) if "quant" in phases
+             else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -1334,6 +1680,23 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # The quantized allreduce's codec (no Pallas counterpart: the
+    # reference compiles it into its XLA megakernel), timed at the
+    # embedding's bucket in bf16; launches from the int8 hook path.
+    if quant is not None:
+        r = quant["result"]
+        for name, replaces in (
+                ("quant_pack", "horovod_tpu/ops/compression.py:510"),
+                ("unpack_dequantize", "horovod_tpu/ops/compression.py:535")):
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "horovod_tpu_torch/ops/csrc/quant.cu",
+                "replaces": replaces, "launches": quant["launches"][name],
+                "max_abs_err": r[f"{name}_max_abs_err"],
+                "ms": r[f"{name}_ms"],
+                "plain_ms": r[f"{name}_plain_ms"],
+                "bound_ms": r[f"{name}_bound_ms"], "bound_by": "bytes",
+                "library_ms": None})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,9 @@ The eager collectives are Horovod's: named, negotiated by rank 0's
 coordinator each cycle of a background thread, fused, and executed in one
 order on every rank (``ops/collective.py``); ``frontends.torch`` is the
 ``horovod.torch`` surface over them, with the hook-driven
-``DistributedOptimizer``.  Collectives run on ``torch.distributed`` (NCCL
+``DistributedOptimizer``.  ``set_compression`` selects per-tensor wire
+formats: bf16/fp16 casts, or int8/int4 block quantization with error
+feedback (``compression_state`` saves its residuals).  Collectives run on ``torch.distributed`` (NCCL
 on the GPU, gloo on the CPU).  The flash-attention kernels are CUDA C++
 for ``sm_90a`` (``ops/csrc``), built by ``nvcc`` at first use.  The package imports
 neither jax nor horovod_tpu; the tests hold it against horovod_tpu.
@@ -36,7 +38,8 @@ from .ops.collective import (HorovodError, add_process_set, allgather,
                              grouped_reducescatter_async, join, poll,
                              quiesce, reducescatter, reducescatter_async,
                              remove_process_set, synchronize)
-from .ops.compression import Compression
+from .ops.compression import Compression, get_compression, set_compression
+from .ops.megakernel import compression_state, load_compression_state
 from .ops.objects import allgather_object, broadcast_object
 from .ops.process_set import ProcessSet
 from .ops.sparse import IndexedSlices
@@ -65,17 +68,19 @@ __all__ = [
     "allreduce_async", "allreduce_gradients", "alltoall",
     "alltoall_async", "barrier", "barrier_fence", "broadcast",
     "broadcast_async", "broadcast_object", "broadcast_parameters",
-    "ccl_built", "cross_rank", "cross_size", "cuda_built", "ddl_built",
-    "device", "gloo_built", "gloo_enabled", "global_process_set",
+    "ccl_built", "compression_state", "cross_rank", "cross_size",
+    "cuda_built", "ddl_built", "device", "get_compression", "gloo_built", "gloo_enabled", "global_process_set",
     "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_reducescatter",
     "grouped_reducescatter_async", "init", "is_initialized", "join",
     "local_rank", "local_size", "make_eval_step", "make_train_step",
-    "make_train_step_with_state", "mpi_built", "mpi_enabled",
+    "load_compression_state", "make_train_step_with_state", "mpi_built",
+    "mpi_enabled",
     "mpi_threads_supported", "native_built", "nccl_built",
     "partition_fusion_buckets", "poll", "prefetch_to_device", "quiesce",
     "rank", "reducescatter", "reducescatter_async", "remove_process_set",
-    "rocm_built", "shard_batch", "shard_local_batch", "shutdown", "size",
+    "rocm_built", "set_compression", "shard_batch", "shard_local_batch",
+    "shutdown", "size",
     "start_timeline", "stop_timeline", "synchronize", "tree_leaves",
     "xla_built",
 ]

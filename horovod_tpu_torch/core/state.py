@@ -19,8 +19,14 @@ Beside that group ``init`` creates what the negotiated collectives
 rank), an eager data group of the device's backend, so that negotiated
 collectives never share a communicator with the monolithic step's, rank
 0's coordinator, the background thread (cycle ``HOROVOD_CYCLE_TIME`` ms,
-default 5) and the process-set table.  ``shutdown`` agrees on a SHUTDOWN
-response with every rank, stops the thread and fails pending handles.
+default 5) and the process-set table.  Before any collective it
+validates the compression and topology knobs; the host exchange carries
+each rank's :func:`..ops.compression.env_fingerprint`, and rank 0 warns
+about a rank that differs.  When the job is hierarchical
+(:mod:`.topology`) every rank creates the node and cross-node groups,
+in one order.  ``shutdown`` agrees on a SHUTDOWN response with every
+rank, stops the thread, fails pending handles and flushes the
+quantization state.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..ops import compression as _compression
+from ..ops import megakernel as _megakernel
+from ..ops.transport import check_env_fingerprint
+from . import topology as _topology
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, parallel/data.py:76-80
 DEFAULT_CYCLE_TIME_MS = 5.0  # the reference's core/state.py:241
@@ -63,6 +74,11 @@ class _State:
     process_sets: dict = field(default_factory=dict)
     next_process_set_id: int = 1
     runtime: Any = None  # ops.collective.Runtime
+    # The node x network hierarchy (core/topology.py) and its groups,
+    # created at init by every rank in one order; None when flat.
+    hierarchy: Any = None
+    node_group: Any = None
+    cross_group: Any = None
 
 
 _state = _State()
@@ -109,6 +125,8 @@ def init(device=None) -> None:
         shutdown()
     dev = _resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
+    _compression.validate_env()
+    _topology.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False
@@ -120,10 +138,15 @@ def init(device=None) -> None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
     rank, size = dist.get_rank(), dist.get_world_size()
-    hosts = [socket.gethostname()]
+    fingerprint = _compression.env_fingerprint()
+    hello = [(socket.gethostname(), fingerprint)]
     if size > 1:
-        hosts = [None] * size
-        dist.all_gather_object(hosts, socket.gethostname())
+        hello = [None] * size
+        dist.all_gather_object(hello, (socket.gethostname(), fingerprint))
+    hosts = [h for h, _ in hello]
+    if rank == 0:
+        for r, (_, theirs) in enumerate(hello):
+            check_env_fingerprint(r, theirs)
     mine = hosts[rank]
     unique = list(dict.fromkeys(hosts))
     _state.__dict__.update(
@@ -137,6 +160,17 @@ def init(device=None) -> None:
             "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS)) / 1000.0,
         control_group=dist.new_group(backend="gloo") if size > 1 else None,
         data_group=dist.new_group(backend=backend))
+    topo = _topology.replica_hierarchy(hosts)
+    if topo is not None:
+        # Collective: every rank creates every group, in one order.
+        node = [dist.new_group(list(g), backend=backend)
+                for g in topo.ici_groups]
+        cross = [dist.new_group(list(g), backend=backend)
+                 for g in topo.dcn_groups]
+        slot = topo.slice_of_positions()[rank]
+        _state.__dict__.update(
+            hierarchy=topo, node_group=node[slot],
+            cross_group=cross[topo.ici_groups[slot].index(rank)])
     from ..ops import collective
 
     _state.runtime = collective.Runtime(_state)
@@ -156,6 +190,7 @@ def shutdown() -> None:
     ``init`` created, and reset."""
     if _state.runtime is not None:
         _state.runtime.shutdown()
+    _megakernel.flush("shutdown")
     if dist.is_initialized():
         for ps in _state.process_sets.values():
             ps.close()
@@ -163,7 +198,8 @@ def shutdown() -> None:
             dist.destroy_process_group()
         else:
             for group in [ps.group for ps in _state.process_sets.values()] \
-                    + [_state.control_group, _state.data_group]:
+                    + [_state.control_group, _state.data_group,
+                       _state.node_group, _state.cross_group]:
                 if group is not None:
                     dist.destroy_process_group(group)
     _state.__dict__.update(_State().__dict__)

@@ -39,7 +39,10 @@ from ..ops.collective import (Adasum, Average, HorovodError,  # noqa: F401
                               Max, Min, Product, Sum, add_process_set,
                               barrier, global_process_set, join,
                               remove_process_set)
-from ..ops.compression import Compression  # noqa: F401
+from ..ops.compression import (Compression, get_compression,  # noqa: F401
+                                set_compression)
+from ..ops.megakernel import (compression_state,  # noqa: F401
+                              load_compression_state)
 from ..ops.objects import allgather_object, broadcast_object  # noqa: F401
 from ..ops.process_set import ProcessSet  # noqa: F401
 from .torch_sync_bn import SyncBatchNorm  # noqa: F401

@@ -17,11 +17,14 @@ failed collective call raises :class:`HorovodError` there.
 Execution, per response, on the data group (NCCL on ``cuda``, gloo on
 ``cpu``; a process set's own group for its ops):
 
-* ALLREDUCE (Sum, Average, Min, Max, Product), fused: one ``torch.cat``
-  pack, one collective, Average's divide once on the flat buffer (floor
-  for integers), then a view or copy out per tensor -- 1 pack + 1
-  collective (+ 1 divide) launches, plus one copy per in-place tensor;
-  Adasum, one tensor, by pairwise exchanges (below);
+* ALLREDUCE (Sum, Average, Min, Max, Product), fused, and split into
+  buckets by each tensor's wire format under the compression policy
+  (:mod:`.compression`): per bucket one ``torch.cat`` pack, the
+  reduction of :func:`.megakernel.launch` (one collective uncompressed;
+  a cast; the int8/int4 two-phase exchange with its kernels; or the
+  hierarchy's three legs), Average's divide once on the flat result
+  (floor for integers), then a view or copy out per tensor; Adasum, one
+  tensor, by pairwise exchanges (below);
 * ALLGATHER by the negotiated dim 0 of each rank (padded to the longest);
 * BROADCAST from the negotiated root; ALLTOALL by the negotiated split
   matrix (``all_to_all_single``); REDUCESCATTER (Sum, Average);
@@ -87,6 +90,8 @@ import torch.distributed as dist
 
 from ..core import state as _state
 from . import cache as _cache
+from . import compression as _compression
+from . import megakernel as _megakernel
 from . import process_set as _ps
 from . import transport as _tp
 from . import wire
@@ -107,12 +112,6 @@ SHUT_DOWN_ERROR_MESSAGE = (
     "Horovod has been shut down. This was caused by an exception on one of "
     "the ranks or an attempt to allreduce, allgather or broadcast a tensor "
     "after one of the ranks finished execution.")
-
-_DIST_OP = {ReduceOp.SUM: dist.ReduceOp.SUM,
-            ReduceOp.AVERAGE: dist.ReduceOp.SUM,
-            ReduceOp.MIN: dist.ReduceOp.MIN,
-            ReduceOp.MAX: dist.ReduceOp.MAX,
-            ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
 
 # torch 2.13 renamed reduce_scatter_tensor; older releases have only it.
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
@@ -136,12 +135,43 @@ def _numel(shape) -> int:
     return n
 
 
-def _divide(x: torch.Tensor, denom: int) -> torch.Tensor:
-    """Average's division, in place; integer dtypes divide with floor,
-    as the reference does (:766)."""
-    if x.dtype.is_floating_point or x.dtype.is_complex:
-        return x.div_(denom)
-    return x.floor_divide_(denom)
+def _deliver(o, value: torch.Tensor) -> torch.Tensor:
+    """The op's result: ``value``, or copied into its in-place target."""
+    if o.out is None:
+        return value
+    o.out.copy_(value.view(o.out.shape))
+    return o.out
+
+
+# The reduction family of each reduce op (reference :80-84); only psum
+# (SUM, AVERAGE) compresses or decomposes hierarchically.
+_OP_KERNEL = {ReduceOp.SUM: "psum", ReduceOp.AVERAGE: "psum",
+              ReduceOp.MIN: "pmin", ReduceOp.MAX: "pmax",
+              ReduceOp.PRODUCT: "pprod"}
+
+
+def _tensor_wire_format(name: str, psid: int, red_op: ReduceOp, dtype,
+                        shape) -> Optional[_compression.WireFormat]:
+    """The policy's wire format for one tensor, or None for full
+    precision (reference :801): min, max, product and Adasum never
+    compress, nor do integers."""
+    if _OP_KERNEL.get(red_op) != "psum":
+        return None
+    return _compression.policy_format_for(name, psid, dtype,
+                                          _numel(shape))
+
+
+def _partition_by_wire(names: Sequence[str], shapes, psid: int,
+                       red_op: ReduceOp, dtype):
+    """``[(fmt, [positions])]``: one fused response split by per-tensor
+    wire format, in first-appearance order (reference :812-829).  Every
+    rank splits alike: it depends on negotiated fields and the policy,
+    which is uniform across ranks."""
+    buckets: Dict[Any, List[int]] = {}
+    for pos, (name, shape) in enumerate(zip(names, shapes)):
+        fmt = _tensor_wire_format(name, psid, red_op, dtype, shape)
+        buckets.setdefault(fmt, []).append(pos)
+    return list(buckets.items())
 
 
 # ---------------------------------------------------------------------------
@@ -746,8 +776,11 @@ class Runtime:
         dtype = wire.torch_dtype_of(resp.tensor_type)
         dev = self.device
         rt = resp.response_type
-        self.stats["collective_calls"] += 1
         backend = "NCCL" if dev.type == "cuda" else "GLOO"
+        if rt == ResponseType.ALLREDUCE and \
+                resp.reduce_op != ReduceOp.ADASUM:
+            return self._allreduce(resp, ops, ps, tl, backend)
+        self.stats["collective_calls"] += 1
 
         def mark(activity=None):
             """End each held tensor's current activity (if any) and start
@@ -763,12 +796,6 @@ class Runtime:
         def zeros(shape):
             return torch.zeros(tuple(shape), dtype=dtype, device=dev)
 
-        def deliver(o, value):
-            if o.out is None:
-                return value
-            o.out.copy_(value.view(o.out.shape))
-            return o.out
-
         if rt == ResponseType.ALLREDUCE and \
                 resp.reduce_op == ReduceOp.ADASUM:
             # Never fused (plan_fusion), so one tensor; no pack.
@@ -779,28 +806,7 @@ class Runtime:
             out = _adasum(x, group, n, me,
                           None if ps is None else ps.ranks)
             mark()
-            return {} if o is None else {nm: deliver(o, out)}
-        if rt == ResponseType.ALLREDUCE:
-            mark("MEMCPY_IN_FUSION_BUFFER")
-            parts = [ops[nm].tensor.reshape(-1) if nm in ops
-                     else zeros((_numel(s),))
-                     for nm, s in zip(resp.tensor_names, resp.tensor_shapes)]
-            flat = torch.cat(parts)
-            mark()
-            mark(f"{backend}_ALLREDUCE")
-            dist.all_reduce(flat, op=_DIST_OP[resp.reduce_op], group=group)
-            if resp.reduce_op == ReduceOp.AVERAGE:
-                _divide(flat, n)
-            mark()
-            mark("MEMCPY_OUT_FUSION_BUFFER")
-            outs, off = {}, 0
-            for nm, s in zip(resp.tensor_names, resp.tensor_shapes):
-                k = _numel(s)
-                if nm in ops:
-                    outs[nm] = deliver(ops[nm], flat[off:off + k].view(s))
-                off += k
-            mark()
-            return outs
+            return {} if o is None else {nm: _deliver(o, out)}
         (nm,) = resp.tensor_names  # the other kinds are never fused
         shape = tuple(resp.tensor_shapes[0])
         o = ops.get(nm)
@@ -839,9 +845,86 @@ class Runtime:
             _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM,
                             group=group)
             if resp.reduce_op == ReduceOp.AVERAGE:
-                _divide(out, n)
+                _megakernel.divide(out, n)
         mark()
-        return {} if o is None else {nm: deliver(o, out)}
+        return {} if o is None else {nm: _deliver(o, out)}
+
+    def _allreduce(self, resp: Response, ops: Dict[str, _QueuedOp], ps,
+                   tl, backend: str) -> Dict[str, torch.Tensor]:
+        """ALLREDUCE other than Adasum: the fused response split into
+        buckets by per-tensor wire format, in first-appearance order
+        (reference ``_launch_mp_megakernel`` :1013-1054), each packed
+        with one ``torch.cat`` and reduced by :func:`.megakernel.launch`.
+        A hierarchy (``core/topology.py``) serves the global set.  An
+        uncompressed flat bucket marks the MEMCPY_IN_FUSION_BUFFER,
+        ``<backend>_ALLREDUCE`` and MEMCPY_OUT_FUSION_BUFFER activities; a
+        quantized or hierarchical one, the reference's FUSED_KERNEL (and
+        a DCN_ALLREDUCE instant when hierarchical)."""
+        psid = resp.process_set_id
+        dtype = wire.torch_dtype_of(resp.tensor_type)
+        st = self.st
+        comm = _megakernel.Comm(
+            group=st.data_group if ps is None else ps.group,
+            size=self.size if ps is None else ps.size(),
+            pos=self.rank if ps is None else ps.rank())
+        topo = st.hierarchy if ps is None else None
+        if topo is not None:
+            comm.node_group, comm.cross_group = st.node_group, st.cross_group
+        op = _OP_KERNEL[resp.reduce_op]
+        names_all = list(resp.tensor_names)
+        shapes = [tuple(int(d) for d in s) for s in resp.tensor_shapes]
+
+        def mark(names, activity=None):
+            if tl is None:
+                return
+            for name in names:
+                if activity is None:
+                    tl.activity_end(name)
+                else:
+                    tl.activity_start(name, activity)
+
+        outs = {}
+        for fmt, idxs in _partition_by_wire(names_all, shapes, psid,
+                                            resp.reduce_op, dtype):
+            names = [names_all[i] for i in idxs]
+            held = [nm for nm in names if nm in ops]
+            spec = _megakernel.GroupSpec(
+                process_set_id=psid, size=comm.size, op=op,
+                average=resp.reduce_op == ReduceOp.AVERAGE,
+                denom=comm.size, dtype=str(dtype).replace("torch.", ""),
+                shapes=tuple(shapes[i] for i in idxs),
+                hier=_megakernel.hierarchy_for(topo, op, dtype, fmt),
+                quant=fmt)
+            fused = spec.hier is not None or spec.quant is not None
+            mark(held, "FUSED_KERNEL" if fused
+                 else "MEMCPY_IN_FUSION_BUFFER")
+            flat = torch.cat([
+                ops[nm].tensor.reshape(-1) if nm in ops
+                else torch.zeros(_numel(shapes[i]), dtype=dtype,
+                                 device=self.device)
+                for nm, i in zip(names, idxs)])
+            if not fused:
+                mark(held)
+                mark(held, f"{backend}_ALLREDUCE")
+            red = _megakernel.launch(spec, flat, comm, names)
+            if not fused:
+                mark(held)
+                mark(held, "MEMCPY_OUT_FUSION_BUFFER")
+            off = 0
+            for nm, i in zip(names, idxs):
+                k = _numel(shapes[i])
+                if nm in ops:
+                    outs[nm] = _deliver(ops[nm],
+                                        red[off:off + k].view(shapes[i]))
+                off += k
+            mark(held)
+            if tl is not None and spec.hier is not None:
+                for nm in held:
+                    tl.instant(nm, "DCN_ALLREDUCE", args={
+                        "slices": topo.n_slices, "ici": topo.ici_size,
+                        "wire_dtype": spec.hier.wire_dtype or str(dtype)})
+        self.stats["collective_calls"] += comm.calls
+        return outs
 
     # -- waiting (caller threads) -------------------------------------------
     def _cycle_until(self, done: threading.Event, seconds: float) -> bool:

@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from . import cache as _cache
+from . import megakernel as _megakernel
 from . import wire
 from .wire import DataType, Request, RequestType, Response, ResponseType
 
@@ -530,6 +531,9 @@ class Coordinator:
         if self.cache is not None:
             # Entries stay valid; the memoized packing plans do not.
             self.cache.invalidate_plans(f"fusion threshold -> {v}")
+        # The buckets change, and with them the residuals and ticks
+        # (reference coordinator.py:751).
+        _megakernel.flush(f"fusion threshold -> {v}")
 
     def poll_responses(self, sizes_bytes: Dict[str, int]) -> List[Response]:
         if self.cache is not None and not self._impl_dirty:

@@ -36,6 +36,7 @@ workers rebuild from their replica.
 from __future__ import annotations
 
 import struct
+import sys
 from typing import List, Optional, Tuple
 
 import torch
@@ -180,3 +181,24 @@ class ControlChannel:
         buf = _as_tensor(payload if self.rank == 0 else b"", length)
         dist.broadcast(buf, src=0, group=self.group)
         return buf.numpy().tobytes()
+
+
+def check_env_fingerprint(rank: int, theirs: str) -> None:
+    """Warn, naming the rank and every knob, when ``rank``'s
+    :func:`.compression.env_fingerprint` differs from this rank's
+    (reference ``_check_env_fingerprint_str``, transport.py:498-515)."""
+    from . import compression as _compression
+
+    mine = _compression.env_fingerprint()
+    if theirs == mine:
+        return
+    their_map = dict(kv.split("=", 1) for kv in theirs.split(";") if kv)
+    my_map = dict(kv.split("=", 1) for kv in mine.split(";") if kv)
+    diffs = [f"{k}: rank0={my_map.get(k, '?')} rank{rank}="
+             f"{their_map.get(k, '?')}"
+             for k in sorted(set(my_map) | set(their_map))
+             if my_map.get(k) != their_map.get(k)]
+    print(f"WARNING: rank {rank} disagrees with rank 0 on env knobs "
+          f"that change the compiled SPMD program — collectives WILL "
+          f"diverge (docs/performance.md \"Env-knob uniformity\"): "
+          f"{'; '.join(diffs)}", file=sys.stderr)

@@ -64,7 +64,10 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.utils.timeline",
             "horovod_tpu_torch.ops.sparse",
             "horovod_tpu_torch.models.word2vec",
-            "horovod_tpu_torch.examples.word2vec"} <= set(names)
+            "horovod_tpu_torch.examples.word2vec",
+            "horovod_tpu_torch.ops.prng", "horovod_tpu_torch.ops.quant",
+            "horovod_tpu_torch.ops.megakernel",
+            "horovod_tpu_torch.core.topology"} <= set(names)
 
 
 def _imported_roots(tree):
@@ -133,6 +136,41 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 call()
     assert tfa.launches == {name: 0 for name in tfa.KERNELS}
+
+
+def test_cuda_tensors_never_take_the_plain_quantization(monkeypatch):
+    """The same for the quantization kernels (ops/quant.py)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from horovod_tpu_torch.ops import compression as tc
+    from horovod_tpu_torch.ops import quant as tq
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(tq, "_entry_points", {})
+    monkeypatch.setattr(tq, "quant_pack_plain", plain_called)
+    monkeypatch.setattr(tq, "unpack_dequantize_plain", plain_called)
+    fmt = tc.WireFormat(kind="quant", name="int8", bits=8, block=256)
+    tq.reset_launches()
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore")
+        rows = torch.empty(2, 512, device="cuda")
+        wire = torch.empty(2, tc.wire_bytes_per_chunk(512, fmt),
+                           dtype=torch.uint8,
+                           device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tq.quant_pack(rows, fmt, (0, 1))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tq.unpack_dequantize(wire, 512, fmt, sum_rows=True)
+    assert tq.launches == {name: 0 for name in tq.KERNELS}
+    with pytest.raises(ValueError, match="whole number"):
+        tq.quant_pack(torch.zeros(1, 300), fmt, (0, 1))
 
 
 def test_mixed_devices_are_refused():
