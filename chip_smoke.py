@@ -62,7 +62,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
              NCCL_ALLREDUCE activity); the latency of a 4-byte and a
              64 MB negotiated allreduce with the cache on, off, off, on
              (a fixed name; the 4-byte one also unnamed, which the cache
-             never serves).
+             never serves); native_built() true, then the hook step and
+             the named 4 B / 64 MB latencies with the native coordinator
+             and with HVD_TPU_DISABLE_NATIVE=1 in turns (native, python,
+             python, native): the hook path bitwise equal, the same fused
+             responses and cache hits a step.
 7. quant   - the quantized allreduce's codec kernels (ops/csrc/quant.cu:
              quant_pack, unpack_dequantize) against their plain PyTorch
              versions on the card, bitwise (torch.equal of the bytes), at
@@ -71,7 +75,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              f16 inputs, with an all-zero block, a block with one huge
              value, f32 subnormals, r = 4 with a row sum; each kernel and
              its plain version timed (int8 stochastic, bf16 and f32) with
-             the bound (bytes / 3.35 TB/s); a one-rank hvd.allreduce
+             the bound (bytes / 3.35 TB/s; for quant_pack the larger of
+             that and its operations an element, counted in the
+             function: its rotates and logic ops over 64 ALU lanes or all
+             its ops over 128 issue lanes an SM, whichever is more, at
+             the SM clock nvidia-smi reads under its load; the SASS counts
+             of the built library beside it, cuobjdump); a
+             one-rank hvd.allreduce
              under set_compression("int8"), bitwise the plain
              reference_allreduce, within one step per phase of the exact
              sum, the residual carried to the next tick; GPT-2-small
@@ -85,7 +95,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
              wire bytes a step, each flash kernel 12 times a step, and
              one profiled int8 step: the two kernels' device time
              against the bytes the quantized path must move.
-8. word2vec - skip-gram word2vec with sparse embedding gradients
+8. overlap - GPT-2-small as chained_lm_loss (embedding, 12 layer stages,
+             head) through make_train_step(overlap=off|serial|on), on
+             forced (auto is off on one card): 3 steps each from the
+             same weights, on == serial == off bitwise in losses and
+             parameters, and under an int8 policy (every bucket
+             quantized: a name rule does not match a bucket's wire name)
+             on == serial bitwise;
+             then in turns (off, serial, on, on with
+             HVD_TPU_DISABLE_NATIVE=1 twice, on, serial, off; 2 warm-up
+             and 5 timed steps): step ms, buckets a step, one fused
+             response a bucket (plus the loss's), no cache miss, each
+             flash kernel 12 times a step, overlap.exposed_comm_seconds;
+             one profiled on step (idle share, the executor's first work
+             against the last dQ) and a cProfile of the host's step; one
+             profiled int8 on step: where each quantized bucket's codec
+             kernels start against the end of the last dQ.
+9. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -95,7 +121,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-9. resnet  - ResNet data parallelism, which runs no kernel of the port's
+10. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -119,8 +145,10 @@ import ctypes
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -128,7 +156,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "word2vec", "resnet")
+          "overlap", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -188,8 +216,15 @@ RESNET_TOL_STATE = 1e-5    # each new BN statistic leaf
 RESNET_TOL_UPDATE = 1e-3
 
 
+LOG_FILE = None  # every line also goes to <out-dir>/chip_smoke.log
+
+
 def log(obj) -> None:
-    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+    line = obj if isinstance(obj, str) else json.dumps(obj)
+    print(line, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(line + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -1020,7 +1055,83 @@ def phase_eager(fa, smi_line, out_dir):
          "allreduce through negotiation, one rank, NCCL, the response "
          "cache on and off in turns; a fixed name, and (4B_unnamed) a "
          "new automatic name each call", "device": smi_line, **lat})
+    log({"phase": "eager_native", "what": "the hook step and the named "
+         "negotiated latencies with the native coordinator (native/, "
+         "built by g++) and with HVD_TPU_DISABLE_NATIVE=1, in turns",
+         "device": smi_line, **native_vs_python(hvd, fhvd, fa, C, cfg)})
     hvd.shutdown()
+
+
+def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
+    """GPT-2-small's hook step, then the named 4 B and 64 MB negotiated
+    latencies, with the native coordinator and handle manager and with the
+    Python twins (HVD_TPU_DISABLE_NATIVE=1), in turns (native, python,
+    python, native), each from the same weights and batches: losses and
+    parameters after 2 + 5 steps bitwise equal, and the same fused
+    responses and cache hits a step."""
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.native import lib as native
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    if not hvd.native_built():
+        raise AssertionError("native_built() is false on the card")
+    warmup, steps = 2, 5
+    legs: dict = {"native": [], "python": []}
+    ref = None
+    try:
+        for leg in ("native", "python", "python", "native"):
+            hvd.shutdown()
+            if leg == "python":
+                os.environ[native.DISABLE_ENV] = "1"
+            else:
+                os.environ.pop(native.DISABLE_ENV, None)
+            hvd.init(device="cuda")
+            impl = type(C._runtime().coordinator._impl).__name__
+            if impl != ("NativeCoordinator" if leg == "native"
+                        else "PyCoordinator"):
+                raise AssertionError(f"{leg} leg runs {impl}")
+            fa.reset_launches()
+            run = transformer_lm.train(cfg, batch=batch, seq=seq,
+                                       steps=warmup, device="cuda", seed=0,
+                                       hooks=True)
+            C.reset_stats()
+            losses = list(run["losses"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                losses.append(run["step"](run["params"], run["data"]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            stats = C.stats()
+            got = ([float(x) for x in losses],
+                   [p.detach().clone() for p in tree_leaves(run["params"])],
+                   stats["responses"] / steps, stats["cache_hits"] / steps,
+                   stats["cache_misses"] / steps)
+            if ref is None:
+                ref = got
+            elif got[0] != ref[0] or got[2:] != ref[2:] or not all(
+                    torch.equal(a, b) for a, b in zip(got[1], ref[1])):
+                raise AssertionError(
+                    f"the {leg} leg's hook path differs from the native "
+                    f"leg's: losses {got[0]} / {ref[0]}, responses, hits "
+                    f"and misses a step {got[2:]} / {ref[2:]}")
+            if any(c != cfg.n_layers * (warmup + steps)
+                   for c in fa.launches.values()):
+                raise AssertionError(f"{leg} leg: {fa.launches}")
+            del run
+            legs[leg].append({
+                "step_ms": seconds / steps * 1e3,
+                "responses_per_step": got[2], "cache_hits_per_step": got[3],
+                "cache_misses_per_step": got[4],
+                "latency": {label: negotiated_latency(fhvd, nbytes, iters,
+                                                      name)
+                            for label, nbytes, iters, name in (
+                                ("4B", 4, 200, "latency.4B"),
+                                ("64MB", 64 * 2 ** 20, 20, "latency.64MB"))}})
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop(native.DISABLE_ENV, None)
+    return {"bitwise": True, "losses": ref[0], **legs}
 
 
 # The quant phase: the int8/int4 codec kernels (ops/csrc/quant.cu) against
@@ -1053,6 +1164,110 @@ def unpack_bytes(r, C, fmt, sum_rows):
         + (C if sum_rows else r * C) * 4
 
 
+# quant_pack's operations an element, counted in the function
+# (ops/csrc/quant.cu), not in what the compiler emitted for it.
+# threefry2x32: 20 rounds of an add, a rotate and an xor, and 2 + 5 x 2
+# key-schedule adds.  The dither: (x0 ^ x1) & 0xFF, one three-input logic
+# op; its conversion to float and scale, 2.  quantize_one: divide, add,
+# floor, max, min, convert, 6.  The residual: convert, multiply, subtract,
+# 3 (the f32 path; bf16's roundings are left out).  The block's amax, 1.
+# Rotates and logic ops issue only to the integer ALU, 64 lanes an SM a
+# clock on an H100; an add may also issue as IMAD to the FMA pipe, and an
+# SM issues 128 lanes a clock in all.  Leaving ops out can only lower
+# the bound.
+QUANT_PACK_ALU_OPS = 20 + 20 + 1
+QUANT_PACK_OPS = QUANT_PACK_ALU_OPS + (20 + 2 + 10) + 2 + 6 + 3 + 1
+ALU_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 128
+
+
+def quant_pack_ops_clocks():
+    """SM-clocks an element of quant_pack needs at the least: its ALU-only
+    ops at 64 lanes or all its ops at 128 lanes, whichever is more."""
+    return max(QUANT_PACK_ALU_OPS / ALU_LANES_PER_SM,
+               QUANT_PACK_OPS / ISSUE_LANES_PER_SM)
+
+
+QUANT_PACK_MANGLED = {torch.bfloat16: "13__nv_bfloat16Li8E",
+                      torch.float32: "IfLi8E"}
+
+
+def quant_pack_sass_ops(out_dir):
+    """A cross-check of the count above: the instructions an element of
+    quant_pack (int8; bf16 and f32 in) in the SASS of the built
+    libquant.so (``cuobjdump -sass``, saved as ``quant_sass.txt``).  The
+    per-element loop is the innermost loop holding the most funnel shifts
+    (SHF.L.W, 20 a threefry, one threefry an element); reported are its
+    funnel shifts, LOP3s and all instructions over the elements an
+    iteration handles."""
+    from horovod_tpu_torch.ops import _build
+
+    lib = _build.BUILD_ROOT / _build._source_hash() / "libquant.so"
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "quant_sass.txt"), "w") as f:
+        f.write(sass)
+    funcs = re.split(r"\n\s*Function : ", sass)
+    return {dtype: _loop_ops(next(
+        f for f in funcs if "quant_pack_kernel" in f.split("\n")[0]
+        and mangled in f.split("\n")[0]))
+        for dtype, mangled in QUANT_PACK_MANGLED.items()}
+
+
+def _loop_ops(body):
+    insts = []
+    for line in body.split("\n"):
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            insts.append((int(m.group(1), 16), text.split()[0], text))
+    loops = []
+    for addr, op, text in insts:
+        t = re.search(r"\b0x([0-9a-f]+)\s*$", text)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            lo = int(t.group(1), 16)
+            region = [o for a, o, _ in insts if lo <= a <= addr]
+            shf = sum(o.startswith("SHF.L.W") for o in region)
+            lop3 = sum(o.startswith("LOP3") for o in region)
+            loops.append((shf, -(addr - lo), lop3, len(region)))
+    shf, _neg_span, lop3, n = max(loops)
+    if shf == 0 or shf % 20:
+        raise AssertionError(f"quant_pack's loop holds {shf} funnel shifts, "
+                             f"not a whole number of threefry calls")
+    per_iter = shf // 20
+    return {"shf_per_element": shf / per_iter,
+            "lop3_per_element": lop3 / per_iter,
+            "instructions_per_element": n / per_iter,
+            "elements_per_iteration": per_iter}
+
+
+def sm_clock_under_load(fn, seconds=0.3):
+    """nvidia-smi's SM clock (MHz) while ``fn`` runs back to back on a
+    second thread, and the card's maximum."""
+    stop = threading.Event()
+
+    def spin():
+        torch.cuda.set_device(0)
+        while not stop.is_set():
+            fn()
+
+    th = threading.Thread(target=spin)
+    th.start()
+    try:
+        time.sleep(seconds)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout.strip().split("\n")[0]
+    finally:
+        stop.set()
+        th.join()
+        torch.cuda.synchronize()
+    sm, sm_max = (float(x) for x in out.split(","))
+    return {"sm_clock_mhz_under_load": sm, "sm_clock_mhz_max": sm_max}
+
+
 def quant_rows(r, C, dtype, seed):
     """Seeded rows (C a multiple of 256) whose blocks span many
     magnitudes (within float16's range), with an all-zero block, a block
@@ -1070,9 +1285,13 @@ def quant_rows(r, C, dtype, seed):
 
 
 def quant_kernel_case(tq, fmt, r, C, dtype, seed, sum_rows=True,
-                      timing=False):
+                      timing=False, sass=None):
     """Each kernel against its plain version on the same inputs, bit for
-    bit (torch.equal of the bytes)."""
+    bit (torch.equal of the bytes).  With ``timing`` each is timed beside
+    its plain version, with its bound: bytes / 3.35 TB/s for both, and
+    for quant_pack also its operations (:func:`quant_pack_ops_clocks`)
+    at the SM clock read under its load, whichever is larger; ``sass``
+    (:func:`quant_pack_sass_ops`) is reported beside them."""
     from horovod_tpu_torch.ops import compression as qc
 
     rows = quant_rows(r, C, dtype, seed)
@@ -1107,8 +1326,23 @@ def quant_kernel_case(tq, fmt, r, C, dtype, seed, sum_rows=True,
         out["quant_pack_plain_ms"] = cuda_time_ms(
             lambda: tq.quant_pack_plain(rows, fmt, key, res_plain), iters=3,
             warmup=1)
-        out["quant_pack_bound_ms"] = quant_bytes(
-            r, C, fmt, item, True) / PEAK_BYTES * 1e3
+        bytes_ms = quant_bytes(r, C, fmt, item, True) / PEAK_BYTES * 1e3
+        out["quant_pack_bytes_bound_ms"] = bytes_ms
+        out["quant_pack_bound_ms"], out["quant_pack_bound_by"] = \
+            bytes_ms, "bytes"
+        # The operations at the clock read under this kernel's load.
+        clk = sm_clock_under_load(lambda: tq.quant_pack(rows, fmt, key, res))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ops_ms = r * C * quant_pack_ops_clocks() / (
+            sms * clk["sm_clock_mhz_under_load"] * 1e6) * 1e3
+        out.update(clk, quant_pack_ops_bound_ms=ops_ms,
+                   quant_pack_alu_ops_per_element=QUANT_PACK_ALU_OPS,
+                   quant_pack_ops_per_element=QUANT_PACK_OPS)
+        if sass is not None:
+            out["quant_pack_sass"] = sass[dtype]
+        if ops_ms > bytes_ms:
+            out["quant_pack_bound_ms"], out["quant_pack_bound_by"] = \
+                ops_ms, "operations"
         out["unpack_dequantize_ms"] = cuda_time_ms(
             lambda: tq.unpack_dequantize(wire, C, fmt, sum_rows), iters=10)
         out["unpack_dequantize_plain_ms"] = cuda_time_ms(
@@ -1229,13 +1463,24 @@ def phase_quant(fa, smi_line, out_dir):
          "all_equal": True, "case_list": cases})
     # Timed at the embedding's bucket: bf16 (the hook path's gradients)
     # and f32, int8 stochastic with the residual; unpack with the row sum.
+    try:
+        sass = quant_pack_sass_ops(out_dir)
+    except (OSError, subprocess.CalledProcessError, StopIteration,
+            ValueError, AssertionError) as exc:
+        sass = None
+        log({"phase": "quant", "sass": f"not counted: {exc!r}"})
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, C in QUANT_SHAPES:
             timed[f"{label} {dtype}"] = quant_kernel_case(
-                tq, quant_format(8, True), 1, C, dtype, 200, timing=True)
+                tq, quant_format(8, True), 1, C, dtype, 200, timing=True,
+                sass=sass)
     log({"phase": "quant", "timing": "int8 stochastic, r = 1, residual "
-         "out; unpack with the row sum; bound = bytes / 3.35 TB/s",
+         "out; unpack with the row sum; bound = max(bytes / 3.35 TB/s, "
+         "quant_pack's operations an element, max(ALU-only / 64, all / "
+         "128 lanes) / (SMs x the SM clock under load))",
+         "sass": None if sass is None else {str(k): v
+                                            for k, v in sass.items()},
          "device": smi_line, **timed})
     torch.cuda.empty_cache()
 
@@ -1342,6 +1587,216 @@ def phase_quant(fa, smi_line, out_dir):
     hvd.shutdown()
     emb = timed["embedding torch.bfloat16"]
     return {"launches": main_launches, "result": emb}
+
+
+def overlap_trace(trace_path):
+    """In a profiled overlapped step: each quantized bucket's first codec
+    kernel (quant_pack / unpack_dequantize, 2 + 2 a bucket, in launch
+    order) against the last flash dQ kernel, ms after its end (negative:
+    before it ended, under the backward)."""
+    with open(trace_path) as f:
+        events = sorted((e for e in json.load(f)["traceEvents"]
+                         if e.get("ph") == "X" and e.get("cat") == "kernel"),
+                        key=lambda e: e["ts"])
+    dq = [e for e in events if "flash_bwd_dq_sm90_kernel" in e["name"]]
+    codec = [e for e in events if "quant_pack_kernel" in e["name"]
+             or "unpack_dequantize_kernel" in e["name"]]
+    if not dq or not codec or len(codec) % 4:
+        raise AssertionError(f"profiled int8 overlapped step: {len(dq)} dQ "
+                             f"kernels, {len(codec)} codec kernels")
+    end = max(e["ts"] + e["dur"] for e in dq)
+    starts = [(codec[i]["ts"] - end) / 1e3 for i in range(0, len(codec), 4)]
+    return {"quantized_buckets": len(starts),
+            "bucket_first_kernel_ms_after_last_dq": starts,
+            "last_bucket_ms_after_last_dq": starts[-1],
+            "buckets_started_before_last_dq_end": sum(x < 0 for x in starts)}
+
+
+def phase_overlap(fa, smi_line, out_dir):
+    """GPT-2-small as chained_lm_loss (embedding, 12 decoder-layer stages,
+    head) through make_train_step's schedules off, serial and on (forced:
+    auto is off on one card)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.native import lib as native
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.ops import megakernel as MK
+    from horovod_tpu_torch.ops import quant as tq
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    cfg = transformer_lm.bench_config()
+    batch, seq = 8, 1024
+    hvd.init(device="cuda")
+
+    def host_profile(step_fn, steps=3, top=25):
+        """cProfile of ``steps`` steps: the top functions by own time, ms
+        a step (cumulative, own)."""
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        torch.cuda.synchronize()
+        prof.enable()
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+        prof.disable()
+        rows = sorted(pstats.Stats(prof).stats.items(),
+                      key=lambda kv: -kv[1][2])[:top]
+        return [(f"{os.path.basename(fn)}:{line}({name})",
+                 round(ct / steps * 1e3, 3), round(tt / steps * 1e3, 3),
+                 nc // steps)
+                for (fn, line, name), (nc, _pc, tt, ct, _c) in rows]
+
+    def train(mode, steps, policy=None):
+        # The policy looks a format up by tensor name, and the overlapped
+        # step sends its buckets under their wire names: QUANT_RULES (the
+        # hook path's LN and bias rules) would match none of them, so the
+        # overlapped int8 step quantizes every bucket, LN and biases too.
+        hvd.set_compression(default=policy)
+        MK.flush("overlap phase run")  # each run from tick 0, no residual
+        return transformer_lm.train(cfg, batch=batch, seq=seq, steps=steps,
+                                    device="cuda", seed=0, overlap=mode)
+
+    def three(mode, policy=None):
+        run = train(mode, 3, policy)
+        out = ([float(x) for x in run["losses"]],
+               [p.detach().clone() for p in tree_leaves(run["params"])])
+        del run
+        torch.cuda.empty_cache()
+        return out
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y)
+                                    for x, y in zip(a[1], b[1]))
+
+    # 1. Bitwise: off, serial, on from the same weights and batches;
+    # under int8, on against serial.
+    full = {mode: three(mode) for mode in ("off", "serial", "on")}
+    if not (same(full["on"], full["serial"])
+            and same(full["on"], full["off"])):
+        raise AssertionError(f"overlap schedules differ: "
+                             f"{ {m: r[0] for m, r in full.items()} }")
+    losses = full["on"][0]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"overlap losses not finite and falling: "
+                             f"{losses}")
+    del full
+    int8 = {mode: three(mode, "int8") for mode in ("serial", "on")}
+    if not same(int8["on"], int8["serial"]):
+        raise AssertionError(f"int8 on differs from serial: "
+                             f"{int8['on'][0]} / {int8['serial'][0]}")
+    int8_losses = int8["on"][0]
+    del int8
+    torch.cuda.empty_cache()
+    log({"phase": "overlap", "check": "GPT-2-small as chained_lm_loss, 3 "
+         "steps from the same weights: on == serial == off bitwise; int8 "
+         "on == serial bitwise", "losses": losses,
+         "int8_losses": int8_losses})
+
+    # 2. Timed in turns, 2 warm-up and 5 timed steps each: step ms, one
+    # fused response a bucket, each flash kernel 12 times a step.
+    warmup, steps = 2, 5
+    timed: dict = {"off": [], "serial": [], "on": [], "on_python": []}
+    path_launches = None
+    for turn in ("off", "serial", "on", "on_python", "on_python", "on",
+                 "serial", "off"):
+        # on_python: the on schedule with HVD_TPU_DISABLE_NATIVE=1.
+        mode = turn.split("_")[0]
+        if turn == "on_python" or os.environ.get(native.DISABLE_ENV):
+            hvd.shutdown()
+            if turn == "on_python":
+                os.environ[native.DISABLE_ENV] = "1"
+            else:
+                os.environ.pop(native.DISABLE_ENV, None)
+            hvd.init(device="cuda")
+        fa.reset_launches()
+        run = train(mode, warmup)
+        step = run["step"]
+        C.reset_stats()
+        before = step.stats() if mode != "off" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(run["params"], run["data"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats, launches = C.stats(), dict(fa.launches)
+        if any(c != cfg.n_layers * (warmup + steps)
+               for c in launches.values()):
+            raise AssertionError(f"overlap {mode}: each flash kernel must "
+                                 f"launch {cfg.n_layers} times a step: "
+                                 f"{launches}")
+        if mode == "on" and path_launches is None:
+            path_launches = launches
+        row = {"step_ms": seconds / steps * 1e3,
+               "tokens_per_s": batch * seq * steps / seconds,
+               "responses_per_step": stats["responses"] / steps,
+               "cache_misses_per_step": stats["cache_misses"] / steps}
+        if mode != "off":
+            after = step.stats()
+            ex0 = before["overlap.exposed_comm_seconds"]
+            ex1 = after["overlap.exposed_comm_seconds"]
+            row.update(
+                buckets_per_step=step.bucket_count,
+                segments=step.segment_count,
+                buckets_dispatched_per_step=(
+                    after["overlap.buckets_dispatched"]
+                    - before["overlap.buckets_dispatched"]) / steps,
+                exposed_comm_ms_per_step=(ex1["sum"] - ex0["sum"])
+                / steps * 1e3,
+                fallbacks=after["overlap.fallbacks"])
+            # One fused response a bucket (and one for the loss), every
+            # request replayed from the cache.
+            if stats["responses"] != steps * (step.bucket_count + 1) \
+                    or stats["cache_misses"] != 0 \
+                    or row["buckets_dispatched_per_step"] \
+                    != step.bucket_count or not step.overlap_active:
+                raise AssertionError(f"overlap {mode}: {stats} for "
+                                     f"{step.bucket_count} buckets")
+        timed[turn].append(row)
+        if turn == "on" and "on_profile" not in timed:
+            prof = profile_step(lambda: step(run["params"], run["data"]),
+                                out_dir, "overlap")
+            prof.update(executor_overlap(os.path.join(
+                out_dir, "overlap_trace.json")))
+            timed["on_profile"] = prof
+            timed["on_host_profile"] = host_profile(
+                lambda: step(run["params"], run["data"]))
+        if turn == "off" and "off_host_profile" not in timed:
+            timed["off_host_profile"] = host_profile(
+                lambda: step(run["params"], run["data"]))
+        del run, step
+        torch.cuda.empty_cache()
+    os.environ.pop(native.DISABLE_ENV, None)
+    for turn in ("off", "serial", "on", "on_python"):
+        timed[f"{turn}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in timed[turn]]))
+    log({"phase": "overlap_trainer", "model": "GPT-2-small, chained",
+         "batch": batch, "seq": seq, "dtype": "bfloat16",
+         "device": smi_line, "flash_launches_on_path": path_launches,
+         **timed})
+
+    # 3. One profiled int8 on step: where each quantized bucket's codec
+    # kernels start against the last dQ.
+    fa.reset_launches()
+    tq.reset_launches()
+    run = train("on", warmup, "int8")
+    q_launches = dict(tq.launches)
+    if not all(q_launches.values()):
+        raise AssertionError(f"int8 overlapped path: {q_launches}")
+    prof = profile_step(lambda: run["step"](run["params"], run["data"]),
+                        out_dir, "overlap_int8")
+    prof.update(overlap_trace(os.path.join(out_dir,
+                                           "overlap_int8_trace.json")))
+    log({"phase": "overlap_int8", "device": smi_line,
+         "codec_launches_warmup": q_launches,
+         "buckets_per_step": run["step"].bucket_count, **prof})
+    del run
+    hvd.set_compression()
+    hvd.shutdown()
+    return path_launches
 
 
 def phase_word2vec(smi_line, out_dir):
@@ -1630,6 +2085,10 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    global LOG_FILE
+    os.makedirs(args.out_dir, exist_ok=True)
+    LOG_FILE = os.path.join(args.out_dir, "chip_smoke.log")
+    open(LOG_FILE, "w").close()
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -1652,6 +2111,8 @@ def main() -> int:
         phase_eager(fa, smi, args.out_dir)
     quant = (phase_quant(fa, smi, args.out_dir) if "quant" in phases
              else None)
+    if "overlap" in phases:
+        phase_overlap(fa, smi, args.out_dir)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -1695,7 +2156,8 @@ def main() -> int:
                 "max_abs_err": r[f"{name}_max_abs_err"],
                 "ms": r[f"{name}_ms"],
                 "plain_ms": r[f"{name}_plain_ms"],
-                "bound_ms": r[f"{name}_bound_ms"], "bound_by": "bytes",
+                "bound_ms": r[f"{name}_bound_ms"],
+                "bound_by": r.get(f"{name}_bound_by", "bytes"),
                 "library_ms": None})
     log(smi)
     log({"kernels": kernels})

@@ -59,5 +59,10 @@ def xla_built() -> bool:
 
 
 def native_built() -> bool:
-    """No C++ coordinator in the port yet (ROADMAP.md A.2 item 6)."""
-    return False
+    """The native runtime (``native/``: the C++ coordinator, handle
+    manager and timeline writer) is loaded, built at first use; False
+    when ``HVD_TPU_DISABLE_NATIVE`` selects the Python twins.  A failed
+    build raises."""
+    from ..native import lib
+
+    return lib.active() is not None

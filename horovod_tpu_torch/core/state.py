@@ -127,6 +127,9 @@ def init(device=None) -> None:
     backend = "nccl" if dev.type == "cuda" else "gloo"
     _compression.validate_env()
     _topology.validate_env()
+    from ..parallel import overlap as _overlap
+
+    _overlap.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False

@@ -12,6 +12,13 @@ examples/transformer_lm.py.
     # the monolithic reduce after backward:
     python -m horovod_tpu_torch.examples.transformer_lm --hooks --device cpu
 
+    # the LM in stages (chained_lm_loss), its gradient buckets streamed
+    # out of the backward stage by stage (parallel/overlap.py); serial
+    # sends the same buckets after the whole backward, off is the
+    # monolithic step on the staged loss:
+    python -m horovod_tpu_torch.examples.transformer_lm --overlap on \
+        --device cpu
+
     # several GPUs: one process per GPU under a launcher that sets RANK,
     # WORLD_SIZE, MASTER_ADDR, MASTER_PORT (torchrun does).
 
@@ -28,12 +35,15 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.frontends import torch as hvd_torch
 from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                  chained_lm_loss,
+                                                  chained_lm_params,
                                                   init_transformer,
                                                   make_loss_fn,
                                                   synthetic_lm_batch)
@@ -55,10 +65,13 @@ def tiny_config(seq: int = 64) -> TransformerConfig:
 
 def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
           timed_from: int = 0, device=None, seed: int = 0,
-          lr: float = 3e-4, hooks: bool = False) -> dict:
+          lr: float = 3e-4, hooks: bool = False,
+          overlap: Optional[str] = None) -> dict:
     """Initialize, then run ``steps`` train steps on one fixed synthetic
     batch (``batch`` is global; each rank takes its share); ``hooks``
-    reduces the gradients through the hook-driven optimizer.  Returns the
+    reduces the gradients through the hook-driven optimizer; ``overlap``
+    (``on``, ``serial`` or ``off``) trains the staged form,
+    :func:`chained_lm_loss`, with that schedule.  Returns the
     per-step losses, the wall time of steps ``timed_from..`` (ended by a
     device synchronise), the parameter count, and the step, parameters,
     batch and optimizer for further steps."""
@@ -69,6 +82,9 @@ def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
                          f"{hvd.size()} ranks")
     params = init_transformer(torch.Generator().manual_seed(seed), cfg,
                               device=dev)
+    loss_fn = make_loss_fn(cfg)
+    if overlap is not None:
+        params, loss_fn = chained_lm_params(params, cfg), chained_lm_loss(cfg)
     hvd.broadcast_parameters(params, root_rank=0)
     leaves = hvd.tree_leaves(params)
     # optax.adamw's weight decay is 1e-4; torch's default is 1e-2.
@@ -76,7 +92,7 @@ def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
     opt = (hvd_torch.DistributedOptimizer(
         adamw, named_parameters=tree_named_leaves(params)) if hooks
         else hvd.DistributedOptimizer(adamw))
-    step = hvd.make_train_step(make_loss_fn(cfg), opt)
+    step = hvd.make_train_step(loss_fn, opt, overlap=overlap)
     tokens, targets = synthetic_lm_batch(
         torch.Generator().manual_seed(seed + 1), batch, seq, cfg.vocab_size)
     per_rank = batch // hvd.size()
@@ -113,6 +129,9 @@ def main() -> None:
     ap.add_argument("--hooks", action="store_true",
                     help="reduce each gradient from its hook during "
                          "backward (frontends.torch.DistributedOptimizer)")
+    ap.add_argument("--overlap", choices=("off", "serial", "on"),
+                    default=None,
+                    help="train the staged loss with this overlap schedule")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -126,7 +145,8 @@ def main() -> None:
         cfg = tiny_config(seq)
         batch, steps, warmup = args.batch or 4, args.steps or 30, 0
     run = train(cfg, batch=batch, seq=seq, steps=warmup + steps,
-                timed_from=warmup, device=args.device, hooks=args.hooks)
+                timed_from=warmup, device=args.device, hooks=args.hooks,
+                overlap=args.overlap)
     dev = hvd.device()
     if args.bench:
         print(json.dumps({
@@ -137,6 +157,7 @@ def main() -> None:
                        if dev.type == "cuda" else "cpu"),
             "ranks": hvd.size(), "params": run["n_params"], "batch": batch,
             "seq": seq, "loss_chunk": args.loss_chunk, "hooks": args.hooks,
+            "overlap": args.overlap,
             "step_ms": run["timed_seconds"] / steps * 1e3}))
     else:
         first, last = run["losses"][0], run["losses"][-1]

@@ -19,8 +19,9 @@ Numerics, against the reference:
 * GELU is the tanh approximation, ``jax.nn.gelu``'s default;
 * layer norm takes the population variance, eps 1e-5.
 
-Tensor, sequence, pipeline and expert parallelism, the serving path and
-rematerialisation are later slices.
+:func:`chained_lm_loss` is the same loss in stages, for the overlapped
+step (``parallel/overlap.py``).  Tensor, sequence, pipeline and expert
+parallelism, the serving path and rematerialisation are later slices.
 """
 
 from __future__ import annotations
@@ -191,6 +192,60 @@ def make_loss_fn(cfg: TransformerConfig):
         return ce(params, tokens, targets)
 
     return loss_fn
+
+
+def chained_lm_loss(cfg: TransformerConfig):
+    """The LM loss as a :class:`~..parallel.overlap.ChainedLoss`, the form
+    the overlapped step streams gradient buckets out of (reference
+    :370-433): stage 0 the embedding, one stage a decoder layer (on the
+    flash kernels), the last final LN + unembedding + cross-entropy.
+    Calling it computes what :func:`make_loss_fn`'s dense loss computes,
+    op for op, so the monolithic step differentiates the same math.  The
+    cross-entropy is dense whatever ``cfg.loss_chunk`` says, as in the
+    reference.  Pair with :func:`chained_lm_params`."""
+    from ..parallel.overlap import ChainedLoss
+
+    _check_config(cfg)
+
+    def embed_stage(p, carry, batch):
+        tokens, _targets = batch
+        s = tokens.shape[1]
+        if s > cfg.max_seq_len:
+            raise ValueError(
+                f"sequence length {s} exceeds cfg.max_seq_len "
+                f"{cfg.max_seq_len}; positions would clamp silently")
+        return p["embed"][tokens] + p["pos_embed"][:s]
+
+    def layer_stage(p, carry, batch):
+        return _ffn_block(_attention_block(carry, p, cfg), p)
+
+    def head_stage(p, carry, batch):
+        _tokens, targets = batch
+        x = _layernorm(carry, p["ln_f"]["scale"], p["ln_f"]["bias"])
+        logp = torch.log_softmax(_logits(x, p["unembed"]), dim=-1)
+        return -torch.gather(logp, -1, targets[..., None]).mean()
+
+    return ChainedLoss([embed_stage] + [layer_stage] * cfg.n_layers
+                       + [head_stage])
+
+
+def chained_lm_params(params: dict, cfg: TransformerConfig) -> list:
+    """An :func:`init_transformer` tree as :func:`chained_lm_loss`'s
+    per-stage list ``[embed, layer_0, ..., layer_{n-1}, head]``: new leaf
+    tensors (copies; the per-layer leaves taken off the stacked
+    ``n_layers`` axis), so each layer's gradients are their own overlap
+    segment."""
+
+    def leaf(x):
+        return x.detach().clone().requires_grad_()
+
+    out = [{"embed": leaf(params["embed"]),
+            "pos_embed": leaf(params["pos_embed"])}]
+    out += [tree_map(leaf, _index_layer(params["layers"], i))
+            for i in range(cfg.n_layers)]
+    out.append({"ln_f": tree_map(leaf, params["ln_f"]),
+                "unembed": leaf(params["unembed"])})
+    return out
 
 
 def synthetic_lm_batch(generator: torch.Generator, global_batch: int,

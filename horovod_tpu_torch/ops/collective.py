@@ -1374,6 +1374,23 @@ def global_process_set():
                           _state._state.data_group)
 
 
+def set_fusion_threshold(nbytes: int) -> None:
+    """Set the Tensor Fusion threshold, in bytes, between steps (the
+    reference's autotune hook, tuning/actuation.py:169).  Every rank calls
+    it with the same value: the bucket plans of the monolithic and the
+    overlapped steps use this rank's, rank 0's coordinators fuse with
+    theirs (which drops the cache's packing plans and the quantized
+    residuals and ticks)."""
+    rt = _runtime()
+    _state._state.fusion_threshold_bytes = int(nbytes)
+    if rt.coordinator is not None:
+        with rt.cycle_lock:
+            for coord in rt._coordinators():
+                coord.set_fusion_threshold(int(nbytes))
+    else:  # the coordinators flush rank 0's; the buckets change everywhere
+        _megakernel.flush(f"fusion threshold -> {int(nbytes)}")
+
+
 @contextlib.contextmanager
 def quiesce():
     """Hold the cycle across a group of ``*_async`` submissions, so no

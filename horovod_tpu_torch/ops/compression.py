@@ -566,6 +566,9 @@ _SPMD_ENV_KNOBS = (
     DEFAULT_ENV, "HVD_TPU_DCN_COMPRESS", "HVD_TPU_ICI_COMPRESS",
     BLOCK_ENV, ROUNDING_ENV, EF_ENV, SEED_ENV, MIN_ELEMS_ENV,
     "HVD_TPU_HIERARCHICAL", "HVD_TPU_VIRTUAL_SLICES",
+    # parallel/overlap.py: which step a rank runs (the monolithic one, or
+    # bucketed collectives the other ranks must match).
+    "HVD_TPU_OVERLAP",
 )
 
 

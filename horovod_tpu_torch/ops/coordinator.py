@@ -18,20 +18,30 @@ every rank executes in the same order:
   ``HOROVOD_STALL_WARNING_SECONDS``, default 60).
 
 The copy leaves out the reference's telemetry, lock-order and race
-instrumentation, flight recorder and native twin; responses are byte for
-byte the reference's.  One repair: a request for a tensor that a JOIN has
-already made ready is not listed twice (the reference's next poll raises
+instrumentation and flight recorder; responses are byte for byte the
+reference's.  One repair: a request for a tensor that a JOIN has already
+made ready is not listed twice (the reference's next poll raises
 ``KeyError`` there, ROADMAP.md C.1).
+
+:class:`NativeCoordinator` (reference :488-562) drives the C++ twin,
+``native/coordinator.cc`` (built by :mod:`..native.lib`, with the same
+repair), through the wire format; the ``Coordinator`` facade takes it
+unless ``HVD_TPU_DISABLE_NATIVE`` is set.  Its stall watch runs on its
+own clock and prints whole seconds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import struct
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..native import lib as _native
 from . import cache as _cache
 from . import megakernel as _megakernel
 from . import wire
@@ -409,6 +419,85 @@ class PyCoordinator:
             self.ready.clear()
 
 
+class NativeCoordinator:
+    """ctypes facade over ``native/coordinator.cc``: the same requests in,
+    the same packed responses out, as :class:`PyCoordinator` (reference
+    horovod_tpu/ops/coordinator.py:488-562)."""
+
+    def __init__(self, size: int, fusion_threshold: int, lib=None):
+        self._lib = lib if lib is not None else _native.load()
+        self._ptr = self._lib.hvd_coord_create(size, fusion_threshold)
+        self._finalize = weakref.finalize(
+            self, self._lib.hvd_coord_destroy, self._ptr)
+        self.size = size
+        self.fusion_threshold = fusion_threshold
+        # Response buffer, reused across polls (only the cycle polls) and
+        # grown when a response list does not fit.
+        self._out = ctypes.create_string_buffer(1 << 20)
+
+    def submit(self, req: Request, now: Optional[float] = None) -> bool:
+        buf = req.pack()
+        rc = self._lib.hvd_coord_submit(self._ptr, buf, len(buf))
+        if rc == -1:
+            raise ValueError(
+                f"Duplicate request for tensor {req.tensor_name} from "
+                f"replica {req.request_rank}; a name may be used by at "
+                f"most one pending collective per replica.")
+        if rc < 0:
+            raise RuntimeError(
+                f"the native coordinator rejected the request for "
+                f"{req.tensor_name} as malformed (ops/wire.py and "
+                f"native/wire.cc disagree)")
+        return bool(rc)
+
+    def withdraw(self, name: str, rank: int) -> None:
+        nb = name.encode("utf-8")
+        self._lib.hvd_coord_withdraw(self._ptr, nb, len(nb), rank)
+
+    def poll_responses(self, sizes_bytes: Dict[str, int]) -> List[Response]:
+        # The payload sizes go as a side table: u16 count, then
+        # (u16 key length, key, i64 bytes) each.
+        parts = [struct.pack("<H", len(sizes_bytes))]
+        for k, v in sizes_bytes.items():
+            kb = k.encode("utf-8")
+            parts.append(struct.pack("<H", len(kb)) + kb
+                         + struct.pack("<q", v))
+        side = b"".join(parts)
+        if self._lib.hvd_coord_poll_responses(self._ptr, side, len(side),
+                                              0.0) < 0:
+            raise RuntimeError("the native coordinator could not parse "
+                               "the size table")
+        while True:
+            n = self._lib.hvd_coord_fetch_responses(
+                self._ptr, self._out, len(self._out))
+            if n >= 0:
+                return wire.unpack_response_list(self._out.raw[:n])
+            self._out = ctypes.create_string_buffer(2 * len(self._out))
+
+    def check_stalled(self, now: Optional[float] = None,
+                      threshold: Optional[float] = None) -> List[str]:
+        """Stall warnings on the library's own monotonic clock (``now``
+        is not used)."""
+        threshold = stall_warning_seconds() if threshold is None \
+            else threshold
+        cap = 1 << 16
+        while True:
+            out = ctypes.create_string_buffer(cap)
+            n = self._lib.hvd_coord_check_stalled(self._ptr, threshold,
+                                                  out, cap)
+            if n >= 0:
+                break
+            cap *= 2
+        return [w for w in out.raw[:n].decode("utf-8").split("\n") if w]
+
+    def set_fusion_threshold(self, v: int) -> None:
+        self.fusion_threshold = v
+        self._lib.hvd_coord_set_fusion_threshold(self._ptr, v)
+
+    def close(self) -> None:
+        self._finalize()
+
+
 _DATA_RESPONSE_TYPES = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
                         ResponseType.BROADCAST, ResponseType.REDUCESCATTER,
                         ResponseType.ALLTOALL)
@@ -426,13 +515,19 @@ class Coordinator:
     ``construct_response`` never run for them.  Negotiated requests are
     kept per rank (``_inflight``) and staged into the cache at poll time,
     so the insertion that follows in the response stream stores each
-    rank's exact request.  The reference's native implementation, program
-    tracker and telemetry are not in the port (A.2 item 6, A.5)."""
+    rank's exact request.  Below it runs :class:`NativeCoordinator`, or
+    :class:`PyCoordinator` when ``HVD_TPU_DISABLE_NATIVE`` is set
+    (reference :593-597); a process set has a coordinator of its own.
+    The reference's program tracker and telemetry are not in the port
+    (A.5)."""
 
     def __init__(self, size: int, fusion_threshold: int, timeline=None,
                  cache=None, ranks=None):
         self.timeline = timeline
-        self._impl = PyCoordinator(size, fusion_threshold)
+        lib = _native.active()
+        self._impl = (NativeCoordinator(size, fusion_threshold, lib)
+                      if lib is not None
+                      else PyCoordinator(size, fusion_threshold))
         self.size = size
         self.cache = cache
         # Global rank per set-local index (identity for the global set):

@@ -7,13 +7,21 @@ executed its response; then it carries a result or a
 executor's stream after the collective's last kernel.  Until then it keeps
 the tensors the collective reads and writes alive (≙ the reference's
 ``_handle_map``, torch/mpi_ops.py:27-30).
+
+The ids come from the native handle manager (``native/handle_manager.cc``,
+reference ops/handles.py:61-134), or from a Python counter that counts the
+same way when ``HVD_TPU_DISABLE_NATIVE`` is set; the ``Handle`` objects,
+their events and keep-alives stay here.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import weakref
 from typing import Any, Dict, Optional
+
+from ..native import lib as _native
 
 
 class HorovodError(RuntimeError):
@@ -59,16 +67,25 @@ class Handle:
 
 
 class HandleManager:
-    """Allocates handles and retires them on ``release``."""
+    """Allocates handles and retires them on ``release``.  Ids count from
+    0, natively or in Python."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._ids = itertools.count(1)
         self._handles: Dict[int, Handle] = {}  # guarded by _lock
+        self._lib = _native.active()
+        if self._lib is None:
+            self._ids = itertools.count(0)
+        else:
+            self._hm = self._lib.hvd_handle_manager_create()
+            weakref.finalize(self, self._lib.hvd_handle_manager_destroy,
+                             self._hm)
 
     def allocate(self, name: str, home=None, keep: Any = None) -> Handle:
         with self._lock:
-            h = Handle(next(self._ids), name, home, keep)
+            hid = next(self._ids) if self._lib is None \
+                else self._lib.hvd_handle_manager_allocate(self._hm)
+            h = Handle(hid, name, home, keep)
             self._handles[h.id] = h
         return h
 
@@ -83,6 +100,9 @@ class HandleManager:
     def release(self, handle: int) -> None:
         with self._lock:
             self._handles.pop(handle, None)
+            if self._lib is not None:
+                self._lib.hvd_handle_manager_mark_done(self._hm, handle)
+                self._lib.hvd_handle_manager_release(self._hm, handle)
 
     def live_count(self) -> int:
         with self._lock:

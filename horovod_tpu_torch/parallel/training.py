@@ -5,9 +5,13 @@ One step is forward, backward, the bucketed gradient allreduce, the
 optimizer's update, and the loss averaged over ranks; the stateful step
 also averages the model's new non-trained state (BatchNorm statistics)
 over ranks.  PyTorch runs eagerly, so a step is a plain function; the
-parameters are updated in place by the optimizer.  The overlapped
-schedules and the multi-axis (tensor/sequence/pipeline/expert) step are
-later work.
+parameters are updated in place by the optimizer.  The multi-axis
+(tensor/sequence/pipeline/expert) step is later work.
+
+``make_train_step(..., overlap=)`` (or ``HVD_TPU_OVERLAP``) selects the
+schedule: ``off`` is the monolithic step below; ``on`` and ``serial``
+build the bucketed-backward step of :mod:`.overlap`, whose gradient
+buckets ride the negotiated collectives (reference :240-290).
 
 The gradients take one of two paths.  :class:`.data.DistributedOptimizer`
 reduces them after the backward pass with direct ``torch.distributed``
@@ -33,10 +37,14 @@ from .data import DistributedOptimizer, allreduce_gradients
 from .input import device_put_batch
 
 
-def _distributed(optimizer, average, fusion_threshold, op):
-    from ..frontends.torch import _DistributedOptimizer as HookOptimizer
+def _hook_optimizer():
+    from ..frontends.torch import _DistributedOptimizer
 
-    if isinstance(optimizer, (DistributedOptimizer, HookOptimizer)):
+    return _DistributedOptimizer
+
+
+def _distributed(optimizer, average, fusion_threshold, op):
+    if isinstance(optimizer, (DistributedOptimizer, _hook_optimizer())):
         return optimizer
     return DistributedOptimizer(optimizer, average=average,
                                 fusion_threshold=fusion_threshold, op=op)
@@ -44,22 +52,42 @@ def _distributed(optimizer, average, fusion_threshold, op):
 
 def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
                     average: bool = True,
-                    fusion_threshold: Optional[int] = None, op=None):
+                    fusion_threshold: Optional[int] = None, op=None,
+                    overlap: Optional[str] = None):
     """Build the data-parallel train step.
 
     Args:
-      loss_fn: ``loss_fn(params, batch) -> scalar`` on this rank's batch.
+      loss_fn: ``loss_fn(params, batch) -> scalar`` on this rank's batch,
+        or a :class:`.overlap.ChainedLoss` (``params`` then one tree per
+        stage), whose stages the overlapped step streams buckets out of.
       optimizer: a :class:`DistributedOptimizer`, the hook-driven
         ``frontends.torch.DistributedOptimizer``, or a
         ``torch.optim.Optimizer`` over the parameter leaves, which is
         wrapped in one with ``average``, ``fusion_threshold`` and ``op``
         (as for :func:`~.data.allreduce_gradients`).
+      overlap: ``"on"``, ``"serial"``, ``"off"`` or ``"auto"``; default
+        ``HVD_TPU_OVERLAP`` (see :mod:`.overlap`).  The hook-driven
+        optimizer overlaps from its hooks already: it takes the
+        monolithic step, and an explicit ``on``/``serial`` with it is an
+        error.
 
     Returns:
       ``step(params, batch) -> loss``: the loss averaged over ranks, as a
-      tensor (reading it waits for the device).
+      tensor (reading it waits for the device).  The overlapped step also
+      has ``stats()``, ``bucket_count`` and ``overlap_active``.
     """
+    from . import overlap as _overlap
+
     optimizer = _distributed(optimizer, average, fusion_threshold, op)
+    schedule = _overlap.resolve_mode(overlap, _state.device(),
+                                     _state.size(), loss_fn)
+    if isinstance(optimizer, _hook_optimizer()):
+        if overlap is not None and schedule != "off":
+            raise ValueError(
+                f"overlap={overlap!r} needs a DistributedOptimizer from "
+                f"parallel.data; the hook-driven optimizer reduces each "
+                f"gradient from its hook during backward already")
+        schedule = "off"
 
     def step(params, batch):
         optimizer.zero_grad(set_to_none=True)
@@ -68,7 +96,11 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
         optimizer.step()  # the gradients' allreduce, then the update
         return C.allreduce(loss.detach(), average=True, name="train.loss")
 
-    return step
+    if schedule == "off":
+        return step
+    return _overlap.make_overlapped_step(
+        loss_fn, optimizer, stream=schedule == "stream",
+        fallback_builder=lambda: step)
 
 
 def make_train_step_with_state(loss_fn: Callable[..., Any], optimizer,

@@ -31,8 +31,13 @@ device's execution of it (the device runs it later, in stream order).
 Response-cache markers: a CACHE_HIT / CACHE_MISS instant on the tensor's
 row and a ``response_cache`` counter track of cumulative hits and misses.
 
-Left out of the port: the reference's C++ writer (ROADMAP.md A.2 item 6)
-and its flight-recorder and trace-context hooks (A.5).
+When the native library is active (``HVD_TPU_DISABLE_NATIVE`` unset),
+events are formatted and flushed by its C++ writer, ``native/timeline.cc``
+(reference utils/timeline.py:67-180): the same events, names and rows.
+It has no counter phase, so the ``response_cache`` counter becomes an
+instant on a ``response_cache`` row with the same args, as in the
+reference.  Left out of the port: the reference's flight-recorder and
+trace-context hooks (A.5).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import threading
 import time
 from typing import Optional
 
+from ..native import lib as _native
+
 # Flush cadence, seconds (≙ TIMELINE_FLUSH_TIME, timeline.h:32).
 _FLUSH_SECONDS = 1.0
 
@@ -50,6 +57,8 @@ _PH_METADATA = "M"
 _PH_BEGIN = "B"
 _PH_END = "E"
 _PH_INSTANT = "i"
+# Their codes in native/timeline.cc's hvd_timeline_event.
+_NATIVE_PH = {_PH_BEGIN: 0, _PH_END: 1, _PH_INSTANT: 2, _PH_METADATA: 3}
 
 
 class Timeline:
@@ -63,8 +72,14 @@ class Timeline:
         # Events are written with a LEADING ",\n" after the first, so the
         # file is one valid JSON array as soon as close() writes "]".
         self._fresh = True
-        self._file = open(path, "w")
-        self._file.write("[\n")
+        self._file = None
+        self._lib = _native.active()
+        self._native = None
+        if self._lib is not None:
+            self._native = self._lib.hvd_timeline_create(path.encode())
+        else:
+            self._file = open(path, "w")
+            self._file.write("[\n")
 
     # -- low-level ---------------------------------------------------------
     def _ts_us(self) -> float:
@@ -100,6 +115,11 @@ class Timeline:
         # stop_timeline() may close the file: the whole event holds the
         # lock, and an event after close is a silent no-op.
         with self._lock:
+            if self._native is not None:
+                self._lib.hvd_timeline_event(
+                    self._native, _NATIVE_PH[ph], tensor.encode(),
+                    name.encode(), json.dumps(args or {}).encode(), 0.0)
+                return
             ev = {"ph": ph, "ts": self._ts_us(),
                   "pid": self._pid_locked(tensor)}
             if name:
@@ -132,6 +152,12 @@ class Timeline:
         """Counter track of cumulative response-cache hits and misses
         (ph "C", a stacked area in the trace viewer)."""
         with self._lock:
+            if self._native is not None:
+                self._lib.hvd_timeline_event(
+                    self._native, _NATIVE_PH[_PH_INSTANT], b"response_cache",
+                    b"response_cache",
+                    json.dumps({"hit": hits, "miss": misses}).encode(), 0.0)
+                return
             self._emit_locked({"ph": "C", "ts": self._ts_us(), "pid": 0,
                                "name": "response_cache",
                                "args": {"hit": hits, "miss": misses}})
@@ -163,6 +189,9 @@ class Timeline:
         """Finish the file (a valid JSON array).  Idempotent; an event
         after it is a no-op."""
         with self._lock:
+            if self._native is not None:
+                self._lib.hvd_timeline_close(self._native)  # frees it
+                self._native = None
             if self._file is not None:
                 self._emit_locked(
                     {"ph": _PH_INSTANT, "ts": self._ts_us(), "pid": 0,

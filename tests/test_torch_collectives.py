@@ -360,7 +360,20 @@ WORKER = textwrap.dedent("""
     # The hook optimizer: 3 SGD steps on each rank's rows, names
     # registered in a rank-dependent order; the response cache serves
     # every request after the first step.  Then the same with the cache
-    # off (a new init): the same bits.
+    # off (a new init): the same bits where the steps fused their
+    # gradients into the same responses.  Each step's responses are kept:
+    # which cycle a hook's request lands in decides whether w and b fuse,
+    # and with 3 ranks that moves their elements in gloo's ring and so
+    # the order of the sums.
+    layout = []
+    run_response = C.Runtime._run
+
+    def recording_run(self, resp, *args, **kw):
+        layout.append(",".join(resp.tensor_names))
+        return run_response(self, resp, *args, **kw)
+
+    C.Runtime._run = recording_run
+
     def hook_steps(tag):
         w = torch.nn.Parameter(torch.from_numpy(data["w0"].copy()))
         b = torch.nn.Parameter(torch.zeros(2))
@@ -368,17 +381,20 @@ WORKER = textwrap.dedent("""
         opt = fhvd.DistributedOptimizer(torch.optim.SGD([w, b], lr=0.1),
                                         named_parameters=named)
         fhvd.broadcast_parameters({"w": w.data, "b": b.data}, root_rank=0)
-        hits = []
+        hits, responses = [], []
         for step in range(3):
             C.reset_stats()
             opt.zero_grad()
             rows = torch.from_numpy(data["hx"][rank])
+            layout.clear()
             ((rows @ w + b) ** 2).sum().backward()
             opt.step()
             hits.append((C.stats()["cache_hits"], C.stats()["cache_misses"]))
+            responses.append("|".join(layout))
         keep(f"{tag}.w", w.detach())
         keep(f"{tag}.b", b.detach())
         out[f"{tag}.hits"] = np.array(hits)
+        out[f"{tag}.responses"] = np.array(responses)
 
     hook_steps("hook")
     out["replay.payloads"] = np.array(payloads[transport.PAYLOAD_REPLAY])
@@ -572,9 +588,19 @@ def test_three_gloo_ranks_match_the_reference(tmp_path):
         assert (int(out["replay.payloads"]) > 0) == (out is not outs[0])
         assert out["hook.hits"].tolist() == [[0, 2], [2, 0], [2, 0]]
         assert out["hook.nocache.hits"].tolist() == [[0, 2]] * 3
-        for key in ("hook.w", "hook.b"):
-            np.testing.assert_array_equal(out[key], out[key.replace(
-                "hook", "hook.nocache")])
+        # Every step reduced w and b, fused or apart.
+        for tag in ("hook", "hook.nocache"):
+            for resp in out[f"{tag}.responses"]:
+                assert sorted(",".join(resp.split("|")).split(",")) == \
+                    ["grad.b", "grad.w"], resp
+        # The same fused responses every step: the same bits.  (Where they
+        # differ, the comparison with SGD on the averaged gradient below
+        # holds both runs.)
+        if out["hook.responses"].tolist() == \
+                out["hook.nocache.responses"].tolist():
+            for key in ("hook.w", "hook.b"):
+                np.testing.assert_array_equal(out[key], out[key.replace(
+                    "hook", "hook.nocache")])
     assert "ps.ar" not in outs[1]
     assert str(outs[0]["withdraw"]) == (
         "Collective orphan was abandoned: rank 0 timed out waiting for the "
@@ -601,7 +627,8 @@ def test_three_gloo_ranks_match_the_reference(tmp_path):
         loss.backward()
         opt.step()
     for out in outs:
-        np.testing.assert_allclose(out["hook.w"], w.detach().numpy(),
-                                   rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(out["hook.b"], b.detach().numpy(),
-                                   rtol=1e-6, atol=1e-7)
+        for tag in ("hook", "hook.nocache"):
+            np.testing.assert_allclose(out[f"{tag}.w"], w.detach().numpy(),
+                                       rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(out[f"{tag}.b"], b.detach().numpy(),
+                                       rtol=1e-6, atol=1e-7)

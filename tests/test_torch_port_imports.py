@@ -67,7 +67,9 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.examples.word2vec",
             "horovod_tpu_torch.ops.prng", "horovod_tpu_torch.ops.quant",
             "horovod_tpu_torch.ops.megakernel",
-            "horovod_tpu_torch.core.topology"} <= set(names)
+            "horovod_tpu_torch.core.topology",
+            "horovod_tpu_torch.native.lib",
+            "horovod_tpu_torch.parallel.overlap"} <= set(names)
 
 
 def _imported_roots(tree):

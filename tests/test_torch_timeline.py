@@ -73,8 +73,9 @@ def test_timeline_events_match_the_reference(tmp_path, monkeypatch, seed):
     from horovod_tpu.utils import timeline as jtl
 
     # The reference's Python writer (not its C++ one) is what the port
-    # copies.
+    # copies; the port's C++ writer is held to it in test_torch_native.py.
     monkeypatch.setattr(jtl._native, "NATIVE", False)
+    monkeypatch.setenv("HVD_TPU_DISABLE_NATIVE", "1")
     monkeypatch.setattr(jtl, "_context_provider", None)
     ref = jtl.Timeline(str(tmp_path / "ref.json"))
     port = ttl.Timeline(str(tmp_path / "port.json"))
@@ -147,7 +148,10 @@ def test_timeline_env_at_init(tmp_path, monkeypatch):
         assert want in names, want
 
 
-def test_feature_queries_answer_what_torch_reports():
+def test_feature_queries_answer_what_torch_reports(monkeypatch):
+    # native_built: g++ builds the native runtime here; the env knob
+    # selects the Python twins.
+    monkeypatch.delenv("HVD_TPU_DISABLE_NATIVE", raising=False)
     want = {"mpi_built": dist.is_mpi_available(), "mpi_enabled": False,
             "nccl_built": dist.is_nccl_available(),
             "gloo_built": dist.is_gloo_available(),
@@ -155,10 +159,13 @@ def test_feature_queries_answer_what_torch_reports():
             "cuda_built": torch.backends.cuda.is_built(),
             "rocm_built": torch.version.hip is not None,
             "ccl_built": False, "ddl_built": False, "xla_built": False,
-            "native_built": False}
+            "native_built": True}
     for name, value in want.items():
         assert getattr(features, name)() is value, name
         assert getattr(thvd, name)() is value, name
+    monkeypatch.setenv("HVD_TPU_DISABLE_NATIVE", "1")
+    assert features.native_built() is False
+    monkeypatch.delenv("HVD_TPU_DISABLE_NATIVE")
     for name in ("cuda_built", "gloo_built", "mpi_built", "mpi_enabled",
                  "nccl_built", "rocm_built", "mpi_threads_supported",
                  "start_timeline", "stop_timeline"):
