@@ -72,16 +72,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
              versions on the card, bitwise (torch.equal of the bytes), at
              the embedding's bucket (25,165,824 elements) and a 64 MB
              bucket, int8 and int4, stochastic and nearest, f32, bf16 and
-             f16 inputs, with an all-zero block, a block with one huge
-             value, f32 subnormals, r = 4 with a row sum; each kernel and
-             its plain version timed (int8 stochastic, bf16 and f32) with
-             the bound (bytes / 3.35 TB/s; for quant_pack the larger of
-             that and its operations an element, counted in the
-             function: its rotates and logic ops over 64 ALU lanes or all
-             its ops over 128 issue lanes an SM, whichever is more, at
-             the SM clock nvidia-smi reads under its load; the SASS counts
-             of the built library beside it, cuobjdump); a
-             one-rank hvd.allreduce
+             f16 inputs, in quant_pack's both forms (the one pass and the
+             first form), with an all-zero block, a block with one huge
+             value, f32 subnormals, NaN, +inf, -inf and NaN-and-inf
+             blocks, r = 4 with a row sum; then every block from 6 (the
+             first form) to 1024, r = 4 rows of C = 768, 1536 and 4096
+             (2-, 4- and 8-byte code stores), with and without the
+             residual, and rows one element off 16-byte alignment (the
+             first form), each launch counted in the form quant_pack_form
+             picks; each kernel and its plain version timed (int8
+             stochastic, bf16 and f32; quant_pack's two forms in turns,
+             first, one pass, one pass, first, and the one pass must be
+             the faster) with the bound (bytes / 3.35 TB/s; for
+             quant_pack the larger of that and its operations an
+             element, counted in the function: its rotates and logic ops
+             over 64 ALU lanes or all its ops over 128 issue lanes an
+             SM, whichever is more, at the SM clock nvidia-smi reads
+             under its load; both forms' SASS counts of the built
+             library beside it, cuobjdump); a one-rank hvd.allreduce
              under set_compression("int8"), bitwise the plain
              reference_allreduce, within one step per phase of the exact
              sum, the residual carried to the next tick; GPT-2-small
@@ -91,7 +99,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              finite, falling and within 2% of the uncompressed; then
              timed in turns (none, int8, int8, none; 2 warm-up and 5
              timed steps): step ms, tokens/s, the two kernels' launches a
-             step (2 per quantized bucket each, asserted), logical and
+             step (2 per quantized bucket each, every quant_pack launch
+             the one pass, asserted), quant_pack's calls by dtype, logical and
              wire bytes a step, each flash kernel 12 times a step, and
              one profiled int8 step: the two kernels' device time
              against the bytes the quantized path must move.
@@ -110,7 +119,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              one profiled on step (idle share, the executor's first work
              against the last dQ) and a cProfile of the host's step; one
              profiled int8 on step: where each quantized bucket's codec
-             kernels start against the end of the last dQ.
+             kernels start against the end of the last dQ (every
+             quant_pack launch the one pass, asserted; its calls by
+             dtype).
 9. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
@@ -1138,6 +1149,12 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
 # their plain versions, bit for bit; a one-rank quantized allreduce; and
 # GPT-2-small's hook path under the int8 and int4 policies.
 QUANT_SHAPES = (("embedding", 25_165_824), ("fused_64MB", 16 * 2 ** 20))
+# (block, r, C): blocks 6 (the first form) to 1024 at r = 1, and r = 4
+# rows of C = 768, 1536, 4096, whose frames keep rows after the first
+# only 2-, 4- or 8-byte aligned (the one pass's code store width).
+QUANT_EDGE_SHAPES = ((6, 1, 3072), (64, 1, 4096), (128, 1, 4096),
+                     (256, 1, 4096), (512, 1, 4096), (1024, 1, 4096),
+                     (256, 4, 768), (256, 4, 1536), (256, 4, 4096))
 QUANT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # LayerNorm scales and biases and the FFN biases stay uncompressed.
 QUANT_RULES = [(r"ln(1|2|_f)/|(b_in|b_out|bias)$", "none")]
@@ -1187,18 +1204,27 @@ def quant_pack_ops_clocks():
                QUANT_PACK_OPS / ISSUE_LANES_PER_SM)
 
 
-QUANT_PACK_MANGLED = {torch.bfloat16: "13__nv_bfloat16Li8E",
-                      torch.float32: "IfLi8E"}
+# quant_pack's kernels in the built library's SASS: int8, bf16 and f32
+# in; the one pass at the default block (one chunk of 8 a lane) with
+# 8-byte code stores.
+QUANT_PACK_SASS = {
+    "first": ("quant_pack_kernel", {torch.bfloat16: "13__nv_bfloat16Li8E",
+                                    torch.float32: "fLi8E"}),
+    "one_pass": ("quant_pack_one_pass_kernel",
+                 {torch.bfloat16: "13__nv_bfloat16Li8ELi1ELi8E",
+                  torch.float32: "fLi8ELi1ELi8E"})}
+# Opcodes that issue to the integer ALU (logic, shifts, 3-input adds,
+# byte permutes, min/max, compares, selects, LEA).  IMAD (and its
+# IADD/MOV/SHL/WIDE forms) goes to the FMA pipe; VIADD is counted apart.
+ALU_OPCODES = ("LOP3", "SHF", "IADD3", "PRMT", "IMNMX", "VIMNMX", "FMNMX",
+               "ISETP", "FSETP", "SEL", "FSEL", "LEA", "PLOP3")
 
 
 def quant_pack_sass_ops(out_dir):
     """A cross-check of the count above: the instructions an element of
     quant_pack (int8; bf16 and f32 in) in the SASS of the built
-    libquant.so (``cuobjdump -sass``, saved as ``quant_sass.txt``).  The
-    per-element loop is the innermost loop holding the most funnel shifts
-    (SHF.L.W, 20 a threefry, one threefry an element); reported are its
-    funnel shifts, LOP3s and all instructions over the elements an
-    iteration handles."""
+    libquant.so (``cuobjdump -sass``, saved as ``quant_sass.txt``), for
+    each form: ``{form: {dtype: counts}}`` (:func:`_loop_ops`)."""
     from horovod_tpu_torch.ops import _build
 
     lib = _build.BUILD_ROOT / _build._source_hash() / "libquant.so"
@@ -1209,13 +1235,23 @@ def quant_pack_sass_ops(out_dir):
     with open(os.path.join(out_dir, "quant_sass.txt"), "w") as f:
         f.write(sass)
     funcs = re.split(r"\n\s*Function : ", sass)
-    return {dtype: _loop_ops(next(
-        f for f in funcs if "quant_pack_kernel" in f.split("\n")[0]
-        and mangled in f.split("\n")[0]))
-        for dtype, mangled in QUANT_PACK_MANGLED.items()}
+
+    def body(kernel, mangled):
+        return next(f for f in funcs
+                    if f"{len(kernel)}{kernel}I{mangled}" in f.split("\n")[0])
+
+    return {form: {dtype: _loop_ops(body(kernel, mangled),
+                                    8 if form == "one_pass" else None)
+                   for dtype, mangled in names.items()}
+            for form, (kernel, names) in QUANT_PACK_SASS.items()}
 
 
-def _loop_ops(body):
+def _loop_ops(body, elements=None):
+    """Counts an element in a kernel's per-element loop.  The one pass
+    (``elements`` a lane an iteration): its tile loop, the backward branch
+    that encloses the most instructions, however its rotates are emitted.
+    The first form: the innermost loop holding the most funnel shifts
+    (SHF.L.W, 20 a threefry, one threefry an element)."""
     insts = []
     for line in body.split("\n"):
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
@@ -1228,18 +1264,29 @@ def _loop_ops(body):
         if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
             lo = int(t.group(1), 16)
             region = [o for a, o, _ in insts if lo <= a <= addr]
-            shf = sum(o.startswith("SHF.L.W") for o in region)
-            lop3 = sum(o.startswith("LOP3") for o in region)
-            loops.append((shf, -(addr - lo), lop3, len(region)))
-    shf, _neg_span, lop3, n = max(loops)
-    if shf == 0 or shf % 20:
-        raise AssertionError(f"quant_pack's loop holds {shf} funnel shifts, "
-                             f"not a whole number of threefry calls")
-    per_iter = shf // 20
-    return {"shf_per_element": shf / per_iter,
-            "lop3_per_element": lop3 / per_iter,
-            "instructions_per_element": n / per_iter,
-            "elements_per_iteration": per_iter}
+            rot = sum(o.startswith("SHF.L.W") for o in region)
+            loops.append((rot, -(addr - lo), region))
+    if elements is None:
+        rot, _neg_span, region = max(loops, key=lambda lp: lp[:2])
+        if rot == 0 or rot % 20:
+            raise AssertionError(f"quant_pack's loop holds {rot} funnel "
+                                 f"shifts, not a whole number of threefry "
+                                 f"calls")
+        elements = rot // 20
+    else:
+        region = max(loops, key=lambda lp: len(lp[2]))[2]
+
+    def per(pred):
+        return sum(1 for o in region if pred(o)) / elements
+
+    return {"shf_per_element": per(lambda o: o.startswith("SHF")),
+            "lop3_per_element": per(lambda o: o.startswith("LOP3")),
+            "alu_ops_per_element": per(
+                lambda o: o.split(".")[0] in ALU_OPCODES),
+            "imad_per_element": per(lambda o: o.startswith("IMAD")),
+            "viadd_per_element": per(lambda o: o.startswith("VIADD")),
+            "instructions_per_element": len(region) / elements,
+            "elements_per_iteration": elements}
 
 
 def sm_clock_under_load(fn, seconds=0.3):
@@ -1269,9 +1316,12 @@ def sm_clock_under_load(fn, seconds=0.3):
 
 
 def quant_rows(r, C, dtype, seed):
-    """Seeded rows (C a multiple of 256) whose blocks span many
-    magnitudes (within float16's range), with an all-zero block, a block
-    with one huge value and, in f32, a block of subnormals."""
+    """Seeded rows (C a multiple of 256, at least 768) whose blocks span
+    many magnitudes (within float16's range), with an all-zero block, a
+    block with one huge value, in f32 a block of subnormals and, in the
+    last 256 elements, a NaN block, a +inf block, a -inf block and a
+    block with a NaN and a +inf (at block 64; one block of all of them
+    at 256)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mag = torch.exp(3 * torch.randn(r, C // 256, 1, generator=gen,
                                     device="cuda")).clamp(1e-6, 1e3)
@@ -1281,48 +1331,86 @@ def quant_rows(r, C, dtype, seed):
     x[:, 300] = 3e4
     if dtype == torch.float32 and C >= 1024:
         x[:, 512:768] = torch.linspace(-1e-39, 1e-39, 256, device="cuda")
+    x[:, C - 256 + 5] = float("nan")
+    x[:, C - 192 + 7] = float("inf")
+    x[:, C - 128 + 9] = -float("inf")
+    x[:, C - 64 + 1] = float("nan")
+    x[:, C - 64 + 2] = float("inf")
     return x.to(dtype)
 
 
+def bitwise_err(a, b):
+    """max |a - b| over the elements whose bits differ: 0 where every
+    element is bitwise equal, NaN and inf included."""
+    a, b = a.float(), b.float()
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return float(torch.where(same, torch.zeros_like(a), (a - b).abs()).max())
+
+
 def quant_kernel_case(tq, fmt, r, C, dtype, seed, sum_rows=True,
-                      timing=False, sass=None):
+                      timing=False, sass=None, residual=True, rows=None):
     """Each kernel against its plain version on the same inputs, bit for
-    bit (torch.equal of the bytes).  With ``timing`` each is timed beside
-    its plain version, with its bound: bytes / 3.35 TB/s for both, and
-    for quant_pack also its operations (:func:`quant_pack_ops_clocks`)
-    at the SM clock read under its load, whichever is larger; ``sass``
-    (:func:`quant_pack_sass_ops`) is reported beside them."""
+    bit (torch.equal of the bytes): quant_pack in the form
+    quant_pack_form picks and, where that is the one pass, in the first
+    form too, each launch counted in its form.  With ``timing`` (and the
+    residual) the two forms are timed in turns (first, one pass, one
+    pass, first) beside the plain version, with the bound: bytes / 3.35
+    TB/s, and for quant_pack also its operations
+    (:func:`quant_pack_ops_clocks`) at the SM clock read under its load,
+    whichever is larger; ``sass`` (:func:`quant_pack_sass_ops`) is
+    reported beside them."""
     from horovod_tpu_torch.ops import compression as qc
 
-    rows = quant_rows(r, C, dtype, seed)
+    rows = quant_rows(r, C, dtype, seed) if rows is None else rows
     key = qc.step_key(seed, 3)
-    res, res_plain = torch.empty_like(rows), torch.empty_like(rows)
-    wire = tq.quant_pack(rows, fmt, key, res)
+    expect = tq.quant_pack_form(r, C, dtype, fmt, rows.data_ptr())[0]
+    res_plain = torch.empty_like(rows) if residual else None
     wire_plain = tq.quant_pack_plain(rows, fmt, key, res_plain)
-    out = {"quant_pack_equal": bool(torch.equal(wire, wire_plain)),
-           "residual_equal": bool(torch.equal(res.view(torch.uint8),
-                                              res_plain.view(torch.uint8)))}
-    errs = {"quant_pack": max(
-        float((tq.unpack_dequantize_plain(wire, C, fmt, False)
-               - tq.unpack_dequantize_plain(wire_plain, C, fmt, False))
-              .abs().max()),
-        float((res.float() - res_plain.float()).abs().max()))}
+    deq_plain = tq.unpack_dequantize_plain(wire_plain, C, fmt, False)
+    out, errs = {}, {"quant_pack": 0.0}
+    for form in (None, "first") if expect == "one_pass" else (None,):
+        tq.reset_launches()
+        res = torch.empty_like(rows) if residual else None
+        got = tq.quant_pack(rows, fmt, key, res, form=form)
+        torch.cuda.synchronize()
+        took = form or expect
+        if tq.form_launches != {f: int(f == took) for f in tq.FORMS}:
+            raise AssertionError(f"quant_pack's {took} form: launches "
+                                 f"{tq.form_launches}")
+        out[f"{took}_quant_pack_equal"] = bool(torch.equal(got, wire_plain))
+        errs["quant_pack"] = max(errs["quant_pack"], bitwise_err(
+            tq.unpack_dequantize_plain(got, C, fmt, False), deq_plain))
+        if residual:
+            out[f"{took}_residual_equal"] = bool(torch.equal(
+                res.view(torch.uint8), res_plain.view(torch.uint8)))
+            errs["quant_pack"] = max(errs["quant_pack"],
+                                     bitwise_err(res, res_plain))
+        if form is None:
+            wire, res_main = got, res
     for flag in (False, True) if r > 1 else (sum_rows,):
         got = tq.unpack_dequantize(wire, C, fmt, flag)
         want = tq.unpack_dequantize_plain(wire, C, fmt, flag)
         out[f"unpack_sum_{flag}_equal"] = bool(torch.equal(
             got.view(torch.int32), want.view(torch.int32)))
         errs["unpack_dequantize"] = max(errs.get("unpack_dequantize", 0.0),
-                                        float((got - want).abs().max()))
+                                        bitwise_err(got, want))
     torch.cuda.synchronize()
     if not all(out.values()):  # the equality flags
         raise AssertionError(f"quant kernels differ from their plain "
                              f"versions: {fmt} r{r} C{C} {dtype}: {out}")
+    out["form"] = expect
     out.update({f"{k}_max_abs_err": v for k, v in errs.items()})
     if timing:
+        res = res_main
         item = rows.element_size()
-        out["quant_pack_ms"] = cuda_time_ms(
-            lambda: tq.quant_pack(rows, fmt, key, res), iters=10)
+        turns = {"first": [], "one_pass": []}
+        for form in ("first", "one_pass", "one_pass", "first"):
+            turns[form].append(cuda_time_ms(
+                lambda form=form: tq.quant_pack(rows, fmt, key, res,
+                                                form=form), iters=10))
+        out["quant_pack_turns_ms"] = turns
+        out["quant_pack_ms"] = float(np.mean(turns["one_pass"]))
+        out["quant_pack_first_form_ms"] = float(np.mean(turns["first"]))
         out["quant_pack_plain_ms"] = cuda_time_ms(
             lambda: tq.quant_pack_plain(rows, fmt, key, res_plain), iters=3,
             warmup=1)
@@ -1339,10 +1427,15 @@ def quant_kernel_case(tq, fmt, r, C, dtype, seed, sum_rows=True,
                    quant_pack_alu_ops_per_element=QUANT_PACK_ALU_OPS,
                    quant_pack_ops_per_element=QUANT_PACK_OPS)
         if sass is not None:
-            out["quant_pack_sass"] = sass[dtype]
+            out["quant_pack_sass"] = {form: counts[dtype]
+                                      for form, counts in sass.items()}
         if ops_ms > bytes_ms:
             out["quant_pack_bound_ms"], out["quant_pack_bound_by"] = \
                 ops_ms, "operations"
+        out["quant_pack_share_of_bound"] = \
+            out["quant_pack_bound_ms"] / out["quant_pack_ms"]
+        out["quant_pack_first_form_share_of_bound"] = \
+            out["quant_pack_bound_ms"] / out["quant_pack_first_form_ms"]
         out["unpack_dequantize_ms"] = cuda_time_ms(
             lambda: tq.unpack_dequantize(wire, C, fmt, sum_rows), iters=10)
         out["unpack_dequantize_plain_ms"] = cuda_time_ms(
@@ -1397,28 +1490,38 @@ def quant_one_rank_allreduce(hvd, qc, MK):
             "residuals_kept": kept}
 
 
+# Kernel-name substrings of the codec in a trace: quant_pack's two forms
+# (quant_pack_kernel, quant_pack_one_pass_kernel) and unpack_dequantize.
+QUANT_TRACE_NAMES = {"quant_pack_one_pass": "hvdquant::quant_pack_one_pass",
+                     "quant_pack_first": "hvdquant::quant_pack_kernel",
+                     "unpack_dequantize": "hvdquant::unpack_dequantize"}
+
+
 def quant_trace_ms(trace_path):
     """Device ms of each quantization kernel in a chrome trace."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
     out = {}
-    for name in ("quant_pack_kernel", "unpack_dequantize_kernel"):
-        hits = [e["dur"] for e in events if name in e["name"]]
+    for name, pattern in QUANT_TRACE_NAMES.items():
+        hits = [e["dur"] for e in events if pattern in e["name"]]
         out[name] = {"ms": sum(hits) / 1e3, "launches": len(hits)}
     return out
 
 
 def record_quant_calls(tq, step):
-    """One step with the two wrappers recording each call's shape, for
-    the bytes the quantized path must move a step."""
-    calls = []
+    """One step with the two wrappers recording each call's shape: the
+    bytes the quantized path must move a step, and quant_pack's calls a
+    step by input dtype."""
+    calls, dtypes = [], {}
     pack, unpack = tq.quant_pack, tq.unpack_dequantize
 
     def pack_rec(rows, fmt, key, residual_out=None):
         calls.append(quant_bytes(rows.shape[0], rows.shape[1], fmt,
                                  rows.element_size(),
                                  residual_out is not None))
+        name = str(rows.dtype).replace("torch.", "")
+        dtypes[name] = dtypes.get(name, 0) + 1
         return pack(rows, fmt, key, residual_out)
 
     def unpack_rec(wire, C, fmt, sum_rows):
@@ -1431,7 +1534,7 @@ def record_quant_calls(tq, step):
         torch.cuda.synchronize()
     finally:
         tq.quant_pack, tq.unpack_dequantize = pack, unpack
-    return sum(calls)
+    return sum(calls), dtypes
 
 
 def phase_quant(fa, smi_line, out_dir):
@@ -1443,24 +1546,51 @@ def phase_quant(fa, smi_line, out_dir):
     from horovod_tpu_torch.utils.tree import tree_leaves
 
     torch.cuda.empty_cache()
-    # 1. Each kernel against its plain version, bit for bit.
-    cases, seed = [], 0
+    # 1. Each kernel against its plain version, bit for bit; quant_pack
+    # in both forms wherever the one pass applies.
+    cases, seed, forms = [], 0, {form: 0 for form in tq.FORMS}
+
+    def case(name, expect, *args, **kw):
+        got = quant_kernel_case(tq, *args, **kw)
+        if got["form"] != expect:
+            raise AssertionError(f"{name}: quant_pack_form chose "
+                                 f"{got['form']}, not {expect}")
+        forms[expect] += 1
+        cases.append(name)
+
     for (label, C), dtype, bits, stochastic in itertools.product(
             QUANT_SHAPES, QUANT_DTYPES, (8, 4), (True, False)):
         seed += 1
-        quant_kernel_case(tq, quant_format(bits, stochastic), 1, C, dtype,
-                          seed)
-        cases.append(f"{label} {dtype} int{bits} "
-                     f"{'stochastic' if stochastic else 'nearest'}")
+        case(f"{label} {dtype} int{bits} "
+             f"{'stochastic' if stochastic else 'nearest'}", "one_pass",
+             quant_format(bits, stochastic), 1, C, dtype, seed)
     for bits in (8, 4):  # r = 4 with a row sum; a padded tail
-        quant_kernel_case(tq, quant_format(bits, True), 4, 4096,
-                          torch.float32, 100 + bits)
-        quant_kernel_case(tq, quant_format(bits, True), 4, 1024,
-                          torch.bfloat16, 110 + bits)
-        cases += [f"r4 C4096 f32 int{bits}", f"r4 C1024 bf16 int{bits}"]
-    log({"phase": "quant", "check": "quant_pack and unpack_dequantize "
-         "against their plain versions, bitwise", "cases": len(cases),
-         "all_equal": True, "case_list": cases})
+        case(f"r4 C4096 f32 int{bits}", "one_pass", quant_format(bits, True),
+             4, 4096, torch.float32, 100 + bits)
+        case(f"r4 C1024 bf16 int{bits}", "one_pass",
+             quant_format(bits, True), 4, 1024, torch.bfloat16, 110 + bits)
+    for (block, r, C), dtype, bits, stochastic, residual in \
+            itertools.product(QUANT_EDGE_SHAPES, QUANT_DTYPES, (8, 4),
+                              (True, False), (True, False)):
+        seed += 1
+        case(f"block {block} r{r} C{C} {dtype} int{bits} "
+             f"{'stochastic' if stochastic else 'nearest'}"
+             f"{' residual' if residual else ''}",
+             "first" if block == 6 else "one_pass",
+             quant_format(bits, stochastic, block), r, C, dtype, seed,
+             residual=residual)
+    for bits, dtype in itertools.product((8, 4), (torch.float32,
+                                                  torch.bfloat16)):
+        seed += 1  # rows one element off 16-byte alignment
+        rows = quant_rows(1, 4352, dtype, seed).reshape(-1)[1:4097]
+        case(f"misaligned {dtype} int{bits}", "first",
+             quant_format(bits, True), 1, 4096, dtype, seed,
+             rows=rows.view(1, 4096))
+    log({"phase": "quant", "check": "quant_pack (both forms) and "
+         "unpack_dequantize against their plain versions, bitwise, NaN "
+         "and inf blocks included", "cases": len(cases),
+         "cases_by_chosen_form": forms, "all_equal": True,
+         "case_list": cases})
     # Timed at the embedding's bucket: bf16 (the hook path's gradients)
     # and f32, int8 stochastic with the residual; unpack with the row sum.
     try:
@@ -1476,12 +1606,19 @@ def phase_quant(fa, smi_line, out_dir):
                 tq, quant_format(8, True), 1, C, dtype, 200, timing=True,
                 sass=sass)
     log({"phase": "quant", "timing": "int8 stochastic, r = 1, residual "
-         "out; unpack with the row sum; bound = max(bytes / 3.35 TB/s, "
+         "out; quant_pack's two forms in turns (first, one pass, one pass, "
+         "first); unpack with the row sum; bound = max(bytes / 3.35 TB/s, "
          "quant_pack's operations an element, max(ALU-only / 64, all / "
          "128 lanes) / (SMs x the SM clock under load))",
-         "sass": None if sass is None else {str(k): v
-                                            for k, v in sass.items()},
+         "sass": None if sass is None else {
+             form: {str(k): v for k, v in counts.items()}
+             for form, counts in sass.items()},
          "device": smi_line, **timed})
+    for label, row in timed.items():
+        if row["quant_pack_ms"] >= row["quant_pack_first_form_ms"]:
+            raise AssertionError(f"{label}: the one pass "
+                                 f"({row['quant_pack_turns_ms']}) is not "
+                                 f"faster than the first form")
     torch.cuda.empty_cache()
 
     # 2. A one-rank quantized allreduce through hvd.allreduce.
@@ -1538,6 +1675,7 @@ def phase_quant(fa, smi_line, out_dir):
         seconds = time.perf_counter() - t0
         total = warmup + steps
         q_launches, stats = dict(tq.launches), MK.stats
+        q_forms = dict(tq.form_launches)
         if policy == "int8" and main_launches is None:
             main_launches = q_launches
         if any(c != cfg.n_layers * total for c in fa.launches.values()):
@@ -1549,6 +1687,10 @@ def phase_quant(fa, smi_line, out_dir):
                 c != 2 * buckets for c in q_launches.values())):
             raise AssertionError(f"int8: {q_launches} launches for "
                                  f"{buckets} quantized buckets, not 2 each")
+        if policy == "int8" and (q_forms["first"] != 0 or q_forms[
+                "one_pass"] != q_launches["quant_pack"]):
+            raise AssertionError(f"int8: quant_pack launched {q_forms}, "
+                                 f"not the one pass every time")
         if policy == "none" and any(q_launches.values()):
             raise AssertionError(f"uncompressed: {q_launches}")
         row = {"step_ms": seconds / steps * 1e3,
@@ -1557,19 +1699,23 @@ def phase_quant(fa, smi_line, out_dir):
                "quantized_buckets_per_step": buckets / total,
                "launches_per_step": {k: v / total
                                      for k, v in q_launches.items()},
+               "quant_pack_form_launches_per_step": {
+                   k: v / total for k, v in q_forms.items()},
                "logical_bytes_per_step": stats.logical_bytes / total,
                "wire_bytes_per_step": stats.wire_bytes / total}
         if policy == "int8" and "profile" not in turns:
             def one_step():
                 run["step"](run["params"], run["data"])
 
-            bound_ms = record_quant_calls(tq, one_step) / PEAK_BYTES * 1e3
+            nbytes, pack_dtypes = record_quant_calls(tq, one_step)
+            bound_ms = nbytes / PEAK_BYTES * 1e3
             prof = profile_step(one_step, out_dir, "quant")
             prof["quant_kernels"] = quant_trace_ms(
                 os.path.join(out_dir, "quant_trace.json"))
             prof["quant_kernels_ms"] = sum(
                 v["ms"] for v in prof["quant_kernels"].values())
             prof["quant_bound_ms"] = bound_ms
+            prof["quant_pack_calls_by_dtype"] = pack_dtypes
             turns["profile"] = prof
         leaves = tree_leaves(run["params"])
         if any(t.device.type != "cuda" for t in leaves):
@@ -1599,8 +1745,8 @@ def overlap_trace(trace_path):
                          if e.get("ph") == "X" and e.get("cat") == "kernel"),
                         key=lambda e: e["ts"])
     dq = [e for e in events if "flash_bwd_dq_sm90_kernel" in e["name"]]
-    codec = [e for e in events if "quant_pack_kernel" in e["name"]
-             or "unpack_dequantize_kernel" in e["name"]]
+    codec = [e for e in events if any(
+        pattern in e["name"] for pattern in QUANT_TRACE_NAMES.values())]
     if not dq or not codec or len(codec) % 4:
         raise AssertionError(f"profiled int8 overlapped step: {len(dq)} dQ "
                              f"kernels, {len(codec)} codec kernels")
@@ -1783,15 +1929,23 @@ def phase_overlap(fa, smi_line, out_dir):
     fa.reset_launches()
     tq.reset_launches()
     run = train("on", warmup, "int8")
-    q_launches = dict(tq.launches)
+    q_launches, q_forms = dict(tq.launches), dict(tq.form_launches)
     if not all(q_launches.values()):
         raise AssertionError(f"int8 overlapped path: {q_launches}")
+    if q_forms["first"] != 0 or q_forms["one_pass"] != \
+            q_launches["quant_pack"]:
+        raise AssertionError(f"int8 overlapped path: quant_pack launched "
+                             f"{q_forms}, not the one pass every time")
+    _, pack_dtypes = record_quant_calls(
+        tq, lambda: run["step"](run["params"], run["data"]))
     prof = profile_step(lambda: run["step"](run["params"], run["data"]),
                         out_dir, "overlap_int8")
+    prof["quant_pack_calls_by_dtype"] = pack_dtypes
     prof.update(overlap_trace(os.path.join(out_dir,
                                            "overlap_int8_trace.json")))
     log({"phase": "overlap_int8", "device": smi_line,
          "codec_launches_warmup": q_launches,
+         "quant_pack_form_launches_warmup": q_forms,
          "buckets_per_step": run["step"].bucket_count, **prof})
     del run
     hvd.set_compression()
@@ -2158,7 +2312,10 @@ def main() -> int:
                 "plain_ms": r[f"{name}_plain_ms"],
                 "bound_ms": r[f"{name}_bound_ms"],
                 "bound_by": r.get(f"{name}_bound_by", "bytes"),
-                "library_ms": None})
+                "library_ms": None,
+                **({"form": r["form"],
+                    "first_form_ms": r["quant_pack_first_form_ms"]}
+                   if name == "quant_pack" else {})})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -159,6 +159,72 @@ def test_block_codec_bitwise(bits, stochastic, dtype):
           J.ordered_sum(deq))
 
 
+def _nonfinite_rows(seed):
+    """[2, 1280] f32: a NaN block, a +inf block, a -inf block and a block
+    with a NaN and a +inf, after a block of standard normals."""
+    x = np.random.default_rng(seed).standard_normal((2, 1280))
+    x[:, 256 + 5] = np.nan
+    x[:, 512 + 7] = np.inf
+    x[:, 768 + 9] = -np.inf
+    x[:, 1024 + 1] = np.nan
+    x[:, 1024 + 2] = np.inf
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("bits,stochastic,dtype", list(itertools.product(
+    [8, 4], [True, False], ["float32", "bfloat16"])))
+def test_nonfinite_blocks_bitwise(bits, stochastic, dtype):
+    """A NaN block (amax NaN: scale 0, the NaN's code 0), a +inf and a
+    -inf block (scale 2^122 or 2^126, the inf clipped to +-levels) and a
+    block holding a NaN and a +inf: the port's codec equals the
+    reference's bitwise.
+    The finite values are at least 1 in magnitude, so that their quotients
+    by 2^126 stay normal: XLA's CPU runtime flushes a subnormal quotient
+    to zero and PyTorch does not (the next test; ROADMAP.md C.3)."""
+    jf, pf = _formats(bits, stochastic)
+    x = _nonfinite_rows(20 + bits + 10 * stochastic)
+    x = np.sign(x) * (1.0 + np.abs(x))
+    x[:, :256] = 0.0
+    xj = jnp.asarray(x.astype(np.float32)).astype(DTYPES[dtype][0])
+    xp = _to_torch(xj)
+    qj, sj = J.quantize_blocks(xj, jf, J.step_key(5, 7))
+    qp, sp = P.quantize_blocks(xp, pf, P.step_key(5, 7))
+    _same(qp, qj)
+    _same(sp, sj)
+    scales = sp.float().numpy()
+    assert (scales[:, [0, 1, 4]] == 0).all()
+    # inf's exponent 128, less 6 (int8) or 2 (int4).
+    assert (scales[:, [2, 3]] == 2.0 ** (122 if bits == 8 else 126)).all()
+    codes = (P.unpack_int4(qp) if bits == 4 else qp).numpy()
+    lv = (1 << (bits - 1)) - 1
+    assert (codes[:, [261, 1025]] == 0).all()
+    assert (codes[:, 519] == lv).all() and (codes[:, 777] == -lv).all()
+    _same(P.dequantize_blocks(qp, sp, pf), J.dequantize_blocks(qj, sj, jf))
+    wj = J.wire_pack(qj, sj, jf)
+    _same(P.wire_pack(qp, sp, pf), wj)
+    _same(P_quant.quant_pack(xp, pf, P.step_key(5, 7)), wj)
+
+
+def test_subnormal_quotients_are_a_limit_of_the_comparison():
+    """In an inf block (int4 scale 2^126) a finite |x| < 1 has a subnormal
+    quotient.  XLA's CPU runtime flushes it to zero and PyTorch keeps it,
+    so with a zero dither a negative one floors to -1 in the port and to
+    0 in the reference; every code where the quotient is normal agrees."""
+    jf, pf = _formats(4, True)
+    x = _nonfinite_rows(24)
+    qj, _ = J.quantize_blocks(jnp.asarray(x), jf, J.step_key(5, 7))
+    qp, _ = P.quantize_blocks(torch.from_numpy(x), pf, P.step_key(5, 7))
+    cj = np.asarray(J.unpack_int4(qj))
+    cp = P.unpack_int4(qp).numpy()
+    differ = cj != cp
+    assert differ.any()
+    quotient = np.abs(x[:, 512:1024]) * np.float32(2.0 ** -126)
+    subnormal = np.zeros_like(differ)
+    subnormal[:, 512:1024] = (quotient > 0) & (quotient < 2.0 ** -126)
+    assert not (differ & ~subnormal).any()
+    assert ((cp - cj)[differ] == -1).all()
+
+
 def test_pack_int4_bitwise():
     q = np.random.default_rng(1).integers(-7, 8, size=(3, 64)).astype(np.int8)
     packed = P.pack_int4(torch.from_numpy(q))
