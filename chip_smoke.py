@@ -122,7 +122,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
              kernels start against the end of the last dQ (every
              quant_pack launch the one pass, asserted; its calls by
              dtype).
-9. word2vec - skip-gram word2vec with sparse embedding gradients
+9. parallel - the multi-axis step (ROADMAP A.3, first half) at
+             GPT-2-small's widths on a one-rank mesh (data x seq x model,
+             every axis of size 1: one card has no second rank):
+             make_parallel_train_step with ParallelAxes(data, seq, model),
+             batch 8, seq 1024, AdamW(3e-4), 3 steps from the trainer's
+             weights and batch: with HVD_TPU_FUSE=off losses and every
+             weight bitwise the monolithic make_train_step's; with fusion
+             on (the default, 4 chunks of 2,048 rows) reported bitwise or
+             held within the bf16 allowance (first-step gradients) and
+             AdamW's bound (weights); 12 launches of each flash kernel a
+             step; remat=True within the reference's remat tolerance or
+             bitwise, its peak memory beside the plain step's; parallel,
+             monolithic, unfused parallel twice, monolithic, parallel
+             timed in turns (2 warm-up, 5 timed steps: step ms and the
+             host's enqueue ms a step) and one profiled parallel step.
+             A ring of 4
+             played in one process (parallel/sequence.py play_ring, the
+             hop functions ring_attention runs) at b1 h12 s8192 d64 bf16,
+             causal and non-causal: o, dq, dk, dv within the bf16
+             allowance of flash attention over the whole sequence, 10 and
+             16 launches of each kernel, the hops' kernel time (CUDA
+             events around each launch) against the whole sequence's;
+             Ulysses over one rank bitwise flash
+             attention.  MoE (8 experts, top-2, capacity factor 2, the
+             experts on the data axis, 12 layers, batch 2): 3 steps,
+             losses finite and falling, aux > 0, dropped fractions, 12
+             launches of each kernel a step; then 2 layers in f32, one
+             forward and backward on the card against the CPU (loss
+             1e-5, each gradient leaf 1e-4 of its largest magnitude),
+             with the router's near-ties counted.
+10. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -132,7 +162,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-10. resnet - ResNet data parallelism, which runs no kernel of the port's
+11. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -153,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import itertools
 import json
 import os
@@ -167,7 +198,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "overlap", "word2vec", "resnet")
+          "overlap", "parallel", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1953,6 +1984,437 @@ def phase_overlap(fa, smi_line, out_dir):
     return path_launches
 
 
+# parallel phase: the multi-axis step (ROADMAP A.3, first half).
+# Remat against the plain step: the reference's remat tolerance
+# (tests/test_transformer.py:162-166), or bitwise.
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
+# MoE card against CPU (f32, TF32 off), relative to the largest magnitude
+# of the value or leaf, as RESNET_TOL_*: the loss, each gradient leaf.
+MOE_TOL_LOSS, MOE_TOL_GRAD = 1e-5, 1e-4
+
+
+def flash_kernels_ms(fa, fn, repeats=3):
+    """Device time of the flash kernels ``fn`` launches, by CUDA events
+    around each launch, summed (the mean of ``repeats`` calls after one
+    warm-up).  Each call is queued behind ~30 ms of spinning on the card,
+    so the host runs ahead and no event pair spans a wait for the host."""
+    real = {name: getattr(fa, name) for name in fa.KERNELS}
+    spans = []
+
+    def timed(kernel):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel(*args)
+            end.record()
+            spans.append((start, end))
+            return out
+        return call
+
+    fn()
+    for name, kernel in real.items():
+        setattr(fa, name, timed(kernel))
+    try:
+        for _ in range(repeats):
+            torch.cuda._sleep(50_000_000)
+            fn()
+    finally:
+        for name, kernel in real.items():
+            setattr(fa, name, kernel)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / repeats
+
+
+def adamw_allowed(lr, steps):
+    """Per-element allowance between two AdamW runs whose gradients
+    differ only in rounding: an update m/(sqrt(v)+eps) is at most ~1 in
+    magnitude in the first steps, so a gradient near zero that changes
+    sign moves the weight by up to 2 lr a step; plus the bf16 allowance
+    of the weight itself."""
+    return lambda want: 2 * lr * steps + bf16_allowed(want)
+
+
+def phase_parallel(fa, smi_line, out_dir):
+    """make_parallel_train_step on a one-rank mesh (data x seq x model),
+    a ring of 4 played in one process at s8192, Ulysses on one rank, and
+    an MoE transformer."""
+    import dataclasses
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.topology import make_mesh
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.parallel import sequence as sp
+    from horovod_tpu_torch.parallel.training import make_parallel_train_step
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_named_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = transformer_lm.bench_config()
+    batch, seq, lr, warmup, steps = 8, 1024, 3e-4, 2, 5
+    hvd.init(device="cuda")
+    mesh = make_mesh(data=1, seq=1, model=1)
+    ax = tt.ParallelAxes(data="data", seq="seq", model="model")
+    spec = ("data", "seq")
+
+    def lm_batch(b, device="cuda"):
+        tokens, targets = tt.synthetic_lm_batch(
+            torch.Generator().manual_seed(1), b, seq, cfg.vocab_size)
+        return tokens.to(device), targets.to(device)
+
+    data = lm_batch(batch)
+
+    def set_fuse(mode):
+        if mode is None:
+            os.environ.pop(fused.FUSE_ENV, None)
+        else:
+            os.environ[fused.FUSE_ENV] = mode
+
+    def parallel(n, fuse=None, c=cfg, axes=ax, b=data):
+        """A model and AdamW(3e-4) from seed 0 (the trainer's), n steps of
+        make_parallel_train_step on the global batch b."""
+        set_fuse(fuse)
+        params = tt.init_transformer(torch.Generator().manual_seed(0), c,
+                                     device="cuda")
+        opt = torch.optim.AdamW(tree_leaves(params), lr=lr,
+                                weight_decay=1e-4)
+        step = make_parallel_train_step(tt.make_loss_fn(c, axes, mesh), opt,
+                                        mesh, spec)
+        losses = [step(params, b) for _ in range(n)]
+        return {"losses": [float(x) for x in losses], "params": params,
+                "step": lambda: step(params, b)}
+
+    def monolithic(n, timed_from=0):
+        return transformer_lm.train(cfg, batch=batch, seq=seq, steps=n,
+                                    timed_from=timed_from, device="cuda",
+                                    seed=0)
+
+    def leaves(run):
+        return [p.detach().clone() for p in tree_leaves(run["params"])]
+
+    def bitwise(a_losses, a_leaves, b_losses, b_leaves):
+        return a_losses == b_losses and all(
+            torch.equal(x, y) for x, y in zip(a_leaves, b_leaves))
+
+    def per_step(launches, n):
+        return {k: v / n for k, v in launches.items()}
+
+    # 1. The main path: 3 steps, HVD_TPU_FUSE=off bitwise the monolithic
+    # make_train_step; fusion on (the default) reported.
+    mono = monolithic(3)
+    mono_losses, mono_leaves = mono["losses"], leaves(mono)
+    del mono
+    fa.reset_launches()
+    off = parallel(3, "off")
+    off_launches = dict(fa.launches)
+    if any(v != 3 * cfg.n_layers for v in off_launches.values()):
+        raise AssertionError(f"parallel step: each flash kernel must launch "
+                             f"{cfg.n_layers} times a step: {off_launches}")
+    off_losses, off_leaves = off["losses"], leaves(off)
+    del off
+    if not bitwise(off_losses, off_leaves, mono_losses, mono_leaves):
+        raise AssertionError(f"HVD_TPU_FUSE=off: the parallel step differs "
+                             f"from the monolithic one: {off_losses} / "
+                             f"{mono_losses}")
+    if not all(np.isfinite(off_losses)) or not off_losses[-1] < off_losses[0]:
+        raise AssertionError(f"parallel losses not finite and falling: "
+                             f"{off_losses}")
+    torch.cuda.empty_cache()
+    on = parallel(3)
+    on_losses, on_leaves = on["losses"], leaves(on)
+    del on
+    on_bitwise = bitwise(on_losses, on_leaves, mono_losses, mono_leaves)
+    fused_row = {"bitwise": on_bitwise, "losses": on_losses,
+                 "chunks": fused.fuse_chunks(),
+                 "chunk_rows": [size * seq for _, size in
+                                fused.plan_chunks(batch)]}
+    if not on_bitwise:
+        # Hold the first step's gradients (fused against unfused, the same
+        # weights and batch) within the kernel phase's bf16 allowance, and
+        # the weights after 3 steps within AdamW's bound of it.
+        def grads(mode):
+            set_fuse(mode)
+            params = tt.init_transformer(torch.Generator().manual_seed(0),
+                                         cfg, device="cuda")
+            loss = tt.make_loss_fn(cfg, ax, mesh)(params, data)
+            loss.backward()
+            return float(loss.detach()), {n: p.grad for n, p in
+                                          tree_named_leaves(params)}
+
+        l_off, g_off = grads("off")
+        l_on, g_on = grads(None)
+        fused_row["first_loss_bitwise"] = l_on == l_off
+        fused_row["grad_worst_ratio"] = max(
+            check(f"fused grad {n}", g_on[n], g_off[n], bf16_allowed)[1]
+            for n in g_off)
+        fused_row["grads_bitwise"] = all(torch.equal(g_on[n], g_off[n])
+                                         for n in g_off)
+        del g_on, g_off
+        fused_row["param_max_abs_diff"] = max(
+            float((x.float() - y.float()).abs().max())
+            for x, y in zip(on_leaves, off_leaves))
+        fused_row["param_worst_ratio"] = max(
+            check("fused params", x, y, adamw_allowed(lr, 3))[1]
+            for x, y in zip(on_leaves, off_leaves))
+        fused_row["loss_max_rel_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(on_losses, off_losses))
+        if not fused_row["loss_max_rel_diff"] <= RTOL_BF16:
+            raise AssertionError(f"fused losses: {fused_row}")
+    del on_leaves, off_leaves, mono_leaves
+    torch.cuda.empty_cache()
+
+    # Remat: the same 3 steps with every layer recomputed in the backward;
+    # each run's peak memory above what was allocated before it.
+    def peak_gb(fn):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = fn()
+        return run, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    fa.reset_launches()
+    remat, peak_remat = peak_gb(
+        lambda: parallel(3, c=dataclasses.replace(cfg, remat=True)))
+    remat_launches = per_step(dict(fa.launches), 3)
+    remat_losses, remat_leaves = remat["losses"], leaves(remat)
+    del remat
+    if remat_launches != {"flash_fwd": 2 * cfg.n_layers,
+                          "flash_bwd_dkdv": cfg.n_layers,
+                          "flash_bwd_dq": cfg.n_layers}:
+        raise AssertionError(f"remat launches a step: {remat_launches}")
+    on, peak_plain = peak_gb(lambda: parallel(3))
+    plain_leaves = leaves(on)
+    del on
+    remat_bitwise = bitwise(remat_losses, remat_leaves, on_losses,
+                            plain_leaves)
+    remat_err = max(float(((x.float() - y.float()).abs() - REMAT_RTOL
+                           * y.float().abs()).max())
+                    for x, y in zip(remat_leaves, plain_leaves))
+    if not remat_bitwise and not (
+            remat_err <= REMAT_ATOL and np.allclose(
+                remat_losses, on_losses, rtol=REMAT_RTOL, atol=0)):
+        raise AssertionError(f"remat differs: losses {remat_losses} / "
+                             f"{on_losses}, excess {remat_err}")
+    del remat_leaves, plain_leaves
+    torch.cuda.empty_cache()
+    log({"phase": "parallel", "check": "make_parallel_train_step on a "
+         "one-rank data x seq x model mesh against make_train_step, 3 "
+         "AdamW steps from the same weights and batches",
+         "device": smi_line, "fuse_off_bitwise": True,
+         "losses": off_losses, "fused": fused_row,
+         "flash_launches_per_step": per_step(off_launches, 3),
+         "remat": {"bitwise": remat_bitwise, "losses": remat_losses,
+                   "launches_per_step": remat_launches,
+                   "peak_mem_gb": peak_remat},
+         "peak_mem_gb": peak_plain})
+
+    # Timed in turns (parallel, monolithic, parallel with HVD_TPU_FUSE=off
+    # twice, monolithic, parallel; 2 warm-up and 5 timed steps each): step
+    # ms, and the host's enqueue ms a step (before the closing
+    # synchronize), which shows whether the host holds the card back.
+    timed: dict = {"parallel": [], "monolithic": [], "parallel_unfused": []}
+    path_launches = None
+    for turn in ("parallel", "monolithic", "parallel_unfused",
+                 "parallel_unfused", "monolithic", "parallel"):
+        fa.reset_launches()
+        if turn == "monolithic":
+            run = monolithic(warmup)
+            step_fn = functools.partial(run["step"], run["params"],
+                                        run["data"])
+        else:
+            run = parallel(warmup, "off" if turn == "parallel_unfused"
+                           else None)
+            step_fn = run["step"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        if any(v != cfg.n_layers * (warmup + steps)
+               for v in launches.values()):
+            raise AssertionError(f"{turn}: flash launches {launches}")
+        if turn == "parallel" and path_launches is None:
+            path_launches = launches
+        timed[turn].append({"step_ms": seconds / steps * 1e3,
+                            "enqueue_ms": enqueued / steps * 1e3,
+                            "tokens_per_s": batch * seq * steps / seconds})
+        if turn == "parallel" and "parallel_profile" not in timed:
+            timed["parallel_profile"] = profile_step(step_fn, out_dir,
+                                                     "parallel")
+        del run, step_fn
+        torch.cuda.empty_cache()
+    set_fuse(None)
+    for turn in ("parallel", "monolithic", "parallel_unfused"):
+        timed[f"{turn}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in timed[turn]]))
+    log({"phase": "parallel_trainer", "model": "GPT-2-small",
+         "batch": batch, "seq": seq, "dtype": "bfloat16",
+         "mesh": "data 1 x seq 1 x model 1", "fuse": "default (on)",
+         "device": smi_line, **timed})
+
+    # 2. A ring of 4 played in one process (sequence.play_ring: the hop
+    # functions ring_attention runs) at b1 h12 s8192 d64 bf16, against
+    # flash attention over the whole sequence; Ulysses on one rank.
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, g = (torch.randn(1, 12, 8192, 64, generator=gen, device="cuda",
+                              dtype=torch.float32).bfloat16()
+                  for _ in range(4))
+    ring_rows = {}
+    for causal in (True, False):
+        tag = "causal" if causal else "noncausal"
+        fa.reset_launches()
+        o, dq, dk, dv = sp.play_ring(q, k, v, g, 4, causal=causal)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        want_n = 10 if causal else 16
+        if launches != {name: want_n for name in fa.KERNELS}:
+            raise AssertionError(f"ring of 4 ({tag}): launches {launches}, "
+                                 f"not {want_n} of each")
+
+        def whole():
+            leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            ow = fa.flash_attention(*leaves_, causal=causal)
+            ow.backward(g)
+            return [ow.detach()] + [t.grad for t in leaves_]
+
+        errs = {name: check(f"ring {tag} {name}", got, want, bf16_allowed)
+                for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                           (o, dq, dk, dv), whole())}
+        del o, dq, dk, dv
+        ring_rows[tag] = {
+            "launches": launches,
+            "max_abs_err": {n: e[0] for n, e in errs.items()},
+            "worst_ratio": max(e[1] for e in errs.values()),
+            "hops_flash_kernels_ms": flash_kernels_ms(
+                fa, lambda: sp.play_ring(q, k, v, g, 4, causal=causal)),
+            "whole_flash_kernels_ms": flash_kernels_ms(fa, whole),
+            "ring_ms": cuda_time_ms(lambda: sp.play_ring(
+                q, k, v, g, 4, causal=causal), iters=3, warmup=1),
+            "whole_ms": cuda_time_ms(whole, iters=3, warmup=1)}
+    seq_axis = mesh.axis("seq")
+    uly, ref = [], []
+    for fn, out in ((lambda *t: sp.ulysses_attention(
+            *t, axis=seq_axis, causal=True), uly),
+            (lambda *t: fa.flash_attention(*t, causal=True), ref)):
+        leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves_)
+        o.backward(g)
+        out.extend([o.detach()] + [t.grad for t in leaves_])
+    ulysses_bitwise = all(torch.equal(a, b) for a, b in zip(uly, ref))
+    if not ulysses_bitwise:
+        raise AssertionError("ulysses_attention over one rank differs from "
+                             "flash_attention")
+    del q, k, v, g, uly, ref
+    torch.cuda.empty_cache()
+    log({"phase": "parallel_ring", "shape": "b1 h12 s8192 d64 bf16, four "
+         "chunks of 2048", "device": smi_line, **ring_rows,
+         "ulysses_one_rank_bitwise_flash": ulysses_bitwise})
+
+    # 3. MoE: 8 experts, top-2, capacity factor 2, the experts on the data
+    # axis of the one-rank mesh (all local), batch 2.
+    moe_cfg = dataclasses.replace(cfg, num_experts=8, top_k=2,
+                                  capacity_factor=2.0)
+    moe_ax = tt.ParallelAxes(data="data", expert="data")
+    moe_data = lm_batch(2)
+    records = []
+    real_moe = tt.moe_layer
+
+    def recording(x, params, **kw):
+        out = real_moe(x, params, **kw)
+        with torch.no_grad():
+            probs = torch.softmax(x.float() @ params["router"].float(), -1)
+        records.append({"aux": out.aux_loss.detach(),
+                        "dropped": out.dropped_fraction.detach(),
+                        "probs": probs.cpu()})
+        return out
+
+    tt.moe_layer = recording
+    try:
+        fa.reset_launches()
+        moe = parallel(3, c=moe_cfg, axes=moe_ax, b=moe_data)
+        moe_launches = per_step(dict(fa.launches), 3)
+        moe_stats = [(float(r["aux"]), float(r["dropped"])) for r in records]
+        records.clear()
+    finally:
+        tt.moe_layer = real_moe
+    moe_losses = moe["losses"]
+    if not all(np.isfinite(moe_losses)) or not moe_losses[-1] < moe_losses[0]:
+        raise AssertionError(f"MoE losses not finite and falling: "
+                             f"{moe_losses}")
+    if not all(aux > 0 for aux, _ in moe_stats):
+        raise AssertionError(f"MoE aux losses: {moe_stats}")
+    if any(c != moe_cfg.n_layers for c in moe_launches.values()):
+        raise AssertionError(f"MoE flash launches a step: {moe_launches}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        moe["step"]()
+    torch.cuda.synchronize()
+    moe_ms = (time.perf_counter() - t0) / steps * 1e3
+    del moe
+    torch.cuda.empty_cache()
+
+    # The card against the port on the CPU: f32, 2 layers, one forward
+    # and backward from the same weights and batch.
+    small = dataclasses.replace(moe_cfg, n_layers=2, dtype=torch.float32)
+    tt.moe_layer = recording
+    try:
+        results = {}
+        for device, m in (("cuda", mesh), ("cpu", None)):
+            params = tt.init_transformer(torch.Generator().manual_seed(0),
+                                         small, device=device)
+            loss = tt.make_loss_fn(small, moe_ax, m)(
+                params, tuple(x.to(device) for x in moe_data))
+            loss.backward()
+            results[device] = (loss.detach(), {
+                n: p.grad for n, p in tree_named_leaves(params)},
+                [r["probs"] for r in records])
+            records.clear()
+    finally:
+        tt.moe_layer = real_moe
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = (results["cuda"],
+                                                    results["cpu"])
+    rounding = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+    near_ties = routed_apart = 0
+    for a, b in zip(p_gpu, p_cpu):
+        top = b.topk(3, dim=-1).values
+        gaps = top[:, :-1] - top[:, 1:]
+        near_ties += int((gaps <= 2 * rounding).any(dim=-1).sum())
+        routed_apart += int((a.topk(2, dim=-1).indices.sort(-1).values
+                             != b.topk(2, dim=-1).indices.sort(-1).values)
+                            .any(dim=-1).sum())
+    loss_err = _rel_err(l_gpu, l_cpu)
+    grad_errs = {n: _rel_err(g_gpu[n], g_cpu[n]) for n in g_cpu}
+    moe_row = {"losses": moe_losses, "step_ms": moe_ms,
+               "aux_per_layer_first_step": [
+                   a for a, _ in moe_stats[:moe_cfg.n_layers]],
+               "dropped_fraction_mean": float(np.mean(
+                   [d for _, d in moe_stats])),
+               "dropped_fraction_max": max(d for _, d in moe_stats),
+               "flash_launches_per_step": moe_launches,
+               "card_vs_cpu": {"loss_rel_err": loss_err,
+                               "grad_rel_err_max": max(grad_errs.values()),
+                               "grad_rel_err": grad_errs,
+                               "router_prob_max_diff": rounding,
+                               "near_ties": near_ties,
+                               "tokens_routed_apart": routed_apart}}
+    log({"phase": "parallel_moe", "model": "GPT-2-small widths, 8 experts "
+         "top-2, capacity factor 2.0, 12 layers, batch 2, seq 1024, bf16",
+         "device": smi_line, **moe_row})
+    if not loss_err <= MOE_TOL_LOSS or not all(
+            e <= MOE_TOL_GRAD for e in grad_errs.values()):
+        raise AssertionError(f"MoE card against CPU: loss {loss_err}, "
+                             f"grads {grad_errs}")
+    set_fuse(None)
+    hvd.shutdown()
+    return path_launches
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -2267,6 +2729,8 @@ def main() -> int:
              else None)
     if "overlap" in phases:
         phase_overlap(fa, smi, args.out_dir)
+    parallel = (phase_parallel(fa, smi, args.out_dir) if "parallel" in phases
+                else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -2294,7 +2758,11 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # Each path's own count, zeroed just before it was driven.
+            "launches_by_path": {
+                "trainer": launches[name],
+                **({"parallel": parallel[name]} if parallel else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.

@@ -1,5 +1,22 @@
-"""The two-tier replica hierarchy of a job (port of
-horovod_tpu/core/topology.py:243-341).
+"""The multi-axis mesh of a job, and its two-tier replica hierarchy
+(port of horovod_tpu/core/topology.py:44-117, :243-371).
+
+**The mesh** (:func:`make_mesh`).  The reference's mesh is an array of
+devices under ``shard_map``; the port's is an object over the job's
+ranks, one process a rank.  Rank ``r`` sits at the row-major position
+``r`` of the mesh's shape in :data:`_AXIS_ORDER` (the reference places
+device ``r`` there: ``np.asarray(devs).reshape(shape)``), so shard *i*
+of a reference mesh over ``jax.devices()[:n]`` is rank *i* here.  Each
+axis of the mesh is a :class:`MeshAxis`: this rank's coordinate along
+it, its size, and a process group over the ranks that differ from this
+one only along it.  The reference finds an axis from the ``shard_map``
+context by name; the port has no such context, so the parallel
+functions take the axis object from the caller (``mesh.axis("seq")``).
+A size-1 axis keeps a group too, so the code is the same at every size.
+The hybrid (slice x DCN) mesh, ``make_hybrid_mesh``, is the second half
+of ROADMAP.md A.3.
+
+**The hierarchy** (:func:`replica_hierarchy`).
 
 On a TPU the tiers are ICI inside a slice and DCN between slices; on
 GPUs they are NVLink inside a node and the network between nodes, and a
@@ -20,14 +37,16 @@ Env contract:
                                      nodes (tests on one host).
 
 Unequal nodes degrade to flat: the groups need a rectangular layout.
-Mesh building (``make_mesh``, ``make_hybrid_mesh``) is ROADMAP.md A.3.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
 
 HIERARCHICAL_ENV = "HVD_TPU_HIERARCHICAL"
 VIRTUAL_SLICES_ENV = "HVD_TPU_VIRTUAL_SLICES"
@@ -105,3 +124,145 @@ def replica_hierarchy(hosts: Sequence[str]) -> Optional[ReplicaHierarchy]:
     return ReplicaHierarchy(
         n_slices=len(ici_groups), ici_size=ici,
         ici_groups=ici_groups, dcn_groups=dcn_groups)
+
+
+# ---------------------------------------------------------------------------
+# The multi-axis mesh (reference :44-117, :342-371)
+# ---------------------------------------------------------------------------
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+
+# Outermost -> innermost (slowest -> fastest links).
+_AXIS_ORDER = (DATA_AXIS, PIPE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Degrees of each parallelism strategy; their product is the rank
+    count.  ``expert`` 0 (the default) rides the data axis; > 0 makes
+    it an axis of its own."""
+
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+    expert: int = 0
+
+    @property
+    def device_count(self) -> int:
+        n = self.data * self.model * self.seq * self.pipe
+        return n * (self.expert if self.expert > 0 else 1)
+
+    def axis_sizes(self) -> dict:
+        sizes = {DATA_AXIS: self.data, PIPE_AXIS: self.pipe,
+                 SEQ_AXIS: self.seq, MODEL_AXIS: self.model}
+        if self.expert > 0:
+            sizes[EXPERT_AXIS] = self.expert
+        return sizes
+
+
+@dataclass(frozen=True)
+class MeshAxis:
+    """One axis of a mesh as this rank sees it: ``index`` is its
+    coordinate, ``ranks`` the global ranks along its line in coordinate
+    order, ``group`` the process group over them (None only for
+    :meth:`local`, which has no peers)."""
+
+    name: str
+    size: int
+    index: int
+    ranks: Tuple[int, ...]
+    group: Any = None
+
+    @classmethod
+    def local(cls, name: str) -> "MeshAxis":
+        """A size-1 axis with no process group: a caller with no mesh."""
+        return cls(name=name, size=1, index=0, ranks=(0,))
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """The ranks of a job laid out on named axes (see the module
+    docstring).  ``group`` spans every rank of the mesh."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    ranks: np.ndarray  # the rank at each position (reference mesh.devices)
+    axes: Tuple[MeshAxis, ...]
+    group: Any
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def axis(self, name: str) -> MeshAxis:
+        for ax in self.axes:
+            if ax.name == name:
+                return ax
+        raise ValueError(
+            f"mesh with axes {self.axis_names} has no axis {name!r}; build "
+            f"it with horovod_tpu_torch.core.topology.make_mesh(...)")
+
+
+def make_mesh(config: Optional[ParallelConfig] = None,
+              ranks: Optional[Sequence[int]] = None, **degrees) -> Mesh:
+    """The mesh of a parallel configuration over ``ranks`` (default
+    every rank of the job), from a :class:`ParallelConfig` or degrees as
+    keywords (``make_mesh(data=2, model=2)``).  Size-1 axes are kept.
+
+    Collective: every rank of the job calls it with the same arguments,
+    since each axis line's group is created by every rank, in one order
+    (``dist.new_group``)."""
+    if config is None:
+        config = ParallelConfig(**degrees)
+    elif degrees:
+        raise TypeError("pass either a ParallelConfig or keyword degrees, "
+                        "not both")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialised "
+                           "(horovod_tpu_torch.init() does it)")
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if config.device_count != len(ranks):
+        raise ValueError(
+            f"parallel config {config} needs {config.device_count} devices "
+            f"but {len(ranks)} were provided")
+    sizes = config.axis_sizes()
+    names = tuple(a for a in _AXIS_ORDER if a in sizes)
+    shape = tuple(sizes[a] for a in names)
+    grid = np.asarray(ranks).reshape(shape)
+    me = dist.get_rank()
+    axes = []
+    for dim, name in enumerate(names):
+        # Every line along this axis (the other coordinates fixed); every
+        # rank creates each line's group, in this order.
+        lines = np.moveaxis(grid, dim, -1).reshape(-1, shape[dim]).tolist()
+        groups = [dist.new_group(line) for line in lines]
+        for line, group in zip(lines, groups):
+            if me in line:
+                axes.append(MeshAxis(name=name, size=shape[dim],
+                                     index=line.index(me), ranks=tuple(line),
+                                     group=group))
+    whole = dist.new_group(ranks)
+    if me not in ranks:
+        raise ValueError(f"rank {me} is not in the mesh's ranks {ranks}")
+    return Mesh(axis_names=names, shape=shape, ranks=grid,
+                axes=tuple(axes), group=whole)
+
+
+def mesh_axis_sizes(mesh: Mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def validate_mesh(mesh: Mesh, required_axes: Tuple[str, ...]) -> None:
+    """Raise with a clear message when a strategy is used on a mesh that
+    lacks its axis (reference :360)."""
+    missing = [a for a in required_axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(
+            f"mesh with axes {mesh.axis_names} is missing required "
+            f"axes {missing}; build it with horovod_tpu_torch.core."
+            f"topology.make_mesh(...)")

@@ -19,6 +19,13 @@ examples/transformer_lm.py.
     python -m horovod_tpu_torch.examples.transformer_lm --overlap on \
         --device cpu
 
+    # the reference's multi-axis route: make_mesh(data=n/tp, model=tp)
+    # (tp = 2 on an even rank count above 1), make_loss_fn over the mesh,
+    # make_parallel_train_step; --remat recomputes each layer in the
+    # backward pass:
+    python -m horovod_tpu_torch.examples.transformer_lm --parallel \
+        --remat --device cpu
+
     # several GPUs: one process per GPU under a launcher that sets RANK,
     # WORLD_SIZE, MASTER_ADDR, MASTER_PORT (torchrun does).
 
@@ -27,12 +34,14 @@ DistributedOptimizer(AdamW(3e-4)) -> make_train_step -> steps.  With
 ``--hooks`` the optimizer is ``frontends.torch.DistributedOptimizer``
 over the named parameter leaves: each gradient's negotiated
 ``allreduce_async_`` starts from its hook during backward and ``step()``
-synchronizes them.
+synchronizes them.  With ``--parallel`` the optimizer is AdamW itself:
+``make_parallel_train_step`` sums the gradients over the mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional
@@ -40,13 +49,16 @@ from typing import Optional
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.core.topology import make_mesh
 from horovod_tpu_torch.frontends import torch as hvd_torch
-from horovod_tpu_torch.models.transformer import (TransformerConfig,
+from horovod_tpu_torch.models.transformer import (ParallelAxes,
+                                                  TransformerConfig,
                                                   chained_lm_loss,
                                                   chained_lm_params,
                                                   init_transformer,
                                                   make_loss_fn,
                                                   synthetic_lm_batch)
+from horovod_tpu_torch.parallel.training import make_parallel_train_step
 from horovod_tpu_torch.utils.tree import tree_named_leaves
 
 
@@ -66,12 +78,15 @@ def tiny_config(seq: int = 64) -> TransformerConfig:
 def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
           timed_from: int = 0, device=None, seed: int = 0,
           lr: float = 3e-4, hooks: bool = False,
-          overlap: Optional[str] = None) -> dict:
+          overlap: Optional[str] = None, parallel: bool = False) -> dict:
     """Initialize, then run ``steps`` train steps on one fixed synthetic
     batch (``batch`` is global; each rank takes its share); ``hooks``
     reduces the gradients through the hook-driven optimizer; ``overlap``
     (``on``, ``serial`` or ``off``) trains the staged form,
-    :func:`chained_lm_loss`, with that schedule.  Returns the
+    :func:`chained_lm_loss`, with that schedule; ``parallel`` takes the
+    reference's multi-axis route (``make_mesh(data=n // tp, model=tp)``,
+    ``tp = 2`` on an even rank count above 1, and
+    :func:`make_parallel_train_step`).  Returns the
     per-step losses, the wall time of steps ``timed_from..`` (ended by a
     device synchronise), the parameter count, and the step, parameters,
     batch and optimizer for further steps."""
@@ -89,15 +104,26 @@ def train(cfg: TransformerConfig, *, batch: int, seq: int, steps: int,
     leaves = hvd.tree_leaves(params)
     # optax.adamw's weight decay is 1e-4; torch's default is 1e-2.
     adamw = torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4)
-    opt = (hvd_torch.DistributedOptimizer(
-        adamw, named_parameters=tree_named_leaves(params)) if hooks
-        else hvd.DistributedOptimizer(adamw))
-    step = hvd.make_train_step(loss_fn, opt, overlap=overlap)
     tokens, targets = synthetic_lm_batch(
         torch.Generator().manual_seed(seed + 1), batch, seq, cfg.vocab_size)
-    per_rank = batch // hvd.size()
-    mine = slice(hvd.rank() * per_rank, (hvd.rank() + 1) * per_rank)
-    data = (tokens[mine].to(dev), targets[mine].to(dev))
+    if parallel:
+        n = hvd.size()
+        tp = 2 if n % 2 == 0 and n > 1 else 1
+        mesh = make_mesh(data=n // tp, model=tp)
+        ax = ParallelAxes(data="data", model="model" if tp > 1 else None)
+        opt = adamw
+        step = make_parallel_train_step(make_loss_fn(cfg, ax, mesh), adamw,
+                                        mesh, ("data", None))
+        # The step takes the global batch and keeps this rank's shard.
+        data = (tokens.to(dev), targets.to(dev))
+    else:
+        opt = (hvd_torch.DistributedOptimizer(
+            adamw, named_parameters=tree_named_leaves(params)) if hooks
+            else hvd.DistributedOptimizer(adamw))
+        step = hvd.make_train_step(loss_fn, opt, overlap=overlap)
+        per_rank = batch // hvd.size()
+        mine = slice(hvd.rank() * per_rank, (hvd.rank() + 1) * per_rank)
+        data = (tokens[mine].to(dev), targets[mine].to(dev))
 
     def sync():
         if dev.type == "cuda":
@@ -132,9 +158,16 @@ def main() -> None:
     ap.add_argument("--overlap", choices=("off", "serial", "on"),
                     default=None,
                     help="train the staged loss with this overlap schedule")
+    ap.add_argument("--parallel", action="store_true",
+                    help="the multi-axis route: a data x model mesh and "
+                         "make_parallel_train_step")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward pass")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.parallel and (args.hooks or args.overlap):
+        ap.error("--parallel takes neither --hooks nor --overlap")
 
     if args.bench:
         seq = args.seq or 1024
@@ -144,9 +177,10 @@ def main() -> None:
         seq = args.seq or 64
         cfg = tiny_config(seq)
         batch, steps, warmup = args.batch or 4, args.steps or 30, 0
+    cfg = dataclasses.replace(cfg, remat=args.remat)
     run = train(cfg, batch=batch, seq=seq, steps=warmup + steps,
                 timed_from=warmup, device=args.device, hooks=args.hooks,
-                overlap=args.overlap)
+                overlap=args.overlap, parallel=args.parallel)
     dev = hvd.device()
     if args.bench:
         print(json.dumps({
@@ -157,7 +191,8 @@ def main() -> None:
                        if dev.type == "cuda" else "cpu"),
             "ranks": hvd.size(), "params": run["n_params"], "batch": batch,
             "seq": seq, "loss_chunk": args.loss_chunk, "hooks": args.hooks,
-            "overlap": args.overlap,
+            "overlap": args.overlap, "parallel": args.parallel,
+            "remat": args.remat,
             "step_ms": run["timed_seconds"] / steps * 1e3}))
     else:
         first, last = run["losses"][0], run["losses"][-1]

@@ -19,9 +19,25 @@ Numerics, against the reference:
 * GELU is the tanh approximation, ``jax.nn.gelu``'s default;
 * layer norm takes the population variance, eps 1e-5.
 
+**Parallelism** (reference :1-24, :136-368).  :class:`ParallelAxes`
+names the mesh axis of each strategy and ``mesh`` (a
+:class:`~..core.topology.Mesh`) carries their groups: tensor
+parallelism shards the heads and the MLP's hidden features over
+``model`` (:mod:`..parallel.tensor`), sequence parallelism runs ring
+attention over ``seq`` (:mod:`..parallel.sequence`), and with
+``num_experts > 0`` every FFN is a mixture of experts over ``expert``
+(or ``data``; :mod:`..parallel.expert`).  Parameters are stored whole
+and each rank slices its shard in the forward.  :func:`make_loss_fn`
+averages the loss over the mesh (:func:`..parallel.axis_ops.pmean_loss`)
+for :func:`..parallel.training.make_parallel_train_step`.  Without a
+mesh every named axis has one rank, and the default axes run exactly
+the data-parallel model.  ``cfg.remat`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``).  Pipeline parallelism
+(``ax.pipe``) and the serving path are the second half of ROADMAP.md
+A.3 and A.4.
+
 :func:`chained_lm_loss` is the same loss in stages, for the overlapped
-step (``parallel/overlap.py``).  Tensor, sequence, pipeline and expert
-parallelism, the serving path and rematerialisation are later slices.
+step (``parallel/overlap.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +49,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import topology as T
 from ..ops.flash_attention import flash_attention
+from ..parallel.axis_ops import pmean_loss
+from ..parallel.expert import local_experts, moe_layer
+from ..parallel.sequence import ring_attention
+from ..parallel.tensor import (column_parallel, local_shard, row_parallel,
+                               tp_mlp)
 from ..utils.tree import tree_map
 
 
@@ -46,9 +68,56 @@ class TransformerConfig:
     d_ff: int = 512
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.float32
+    # Mixture-of-experts FFN on every layer when num_experts > 0.
+    num_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 2.0
+    # Kept for the reference's signature: the kernels choose their tiles.
+    block_q: int = 128
+    block_k: int = 128
+    # Recompute each layer in the backward pass instead of storing its
+    # activations (torch.utils.checkpoint).
+    remat: bool = False
     # Chunked cross-entropy over sequence chunks of this many positions,
     # recomputing each chunk's logits in the backward pass; 0 = off.
     loss_chunk: int = 0
+
+
+@dataclass(frozen=True)
+class ParallelAxes:
+    """Which mesh axis serves each strategy (None = off)."""
+    data: Optional[str] = T.DATA_AXIS
+    model: Optional[str] = None
+    seq: Optional[str] = None
+    pipe: Optional[str] = None
+    expert: Optional[str] = None  # conventionally = data
+    num_microbatches: int = 2     # pipeline depth-filling factor
+
+
+@dataclass(frozen=True)
+class _Axes:
+    """The :class:`~..core.topology.MeshAxis` of each strategy (None =
+    off), resolved from a :class:`ParallelAxes` and a mesh."""
+    data: Optional[T.MeshAxis] = None
+    model: Optional[T.MeshAxis] = None
+    seq: Optional[T.MeshAxis] = None
+    expert: Optional[T.MeshAxis] = None
+
+
+def _resolve_axes(ax: ParallelAxes, mesh) -> _Axes:
+    if ax.pipe is not None:
+        raise NotImplementedError(
+            "pipeline parallelism (ax.pipe) is not ported yet: it is the "
+            "second half of ROADMAP.md A.3")
+
+    def one(name):
+        if name is None:
+            return None
+        return mesh.axis(name) if mesh is not None else T.MeshAxis.local(
+            name)
+
+    return _Axes(data=one(ax.data), model=one(ax.model), seq=one(ax.seq),
+                 expert=one(ax.expert))
 
 
 def _check_config(cfg: TransformerConfig) -> None:
@@ -90,12 +159,18 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
             "wv": normal((n, d, d), s_d),
             "wo": normal((n, d, d), s_d),
             "ln2": {"scale": ones(n, d), "bias": zeros(n, d)},
-            "w_in": normal((n, d, f), s_d),
-            "b_in": zeros(n, f),
-            "w_out": normal((n, f, d), f ** -0.5),
-            "b_out": zeros(n, d),
         },
     }
+    if cfg.num_experts > 0:
+        e = cfg.num_experts
+        p["layers"]["router"] = normal((n, d, e), s_d)
+        p["layers"]["moe_w_in"] = normal((n, e, d, f), s_d)
+        p["layers"]["moe_w_out"] = normal((n, e, f, d), f ** -0.5)
+    else:
+        p["layers"]["w_in"] = normal((n, d, f), s_d)
+        p["layers"]["b_in"] = zeros(n, f)
+        p["layers"]["w_out"] = normal((n, f, d), f ** -0.5)
+        p["layers"]["b_out"] = zeros(n, d)
     return tree_map(lambda x: x.to(device).requires_grad_(), p)
 
 
@@ -104,51 +179,119 @@ def _layernorm(x, scale, bias, eps: float = 1e-5):
     return F.layer_norm(x, x.shape[-1:], scale, bias, eps)
 
 
-def _attention_block(x, lp, cfg: TransformerConfig):
+def _attention_block(x, lp, cfg: TransformerConfig, axes: _Axes = _Axes()):
     """Pre-LN causal self-attention: one fused [d, 3d] QKV product split
-    in q, k, v order, the flash kernels, the output projection."""
+    in q, k, v order (its output features, and so the heads, sharded over
+    ``model``), the flash kernels or ring attention over ``seq``, the
+    output projection (row-parallel over ``model``)."""
     b, s, d = x.shape
     hd = d // cfg.n_heads
     h = _layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
-    qkv = h @ torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=-1)
-    q, k, v = (y.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-               for y in qkv.split(d, dim=-1))
-    attn = flash_attention(q, k, v, causal=True)
-    attn = attn.transpose(1, 2).reshape(b, s, d)
-    return x + attn @ lp["wo"]
+    model = axes.model
+    if model is not None:
+        mp = model.size
+        if cfg.n_heads % mp != 0 or d % mp != 0:
+            raise ValueError(
+                f"tensor-parallel degree {mp} must divide both "
+                f"n_heads ({cfg.n_heads}) and d_model ({d})")
+        wq, wk, wv = (local_shard(lp[w], 1, axis=model)
+                      for w in ("wq", "wk", "wv"))
+        wo = local_shard(lp["wo"], 0, axis=model)
+    else:
+        wq, wk, wv, wo = lp["wq"], lp["wk"], lp["wv"], lp["wo"]
+        mp = 1
+    heads = cfg.n_heads // mp
+    qkv = column_parallel(h, torch.cat([wq, wk, wv], dim=-1), axis=model)
+    q, k, v = (y.reshape(b, s, heads, hd).transpose(1, 2)
+               for y in qkv.split(heads * hd, dim=-1))
+    if axes.seq is not None:
+        attn = ring_attention(q, k, v, axis=axes.seq, causal=True)
+    else:
+        attn = flash_attention(q, k, v, causal=True)
+    attn = attn.transpose(1, 2).reshape(b, s, heads * hd)
+    if model is not None:
+        return x + row_parallel(attn, wo, axis=model)
+    return x + attn @ wo
 
 
-def _ffn_block(x, lp):
-    """Pre-LN dense MLP with tanh-approximated GELU (jax.nn.gelu's
-    default)."""
+def _ffn_block(x, lp, cfg: TransformerConfig, axes: _Axes = _Axes()):
+    """Pre-LN FFN: the dense MLP with tanh-approximated GELU
+    (jax.nn.gelu's default), tensor-parallel over ``model``, or the MoE
+    over ``expert`` (else ``data``).  Returns ``(x, aux)``; aux is None
+    for the dense MLP."""
+    b, s, d = x.shape
     h = _layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
+    if cfg.num_experts > 0:
+        ep = axes.expert or axes.data
+        if ep is None:
+            raise ValueError("MoE needs an expert (or data) mesh axis")
+        params = local_experts({"router": lp["router"],
+                                "w_in": lp["moe_w_in"],
+                                "w_out": lp["moe_w_out"]}, axis=ep)
+        out = moe_layer(h.reshape(b * s, d), params, axis=ep,
+                        num_experts=cfg.num_experts, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor)
+        return x + out.out.reshape(b, s, d), out.aux_loss
+    if axes.model is not None:
+        m = axes.model
+        y = tp_mlp(h, local_shard(lp["w_in"], 1, axis=m),
+                   local_shard(lp["b_in"], 0, axis=m),
+                   local_shard(lp["w_out"], 0, axis=m), lp["b_out"], axis=m)
+        return x + y, None
     hh = F.gelu(h @ lp["w_in"] + lp["b_in"], approximate="tanh")
-    return x + (hh @ lp["w_out"] + lp["b_out"])
+    return x + (hh @ lp["w_out"] + lp["b_out"]), None
+
+
+def _layer(x, lp, cfg: TransformerConfig, axes: _Axes):
+    return _ffn_block(_attention_block(x, lp, cfg, axes), lp, cfg, axes)
+
+
+def _layer_remat(x, lp, cfg: TransformerConfig, axes: _Axes):
+    """:func:`_layer`, its activations recomputed in the backward pass
+    (reference :219-230, ``jax.checkpoint``)."""
+    return checkpoint(_layer, x, lp, cfg, axes, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _index_layer(layers: dict, i: int) -> dict:
     return tree_map(lambda leaf: leaf[i], layers)
 
 
-def forward(params: dict, tokens, cfg: TransformerConfig,
-            return_hidden: bool = False):
-    """Logits ``[b, s, vocab]`` in f32 for ``tokens [b, s]`` (int64), or
-    with ``return_hidden`` the final post-LN hidden states ``[b, s, d]``.
-    (The reference also returns an MoE aux loss, which is 0 here.)"""
+def _forward(params: dict, tokens, cfg: TransformerConfig,
+             ax: ParallelAxes, mesh, return_hidden: bool):
+    """``(logits or hidden, aux)``; aux is None without experts."""
     _check_config(cfg)
+    axes = _resolve_axes(ax, mesh)
     b, s = tokens.shape
-    if s > cfg.max_seq_len:
+    seq_off, global_seq = 0, s
+    if axes.seq is not None:
+        seq_off, global_seq = axes.seq.index * s, s * axes.seq.size
+    if global_seq > cfg.max_seq_len:
         raise ValueError(
-            f"global sequence length {s} exceeds cfg.max_seq_len "
+            f"global sequence length {global_seq} exceeds cfg.max_seq_len "
             f"{cfg.max_seq_len}; positions would clamp silently")
-    x = params["embed"][tokens] + params["pos_embed"][:s]
+    x = params["embed"][tokens] + params["pos_embed"][seq_off:seq_off + s]
+    layer = _layer_remat if cfg.remat else _layer
+    aux = None
     for i in range(cfg.n_layers):
-        lp = _index_layer(params["layers"], i)
-        x = _ffn_block(_attention_block(x, lp, cfg), lp)
+        x, aux_i = layer(x, _index_layer(params["layers"], i), cfg, axes)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
     x = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     if return_hidden:
-        return x
-    return _logits(x, params["unembed"])
+        return x, aux
+    return _logits(x, params["unembed"]), aux
+
+
+def forward(params: dict, tokens, cfg: TransformerConfig,
+            ax: ParallelAxes = ParallelAxes(), return_hidden: bool = False,
+            *, mesh=None):
+    """Logits ``[b, s_loc, vocab]`` in f32 for this rank's ``tokens
+    [b, s_loc]`` (int64; the batch sharded over ``ax.data``, the sequence
+    shard-major over ``ax.seq``), or with ``return_hidden`` the final
+    post-LN hidden states ``[b, s_loc, d]``.  (The reference also returns
+    the MoE aux loss; :func:`make_loss_fn` adds it to the loss.)"""
+    return _forward(params, tokens, cfg, ax, mesh, return_hidden)[0]
 
 
 def _logits(x, unembed):
@@ -160,20 +303,31 @@ def _nll_sum(x, unembed, targets):
     return -torch.gather(logp, -1, targets[..., None]).sum()
 
 
-def make_loss_fn(cfg: TransformerConfig):
+def make_loss_fn(cfg: TransformerConfig, ax: ParallelAxes = ParallelAxes(),
+                 mesh_axes=None):
     """``loss_fn(params, (tokens, targets))``: mean next-token
-    cross-entropy on this rank's batch (the reference's pmean over ranks
-    is the train step's loss allreduce here).  ``cfg.loss_chunk > 0``
-    computes it over sequence chunks, recomputing each chunk's logits in
-    the backward pass, so the full logits never exist at once."""
+    cross-entropy on this rank's shard of the batch, plus the MoE aux
+    loss, averaged over every rank of ``mesh_axes``.
+
+    ``mesh_axes`` is the :class:`~..core.topology.Mesh` (the reference
+    passes ``mesh.axis_names``; the port's mesh carries those axes and
+    their groups).  Without one the loss is this rank's: the data-
+    parallel train step averages it over ranks.  ``cfg.loss_chunk > 0``
+    computes the cross-entropy over sequence chunks, recomputing each
+    chunk's logits in the backward pass, so the full logits never exist
+    at once."""
+    mesh = mesh_axes
+    if mesh is not None and not isinstance(mesh, T.Mesh):
+        raise TypeError(f"mesh_axes must be a topology.Mesh (make_mesh), "
+                        f"got {type(mesh).__name__}")
 
     def dense_ce(params, tokens, targets):
-        logits = forward(params, tokens, cfg)
+        logits, aux = _forward(params, tokens, cfg, ax, mesh, False)
         logp = torch.log_softmax(logits, dim=-1)
-        return -torch.gather(logp, -1, targets[..., None]).mean()
+        return -torch.gather(logp, -1, targets[..., None]).mean(), aux
 
     def chunked_ce(params, tokens, targets):
-        x = forward(params, tokens, cfg, return_hidden=True)
+        x, aux = _forward(params, tokens, cfg, ax, mesh, True)
         b, s, _ = x.shape
         chunk = min(cfg.loss_chunk, s)
         if s % chunk:
@@ -184,12 +338,15 @@ def make_loss_fn(cfg: TransformerConfig):
             total = total + checkpoint(
                 _nll_sum, x[:, c:c + chunk], params["unembed"],
                 targets[:, c:c + chunk], use_reentrant=False)
-        return total / (b * s)
+        return total / (b * s), aux
 
     def loss_fn(params, batch):
         tokens, targets = batch
         ce = chunked_ce if cfg.loss_chunk > 0 else dense_ce
-        return ce(params, tokens, targets)
+        loss, aux = ce(params, tokens, targets)
+        if aux is not None:
+            loss = loss + aux
+        return pmean_loss(loss, mesh)
 
     return loss_fn
 
@@ -206,6 +363,9 @@ def chained_lm_loss(cfg: TransformerConfig):
     from ..parallel.overlap import ChainedLoss
 
     _check_config(cfg)
+    if cfg.num_experts > 0:
+        raise ValueError("chained_lm_loss supports dense FFN layers only "
+                         "(num_experts == 0)")
 
     def embed_stage(p, carry, batch):
         tokens, _targets = batch
@@ -217,7 +377,7 @@ def chained_lm_loss(cfg: TransformerConfig):
         return p["embed"][tokens] + p["pos_embed"][:s]
 
     def layer_stage(p, carry, batch):
-        return _ffn_block(_attention_block(carry, p, cfg), p)
+        return _ffn_block(_attention_block(carry, p, cfg), p, cfg)[0]
 
     def head_stage(p, carry, batch):
         _tokens, targets = batch

@@ -569,6 +569,9 @@ _SPMD_ENV_KNOBS = (
     # parallel/overlap.py: which step a rank runs (the monolithic one, or
     # bucketed collectives the other ranks must match).
     "HVD_TPU_OVERLAP",
+    # ops/fused.py: a rank with another chunk plan issues other
+    # collectives.
+    "HVD_TPU_FUSE", "HVD_TPU_FUSE_CHUNKS",
 )
 
 

@@ -5,8 +5,13 @@ One step is forward, backward, the bucketed gradient allreduce, the
 optimizer's update, and the loss averaged over ranks; the stateful step
 also averages the model's new non-trained state (BatchNorm statistics)
 over ranks.  PyTorch runs eagerly, so a step is a plain function; the
-parameters are updated in place by the optimizer.  The multi-axis
-(tensor/sequence/pipeline/expert) step is later work.
+parameters are updated in place by the optimizer.
+
+:func:`make_parallel_train_step` (reference :423-461) is the multi-axis
+step (data, tensor, sequence and expert parallelism over a
+:class:`~..core.topology.Mesh`), with :func:`shard_parallel_batch`.
+Pipeline parallelism, FSDP and ZeRO are the second half of ROADMAP.md
+A.3.
 
 ``make_train_step(..., overlap=)`` (or ``HVD_TPU_OVERLAP``) selects the
 schedule: ``off`` is the monolithic step below; ``on`` and ``serial``
@@ -32,6 +37,7 @@ import torch
 
 from ..core import state as _state
 from ..ops import collective as C
+from . import axis_ops
 from ..utils.tree import tree_leaves, tree_map
 from .data import DistributedOptimizer, allreduce_gradients
 from .input import device_put_batch
@@ -194,3 +200,75 @@ def barrier_fence(*trees) -> None:
     if dev is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
+
+
+def make_parallel_train_step(loss_fn: Callable[..., torch.Tensor],
+                             optimizer: torch.optim.Optimizer, mesh,
+                             batch_spec):
+    """The multi-axis train step (reference :423).
+
+    ``loss_fn(params, batch)`` is a loss on this rank's shard of the
+    batch that averages itself over the mesh (``models.transformer.
+    make_loss_fn(cfg, ax, mesh)``).  The step runs forward and backward,
+    sums every gradient over the whole mesh (the gradient convention of
+    :mod:`.axis_ops`: the sum is the exact gradient of the global loss
+    on every rank) and calls ``optimizer.step()``, a plain
+    ``torch.optim`` optimizer over the parameter leaves.
+
+    Returns ``step(params, batch) -> loss``: ``batch`` is the global
+    batch (the same on every rank, on the host or the device), of which
+    the step takes this rank's shard by ``batch_spec``
+    (:func:`shard_parallel_batch`); the loss is the global loss.  The
+    reference's buffer donation and its CPU throttle serve XLA only.
+    """
+    from .data import DistributedOptimizer
+
+    if isinstance(optimizer, (DistributedOptimizer, _hook_optimizer())):
+        raise TypeError(
+            "make_parallel_train_step reduces the gradients over the mesh "
+            "itself; pass the plain torch.optim optimizer, not a "
+            "DistributedOptimizer")
+    leaves = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(params, batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, shard_parallel_batch(batch, mesh, batch_spec))
+        loss.backward()
+        axis_ops.reduce_gradients(leaves, mesh)
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def shard_parallel_batch(batch, mesh, batch_spec):
+    """This rank's shard of a global batch, on the device ``init`` bound
+    (where the batch is, before ``init``).
+
+    ``batch_spec`` gives each dimension of every leaf the mesh axis it
+    is split over, or None (reference ``PartitionSpec``): e.g.
+    ``("data", None)`` or ``("data", "seq")``; a tuple of axis names
+    splits one dimension over several axes, the first outermost.  Shard
+    ``i`` of a dimension is its ``i``-th equal block, so a sequence is
+    sharded shard-major as ring attention expects."""
+    device = _state.device() if _state.is_initialized() else None
+
+    def shard(x):
+        x = torch.as_tensor(x)
+        for dim, names in enumerate(batch_spec):
+            if names is None:
+                continue
+            names = (names,) if isinstance(names, str) else tuple(names)
+            n, idx = 1, 0
+            for name in names:
+                ax = mesh.axis(name)
+                n, idx = n * ax.size, idx * ax.size + ax.index
+            if x.shape[dim] % n:
+                raise ValueError(
+                    f"batch dimension {dim} of size {x.shape[dim]} does not "
+                    f"divide over mesh axes {names} ({n} shards)")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, idx * size, size)
+        return x if device is None else x.to(device)
+
+    return tree_map(shard, batch)
