@@ -152,7 +152,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
              forward and backward on the card against the CPU (loss
              1e-5, each gradient leaf 1e-4 of its largest magnitude),
              with the router's near-ties counted.
-10. word2vec - skip-gram word2vec with sparse embedding gradients
+10. sharded - ZeRO-1 and FSDP (ROADMAP A.3, second half (a)) on one rank:
+             GPT-2-small (the trainer's weights and batch) through
+             make_train_step, make_zero_train_step and
+             make_fsdp_train_step, AdamW(3e-4, the for-each form on
+             every side), 3 steps each: losses and weights bitwise the
+             monolithic step's, or within AdamW's bound (the row says
+             which held); 12 launches of each flash kernel a step on
+             both sharded paths.  The flat update as 4 shards, each with
+             its own AdamW, against one: GPT-2-small's weights and a
+             3-element leaf (not a multiple of 4), 3 steps of seeded
+             gradients, bitwise, the padding left zero.  Then in turns
+             (monolithic, zero, fsdp, fsdp, zero, monolithic; 2 warm-up
+             and 5 timed steps): step ms, the host's enqueue ms, the
+             memory held between steps and the peak during them, the
+             optimizer-state bytes the rank holds; one profiled ZeRO and
+             one FSDP step.  ResNet-50 at bench.py's recipe through
+             Trainer, Trainer(zero=True) and Trainer(fsdp=True) with
+             BroadcastGlobalVariablesCallback, 3 steps on one batch
+             (cuDNN's deterministic algorithms): bitwise, or each leaf's
+             update within RESNET_TOL_UPDATE (the row says which held).
+             One rank moves no byte and saves no memory: the phase
+             shows the path's arithmetic and costs, not a gain.
+11. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -162,7 +184,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-11. resnet - ResNet data parallelism, which runs no kernel of the port's
+12. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -184,6 +206,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import gc
 import itertools
 import json
 import os
@@ -198,7 +221,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "overlap", "parallel", "word2vec", "resnet")
+          "overlap", "parallel", "sharded", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -2415,6 +2438,308 @@ def phase_parallel(fa, smi_line, out_dir):
     return path_launches
 
 
+# sharded phase: ZeRO-1 and FSDP (ROADMAP A.3, second half (a)).
+SHARDS = 4  # the flat AdamW update split as 4 ranks would hold it
+
+
+def optimizer_state_bytes(optimizer) -> int:
+    """Bytes of every tensor in a torch optimizer's state."""
+    return sum(v.numel() * v.element_size()
+               for st in optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor))
+
+
+def phase_sharded(fa, smi_line, out_dir):
+    """GPT-2-small through make_zero_train_step and make_fsdp_train_step
+    against make_train_step on one rank; the flat AdamW update as 4
+    shards against one; ResNet-50 through Trainer(zero=True) and
+    Trainer(fsdp=True) against Trainer()."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.frontends.loop import Trainer
+    from horovod_tpu_torch.models import resnet as R
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from horovod_tpu_torch.parallel.zero import (FlatLayout,
+                                                 make_zero_train_step)
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = transformer_lm.bench_config()
+    batch, seq, lr, warmup, steps = 8, 1024, 3e-4, 2, 5
+    hvd.init(device="cuda")
+    tokens, targets = tt.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), batch, seq, cfg.vocab_size)
+    data = (tokens.cuda(), targets.cuda())
+    loss_fn = tt.make_loss_fn(cfg)
+
+    def adamw(leaves):
+        # optax.adamw's weight decay; the for-each form on every side, so
+        # that the sharded and the monolithic updates are one arithmetic.
+        return torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4,
+                                 foreach=True)
+
+    def build(kind):
+        """GPT-2-small from seed 0 (the trainer's weights) and AdamW:
+        {"step": () -> loss, "leaves": () -> weights, "optimizer"}."""
+        params = tt.init_transformer(torch.Generator().manual_seed(0), cfg,
+                                     device="cuda")
+        if kind == "monolithic":
+            opt = hvd.DistributedOptimizer(adamw(tree_leaves(params)))
+            step = hvd.make_train_step(loss_fn, opt)
+            return {"step": lambda: step(params, data), "optimizer": opt,
+                    "leaves": lambda: tree_leaves(params)}
+        if kind == "zero":
+            zstep = make_zero_train_step(loss_fn, adamw)
+            held = {"opt": zstep.init(params)}
+
+            def zero_step():
+                _, held["opt"], loss = zstep.step(params, held["opt"], data)
+                return loss
+
+            return {"step": zero_step, "optimizer": held["opt"].optimizer,
+                    "leaves": lambda: tree_leaves(params)}
+        fstep = make_fsdp_train_step(loss_fn, adamw)
+        p_shard, opt = fstep.init(params)
+        del params
+        held = {"p": p_shard, "opt": opt}
+
+        def fsdp_step():
+            held["p"], held["opt"], loss = fstep.step(held["p"], held["opt"],
+                                                      data)
+            return loss
+
+        return {"step": fsdp_step, "optimizer": opt.optimizer,
+                "leaves": lambda: tree_leaves(fstep.full_params(held["p"]))}
+
+    # 1. Three steps of each from the same weights and batch: losses and
+    # weights bitwise the monolithic step's (one rank: the reduce-scatter
+    # and the all-gather are copies, and AdamW is elementwise), or within
+    # AdamW's bound; 12 launches of each flash kernel a step.
+    runs = {}
+    for kind in ("monolithic", "zero", "fsdp"):
+        fa.reset_launches()
+        run = build(kind)
+        losses = [float(run["step"]()) for _ in range(3)]
+        launches = {k: v / 3 for k, v in fa.launches.items()}
+        if any(v != cfg.n_layers for v in launches.values()):
+            raise AssertionError(f"{kind}: flash launches a step "
+                                 f"{launches}, not {cfg.n_layers}")
+        runs[kind] = {"losses": losses, "launches_per_step": launches,
+                      "leaves": [p.detach().clone() for p in run["leaves"]()]}
+        del run
+        torch.cuda.empty_cache()
+    mono = runs["monolithic"]
+    if not all(np.isfinite(mono["losses"])) or not (
+            mono["losses"][-1] < mono["losses"][0]):
+        raise AssertionError(f"monolithic losses: {mono['losses']}")
+    rows = {}
+    for kind in ("zero", "fsdp"):
+        r = runs[kind]
+        bitwise = r["losses"] == mono["losses"] and all(
+            torch.equal(a, b) for a, b in zip(r["leaves"], mono["leaves"]))
+        row = {"bitwise": bitwise, "losses": r["losses"],
+               "launches_per_step": r["launches_per_step"]}
+        if not bitwise:
+            row["held"] = "adamw_allowed"
+            row["param_worst_ratio"] = max(
+                check(f"{kind} params", a, b, adamw_allowed(lr, 3))[1]
+                for a, b in zip(r["leaves"], mono["leaves"]))
+            row["loss_max_rel_diff"] = max(
+                abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                    mono["losses"]))
+            if not row["loss_max_rel_diff"] <= RTOL_BF16:
+                raise AssertionError(f"{kind} losses: {row}")
+        rows[kind] = row
+    del runs, r
+    torch.cuda.empty_cache()
+
+    # 2. The flat AdamW update as SHARDS shards, each with its own AdamW,
+    # against one: GPT-2-small's weights and a 3-element leaf (136,137,219
+    # elements, not a multiple of 4, so the last shard is padded), three
+    # steps of seeded gradients; the concatenation must be bitwise.
+    def four_shards():
+        params = tt.init_transformer(torch.Generator().manual_seed(0), cfg,
+                                     device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        tree = {"gpt2": params, "extra": torch.randn(
+            3, generator=gen, device="cuda").to(cfg.dtype)}
+        layout = FlatLayout(tree, SHARDS)
+        one = FlatLayout(tree, 1).flatten(tree_leaves(tree))
+        one.requires_grad_(True)
+        flat, c = layout.flatten(tree_leaves(tree)), layout.chunk
+        shards = [flat[i * c:(i + 1) * c].clone().requires_grad_(True)
+                  for i in range(SHARDS)]
+        opts = [adamw([s]) for s in shards]
+        opt_one = adamw([one])
+        for _ in range(3):
+            g = (torch.randn(layout.true_size, generator=gen, device="cuda")
+                 * 1e-2).to(cfg.dtype)
+            one.grad = g
+            opt_one.step()
+            padded = torch.cat([g, g.new_zeros(SHARDS * c - g.numel())])
+            for i, (s, o) in enumerate(zip(shards, opts)):
+                s.grad = padded[i * c:(i + 1) * c].clone()
+                o.step()
+        joined = torch.cat([s.detach() for s in shards])
+        return {"true_size": layout.true_size, "padded": SHARDS * c,
+                "chunk": c,
+                "bitwise": bool(torch.equal(joined[:layout.true_size],
+                                            one.detach())),
+                "padding_zero": not bool(joined[layout.true_size:].any())}
+
+    shard_row = four_shards()
+    torch.cuda.empty_cache()
+    if not shard_row["bitwise"] or not shard_row["padding_zero"]:
+        raise AssertionError(f"{SHARDS}-shard AdamW update: {shard_row}")
+    log({"phase": "sharded", "check": "GPT-2-small through "
+         "make_zero_train_step and make_fsdp_train_step against "
+         "make_train_step, 3 AdamW(3e-4, foreach) steps from the same "
+         "weights and batch; the flat update as 4 shards against one",
+         "device": smi_line, "monolithic_losses": mono["losses"], **rows,
+         "four_shards": shard_row})
+    del mono
+
+    # 3. Timed in turns (monolithic, zero, fsdp, fsdp, zero, monolithic; 2
+    # warm-up and 5 timed steps each): step ms, the host's enqueue ms a
+    # step, the memory the path holds between steps and its peak during
+    # them (both above what was allocated before it was built), and the
+    # optimizer-state bytes this rank holds.
+    timed = {k: [] for k in ("monolithic", "zero", "fsdp")}
+    path_launches = {}
+    for turn in ("monolithic", "zero", "fsdp", "fsdp", "zero", "monolithic"):
+        gc.collect()  # cyclic garbage of the last turn, if any
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launches()
+        run = build(turn)
+        for _ in range(warmup):
+            run["step"]()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run["step"]()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        if any(v != cfg.n_layers * (warmup + steps)
+               for v in launches.values()):
+            raise AssertionError(f"{turn}: flash launches {launches}")
+        path_launches.setdefault(turn, launches)
+        timed[turn].append({
+            "step_ms": seconds / steps * 1e3,
+            "enqueue_ms": enqueued / steps * 1e3,
+            "tokens_per_s": batch * seq * steps / seconds,
+            "resident_gb": (resident - base) / 2 ** 30,
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            "optimizer_state_bytes": optimizer_state_bytes(
+                run["optimizer"])})
+        if turn != "monolithic" and f"{turn}_profile" not in timed:
+            timed[f"{turn}_profile"] = profile_step(run["step"], out_dir,
+                                                    f"sharded_{turn}")
+        del run
+    for turn in ("monolithic", "zero", "fsdp"):
+        timed[f"{turn}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in timed[turn]]))
+    log({"phase": "sharded_trainer", "model": "GPT-2-small",
+         "batch": batch, "seq": seq, "dtype": "bfloat16", "ranks": 1,
+         "device": smi_line, **timed})
+    torch.cuda.empty_cache()
+
+    # 4. ResNet-50 at bench.py's recipe (space-to-depth stem, 224 px,
+    # batch 128, bf16 compute, SGD(0.1, momentum 0.9)) through Trainer,
+    # Trainer(zero=True) and Trainer(fsdp=True) with the broadcast
+    # callback, 3 steps on one fixed batch each; cuDNN's deterministic
+    # algorithms, so that two runs of one tree are comparable bit for bit.
+    cudnn = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    model = R.ResNet50(num_classes=1000, space_to_depth=True)
+    images, labels = R.synthetic_imagenet(128, image_size=224,
+                                          num_classes=1000)
+    fixed = (images, labels)
+    resnet = {}
+    try:
+        for mode in ("plain", "zero", "fsdp"):
+            params, stats = R.init_resnet(model, seed=0, device="cuda")
+            trainer = Trainer(
+                R.resnet_loss_fn(model), params, lr=0.1,
+                optimizer_kwargs={"momentum": 0.9}, model_state=stats,
+                callbacks=[callbacks.BroadcastGlobalVariablesCallback(0)],
+                **({} if mode == "plain" else {mode: True}))
+            del params
+            losses = []
+
+            class Losses(callbacks.Callback):
+                def on_batch_end(self, step, logs=None):
+                    losses.append(logs["loss"])
+
+            trainer.callbacks.append(Losses())
+            trainer.fit(lambda e, s: fixed, epochs=1, steps_per_epoch=3,
+                        prefetch=0, log_every=1)
+            resnet[mode] = {
+                "losses": losses,
+                "params": [p.detach().clone()
+                           for p in tree_leaves(trainer.params)],
+                "stats": [s.detach().clone()
+                          for s in tree_leaves(trainer.model_state)],
+                "optimizer_state_bytes": optimizer_state_bytes(
+                    trainer.optimizer)}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = cudnn
+    plain = resnet["plain"]
+    p0 = tree_leaves(R.init_resnet(model, seed=0)[0])
+    resnet_rows = {}
+    for mode in ("zero", "fsdp"):
+        r = resnet[mode]
+        bitwise = r["losses"] == plain["losses"] and all(
+            torch.equal(a, b) for a, b in zip(r["params"] + r["stats"],
+                                              plain["params"]
+                                              + plain["stats"]))
+        row = {"bitwise": bitwise, "losses": r["losses"],
+               "optimizer_state_bytes": r["optimizer_state_bytes"]}
+        if not bitwise:
+            # The bound: each leaf's update p3 - p0 against the plain
+            # run's, relative to its largest magnitude, within
+            # RESNET_TOL_UPDATE (the card-against-CPU bound of one step's
+            # gradient rounding; the momentum sum weights each step's
+            # gradient and its rounding alike, so three steps keep the
+            # same relative bound); the losses and statistics within
+            # RESNET_TOL_LOSS and RESNET_TOL_STATE.
+            row["held"] = "RESNET_TOL_UPDATE"
+            row["update_rel_err"] = max(
+                _rel_err(a.cpu() - q, b.cpu() - q)
+                for a, b, q in zip(r["params"], plain["params"], p0))
+            row["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(r["losses"], plain["losses"]))
+            row["state_rel_err"] = max(_rel_err(a, b) for a, b in
+                                       zip(r["stats"], plain["stats"]))
+            if not (row["update_rel_err"] <= RESNET_TOL_UPDATE
+                    and row["loss_rel_err"] <= RESNET_TOL_LOSS
+                    and row["state_rel_err"] <= RESNET_TOL_STATE):
+                raise AssertionError(f"ResNet-50 {mode}: {row}")
+        resnet_rows[mode] = row
+    log({"phase": "sharded_resnet", "model": "ResNet-50 space-to-depth, "
+         "224 px, batch 128, bf16, SGD(0.1, 0.9), Trainer with "
+         "BroadcastGlobalVariablesCallback, 3 steps", "device": smi_line,
+         "plain_losses": plain["losses"],
+         "plain_optimizer_state_bytes": plain["optimizer_state_bytes"],
+         **resnet_rows})
+    del resnet, plain, p0
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return path_launches
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -2731,6 +3056,8 @@ def main() -> int:
         phase_overlap(fa, smi, args.out_dir)
     parallel = (phase_parallel(fa, smi, args.out_dir) if "parallel" in phases
                 else None)
+    sharded = (phase_sharded(fa, smi, args.out_dir) if "sharded" in phases
+               else {})
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -2762,7 +3089,9 @@ def main() -> int:
             # Each path's own count, zeroed just before it was driven.
             "launches_by_path": {
                 "trainer": launches[name],
-                **({"parallel": parallel[name]} if parallel else {})}})
+                **({"parallel": parallel[name]} if parallel else {}),
+                **{path: counts[name] for path, counts in sharded.items()
+                   if path != "monolithic"}}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.

@@ -31,10 +31,13 @@ class BroadcastGlobalVariablesCallback(Callback):
         self.root_rank = root_rank
 
     def on_train_begin(self, logs=None) -> None:
-        broadcast_parameters(self.trainer.params, root_rank=self.root_rank)
+        # Assigned back, as the reference does: under Trainer(fsdp=True)
+        # reading params gathers a fresh tree and assigning re-shards.
+        self.trainer.params = broadcast_parameters(
+            self.trainer.params, root_rank=self.root_rank)
         if getattr(self.trainer, "model_state", None) is not None:
-            broadcast_parameters(self.trainer.model_state,
-                                 root_rank=self.root_rank)
+            self.trainer.model_state = broadcast_parameters(
+                self.trainer.model_state, root_rank=self.root_rank)
 
 
 def _average_metric(allreduce_fn, metric: str, value):

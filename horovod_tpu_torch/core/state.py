@@ -67,6 +67,7 @@ class _State:
     local_size: int = 1
     cross_rank: int = 0
     cross_size: int = 1
+    hosts: tuple = ()  # each rank's host, in rank order (its node)
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
     tick_seconds: float = DEFAULT_CYCLE_TIME_MS / 1000.0
     control_group: Any = None  # gloo, more than one rank
@@ -158,7 +159,7 @@ def init(device=None) -> None:
         initialized=True, owns_group=owns, device=dev, rank=rank, size=size,
         local_rank=[i for i, h in enumerate(hosts) if h == mine].index(rank),
         local_size=hosts.count(mine), cross_rank=unique.index(mine),
-        cross_size=len(unique),
+        cross_size=len(unique), hosts=tuple(hosts),
         fusion_threshold_bytes=int(os.environ.get(
             "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)),
         tick_seconds=float(os.environ.get(

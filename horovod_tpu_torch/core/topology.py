@@ -13,8 +13,10 @@ one only along it.  The reference finds an axis from the ``shard_map``
 context by name; the port has no such context, so the parallel
 functions take the axis object from the caller (``mesh.axis("seq")``).
 A size-1 axis keeps a group too, so the code is the same at every size.
-The hybrid (slice x DCN) mesh, ``make_hybrid_mesh``, is the second half
-of ROADMAP.md A.3.
+The hybrid mesh (:func:`make_hybrid_mesh`, reference :120-233) lays a
+multi-node job out so that the gradient axes (``data``) cross nodes and
+every per-layer axis stays inside one node; a reference slice is a node
+here, and a rank's node its host.
 
 **The hierarchy** (:func:`replica_hierarchy`).
 
@@ -208,6 +210,33 @@ class Mesh:
             f"it with horovod_tpu_torch.core.topology.make_mesh(...)")
 
 
+def _resolve(config, ranks, degrees):
+    """``(config, ranks)``: the config from keywords, and ranks default
+    every rank of the job, as many as the config needs."""
+    if config is None:
+        config = ParallelConfig(**degrees)
+    elif degrees:
+        raise TypeError("pass either a ParallelConfig or keyword degrees, "
+                        "not both")
+    if ranks is None:
+        if not dist.is_initialized():
+            raise RuntimeError("make_mesh needs torch.distributed "
+                               "initialised (horovod_tpu_torch.init() does "
+                               "it)")
+        ranks = range(dist.get_world_size())
+    ranks = list(ranks)
+    if config.device_count != len(ranks):
+        raise ValueError(
+            f"parallel config {config} needs {config.device_count} devices "
+            f"but {len(ranks)} were provided")
+    return config, ranks
+
+
+def _names_and_sizes(config):
+    sizes = config.axis_sizes()
+    return tuple(a for a in _AXIS_ORDER if a in sizes), sizes
+
+
 def make_mesh(config: Optional[ParallelConfig] = None,
               ranks: Optional[Sequence[int]] = None, **degrees) -> Mesh:
     """The mesh of a parallel configuration over ``ranks`` (default
@@ -217,23 +246,20 @@ def make_mesh(config: Optional[ParallelConfig] = None,
     Collective: every rank of the job calls it with the same arguments,
     since each axis line's group is created by every rank, in one order
     (``dist.new_group``)."""
-    if config is None:
-        config = ParallelConfig(**degrees)
-    elif degrees:
-        raise TypeError("pass either a ParallelConfig or keyword degrees, "
-                        "not both")
+    config, ranks = _resolve(config, ranks, degrees)
+    names, sizes = _names_and_sizes(config)
+    shape = tuple(sizes[a] for a in names)
+    return _mesh_from_grid(names, np.asarray(ranks).reshape(shape))
+
+
+def _mesh_from_grid(names: Tuple[str, ...], grid: np.ndarray) -> Mesh:
+    """The mesh whose position ``idx`` holds rank ``grid[idx]``: every
+    axis line's group created by every rank, in one order."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialised "
                            "(horovod_tpu_torch.init() does it)")
-    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
-    if config.device_count != len(ranks):
-        raise ValueError(
-            f"parallel config {config} needs {config.device_count} devices "
-            f"but {len(ranks)} were provided")
-    sizes = config.axis_sizes()
-    names = tuple(a for a in _AXIS_ORDER if a in sizes)
-    shape = tuple(sizes[a] for a in names)
-    grid = np.asarray(ranks).reshape(shape)
+    shape = grid.shape
+    ranks = grid.reshape(-1).tolist()
     me = dist.get_rank()
     axes = []
     for dim, name in enumerate(names):
@@ -251,6 +277,100 @@ def make_mesh(config: Optional[ParallelConfig] = None,
         raise ValueError(f"rank {me} is not in the mesh's ranks {ranks}")
     return Mesh(axis_names=names, shape=shape, ranks=grid,
                 axes=tuple(axes), group=whole)
+
+
+def _hybrid_layout(ranks, slice_of, names, sizes, dcn_factor) -> np.ndarray:
+    """The reference's explicit hybrid layout (:120), over ranks: the
+    outer (cross-node) block of each split axis crosses nodes, the inner
+    block stays inside one node.  Nodes are taken in sorted id order and
+    a node's ranks in the order given."""
+    groups: dict = {}
+    for r in ranks:
+        groups.setdefault(slice_of(r), []).append(r)
+    slice_ids = sorted(groups)
+    if len({len(g) for g in groups.values()}) != 1:
+        raise ValueError(
+            f"slices must be equal-sized; got "
+            f"{ {s: len(g) for s, g in groups.items()} }")
+    shape = tuple(sizes[a] for a in names)
+    ici_shape = [sizes[a] // dcn_factor.get(a, 1) for a in names]
+    dcn_shape = [dcn_factor.get(a, 1) for a in names]
+    grid = np.empty(shape, dtype=np.int64)
+    for idx in np.ndindex(shape):
+        dcn_coord = [i // m for i, m in zip(idx, ici_shape)]
+        ici_coord = [i % m for i, m in zip(idx, ici_shape)]
+        sid = int(np.ravel_multi_index(dcn_coord, dcn_shape))
+        wid = int(np.ravel_multi_index(ici_coord, ici_shape))
+        grid[idx] = groups[slice_ids[sid]][wid]
+    return grid
+
+
+def _hybrid_grid(config: Optional[ParallelConfig] = None,
+                 ranks: Optional[Sequence[int]] = None,
+                 dcn_axes: Tuple[str, ...] = (DATA_AXIS,), slice_map=None,
+                 **degrees) -> Tuple[Tuple[str, ...], Optional[np.ndarray]]:
+    """``(axis names, rank grid)`` of :func:`make_hybrid_mesh`, the grid
+    None on one node.  Creates no group."""
+    import math
+
+    config, ranks = _resolve(config, ranks, degrees)
+    if slice_map is None:
+        from . import state as _st
+
+        # A node is a host, numbered by its lowest rank.
+        hosts = _st._state.hosts
+        node = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
+        slice_of = (lambda r: node[hosts[r]]) if hosts else (lambda r: 0)
+    elif callable(slice_map):
+        slice_of = slice_map
+    else:
+        slice_of = slice_map.__getitem__
+    names, sizes = _names_and_sizes(config)
+    num_slices = len({slice_of(r) for r in ranks})
+    if num_slices <= 1:
+        return names, None
+    for a in dcn_axes:
+        if a not in names:
+            raise ValueError(f"dcn axis {a!r} not in mesh axes {names}")
+    # Split each cross-node axis's degree into (cross-node, in-node)
+    # factors, outermost first, until the nodes are exactly tiled.
+    remaining = num_slices
+    dcn_factor = {}
+    for a in dcn_axes:
+        f = math.gcd(sizes[a], remaining)
+        dcn_factor[a] = f
+        remaining //= f
+    if remaining != 1:
+        raise ValueError(
+            f"DCN axes {dcn_axes} with degrees "
+            f"{[sizes[a] for a in dcn_axes]} cannot tile {num_slices} "
+            f"slices; the cross-slice axes must tile the slices exactly.")
+    return names, _hybrid_layout(ranks, slice_of, names, sizes, dcn_factor)
+
+
+def make_hybrid_mesh(config: Optional[ParallelConfig] = None,
+                     ranks: Optional[Sequence[int]] = None,
+                     dcn_axes: Tuple[str, ...] = (DATA_AXIS,),
+                     slice_map=None, **degrees) -> Mesh:
+    """The mesh of a multi-node job (reference :148): the ``dcn_axes``
+    (outermost first; default ``data``, whose gradient exchange happens
+    once a step) cross nodes over the network, and every per-layer axis
+    (``model``, ``seq``, ``expert``) stays inside one node on NVLink.
+
+    A node is a host (the host list ``init`` gathers).  ``slice_map``, a
+    callable ``rank -> node id`` or a mapping ``{rank: node id}``,
+    declares the nodes instead: the tests train over ranks of one host
+    declared as two nodes.  On one node it is :func:`make_mesh`
+    unchanged.  A cross-node axis whose degree exceeds its share of the
+    node count is split: 2 nodes x 4 GPUs with ``data=4, model=2`` put a
+    2-way data factor across nodes and a 2-way one inside each.
+
+    Collective, as :func:`make_mesh`."""
+    names, grid = _hybrid_grid(config, ranks, dcn_axes, slice_map,
+                               **degrees)
+    if grid is None:
+        return make_mesh(config, ranks, **degrees)
+    return _mesh_from_grid(names, grid)
 
 
 def mesh_axis_sizes(mesh: Mesh) -> dict:

@@ -11,6 +11,13 @@ momentum live in the optimizer's ``param_groups``, which the ``lr`` and
 reference's ``optax.inject_hyperparams`` state.  ``torch.optim.SGD``
 with dampening 0 is ``optax.sgd(momentum=...)``, first step included
 (both take the first gradient as the momentum buffer).
+
+``zero=True`` and ``fsdp=True`` shard the optimizer state, and with
+``fsdp`` the parameters too (:mod:`..parallel.zero`,
+:mod:`..parallel.fsdp`); ``lr`` and ``momentum`` then reach the shard's
+optimizer.  Under ``fsdp`` the ``params`` property gathers on read and
+re-shards on assignment, so the callbacks see one contract in every
+mode, and the hot loop steps the shard directly.
 """
 
 from __future__ import annotations
@@ -41,7 +48,12 @@ class Trainer:
       lr: initial learning rate (``initial_lr`` in callback terms).
       callbacks: callback objects (see :mod:`horovod_tpu_torch.callbacks`).
       model_state: optional non-trained state (BatchNorm statistics).
-      zero, fsdp: optimizer-state / parameter sharding, not ported yet.
+      zero: ZeRO-1 optimizer-state sharding (the optimizer must be
+        elementwise; ``fusion_threshold`` does not apply: the flattened
+        gradient is one maximal fusion bucket).
+      fsdp: FSDP/ZeRO-3: parameters and optimizer state live as 1/N
+        flat shards between steps; ``params`` gathers on read and
+        re-shards on assignment.  Same precondition as ``zero``.
     """
 
     def __init__(self, loss_fn, params, optimizer_fn=torch.optim.SGD,
@@ -51,22 +63,44 @@ class Trainer:
                  fusion_threshold: Optional[int] = None,
                  zero: bool = False, fsdp: bool = False):
         _state._check_initialized()
-        if zero or fsdp:
-            raise NotImplementedError(
-                f"Trainer({'zero' if zero else 'fsdp'}=True): optimizer-"
-                f"state and parameter sharding are not in this slice of the "
-                f"port (ROADMAP.md A.3)")
-        self.params = params
+        if zero and fsdp:
+            raise ValueError("zero and fsdp are mutually exclusive: "
+                             "fsdp shards everything zero does and the "
+                             "parameters too")
+        self._fsdp = fsdp
+        if not fsdp:
+            self.params = params
         self.model_state = model_state
         self._has_state = model_state is not None
         kwargs = dict(optimizer_kwargs or {})
         self._momentum_key = "momentum" if "momentum" in kwargs else None
-        self.optimizer = DistributedOptimizer(
-            optimizer_fn(tree_leaves(params), lr=lr, **kwargs),
-            average=average_gradients, fusion_threshold=fusion_threshold)
-        make_step = (make_train_step_with_state if self._has_state
-                     else make_train_step)
-        self._step = make_step(loss_fn, self.optimizer)
+        if (zero or fsdp) and fusion_threshold is not None:
+            import warnings
+
+            warnings.warn(
+                f"fusion_threshold is ignored with "
+                f"{'fsdp' if fsdp else 'zero'}=True: the flattened "
+                "gradient is one maximal fusion bucket", stacklevel=2)
+        if zero or fsdp:
+            self._run = self._sharded(
+                loss_fn, lambda ps: optimizer_fn(ps, lr=lr, **kwargs),
+                params, average_gradients)
+        else:
+            self.optimizer = DistributedOptimizer(
+                optimizer_fn(tree_leaves(params), lr=lr, **kwargs),
+                average=average_gradients, fusion_threshold=fusion_threshold)
+            make_step = (make_train_step_with_state if self._has_state
+                         else make_train_step)
+            step = make_step(loss_fn, self.optimizer)
+            if self._has_state:
+                def run(batch):
+                    self.model_state, loss = step(self.params,
+                                                  self.model_state, batch)
+                    return loss
+            else:
+                def run(batch):
+                    return step(self.params, batch)
+            self._run = run
         self.callbacks = list(callbacks or [])
         for cb in self.callbacks:
             if hasattr(cb, "set_trainer"):
@@ -74,6 +108,69 @@ class Trainer:
         self.history: List[dict] = []
         self.steps_per_epoch: Optional[int] = None
         self.stop_training = False
+
+    def _sharded(self, loss_fn, optimizer_fn, params, average):
+        """``run(batch) -> loss`` over a ZeRO or FSDP step; the shard's
+        optimizer becomes ``self.optimizer``."""
+        if self._fsdp:
+            from ..parallel.fsdp import (make_fsdp_train_step as build,
+                                         make_fsdp_train_step_with_state
+                                         as build_with_state)
+        else:
+            from ..parallel.zero import (make_zero_train_step as build,
+                                         make_zero_train_step_with_state
+                                         as build_with_state)
+        sstep = (build_with_state if self._has_state else build)(
+            loss_fn, optimizer_fn, average=average)
+        if self._fsdp:
+            self._fstep = sstep
+            self._p_shard, self.opt_state = sstep.init(params)
+            # Each rank's own tree until the first step or assignment:
+            # a broadcast at train begin then starts every shard from
+            # root's weights, as it does every replica without fsdp (the
+            # shards of trees that differ by rank would mix them).
+            self._unsharded = params
+        else:
+            self.opt_state = sstep.init(params)
+        self.optimizer = self.opt_state.optimizer
+        # The hot loop steps the shard directly under fsdp, with no
+        # gather through the params property.
+        held = "_p_shard" if self._fsdp else "_params"
+
+        def run(batch):
+            self._unsharded = None
+            state = (self.model_state,) if self._has_state else ()
+            out = sstep.step(getattr(self, held), *state, self.opt_state,
+                             batch)
+            setattr(self, held, out[0])
+            if self._has_state:
+                self.model_state = out[1]
+            self.opt_state, loss = out[-2:]
+            return loss
+
+        return run
+
+    # -- parameter access: one contract in every mode ---------------------
+    @property
+    def params(self):
+        """The whole parameter tree.  Under ``fsdp=True`` reading gathers
+        the shards and assigning re-shards, so callbacks (the broadcast
+        at train begin, a rank-0 checkpoint) see the same contract as in
+        every other mode; until the first step or assignment it is the
+        tree this rank passed in."""
+        if self._fsdp:
+            if self._unsharded is not None:
+                return self._unsharded
+            return self._fstep.full_params(self._p_shard)
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        if self._fsdp:
+            self._p_shard = self._fstep.shard_params(value)
+            self._unsharded = None
+        else:
+            self._params = value
 
     # -- hyperparameters for callbacks (≙ K.get/set_value) ----------------
     @property
@@ -147,11 +244,7 @@ class Trainer:
             try:
                 for step, batch in enumerate(staged):
                     self._call("on_batch_begin", step, None)
-                    if self._has_state:
-                        self.model_state, loss = self._step(
-                            self.params, self.model_state, batch)
-                    else:
-                        loss = self._step(self.params, batch)
+                    loss = self._run(batch)
                     losses.append(loss)
                     batch_logs = None
                     if log_every and (step + 1) % log_every == 0:

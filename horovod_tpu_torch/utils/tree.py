@@ -31,18 +31,20 @@ def tree_flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None
 
 
 def tree_unflatten(spec, leaves) -> Any:
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, keys, children = s
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(keys, built))
-        return tuple(built) if kind == "tuple" else built
 
-    return build(spec)
+def _build(spec, it):
+    # A module-level function, not a nested recursive closure: such a
+    # closure is a reference cycle that would hold ``leaves`` (and
+    # whatever they view) until the garbage collector runs.
+    if spec is None:
+        return next(it)
+    kind, keys, children = spec
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(keys, built))
+    return tuple(built) if kind == "tuple" else built
 
 
 def tree_map(fn: Callable, tree) -> Any:

@@ -11,7 +11,8 @@
   one epoch of 4 steps, SGD with momentum, on one device: epoch losses
   within 1e-4.
 * The Trainer's surface: lr/momentum properties, log_every, prefetch=0
-  equal to prefetched training, zero/fsdp refused.
+  equal to prefetched training, zero/fsdp built (their lr and momentum
+  reach the shard's optimizer) and refused together.
 * The two example twins run on the CPU when asked to, their loss falls,
   and they refuse to start without a GPU otherwise.
 """
@@ -312,8 +313,13 @@ def test_trainer_hyperparameters_and_refusals(port_cpu):
         plain.momentum = 0.9
     params = tm.init_params(tm.MnistMLP(hidden=4))
     for kw in ({"zero": True}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError, match="A.3"):
-            Trainer(lambda p, b: 0, params, **kw)
+        sharded = Trainer(lambda p, b: 0, params, lr=0.05,
+                          optimizer_kwargs={"momentum": 0.9}, **kw)
+        sharded.lr, sharded.momentum = 0.5, 0.8
+        group = sharded.opt_state.optimizer.param_groups[0]
+        assert (group["lr"], group["momentum"]) == (0.5, 0.8)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(lambda p, b: 0, params, zero=True, fsdp=True)
 
 
 @pytest.mark.parametrize("module", ["resnet50_synthetic", "mnist_callbacks"])
