@@ -174,7 +174,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
              update within RESNET_TOL_UPDATE (the row says which held).
              One rank moves no byte and saves no memory: the phase
              shows the path's arithmetic and costs, not a gain.
-11. word2vec - skip-gram word2vec with sparse embedding gradients
+11. pipeline - pipeline parallelism (ROADMAP A.3, second half (b)) on
+             one rank: GPT-2-small as chained_lm_loss (embedding, 12 layer
+             stages, head: 14 stages), the trainer's weights and batch, 8
+             microbatches of one sequence, through
+             make_pipeline_train_step under gpipe, 1f1b and 1f1b with
+             interleave 2, AdamW(3e-4, foreach), 3 steps each: losses and
+             every weight bitwise across the three; the first loss within
+             1e-5 relative of make_train_step's, the first step's
+             gradients within PIPE_GRAD_ALLOWANCE x the bf16 allowance,
+             the weights after 3 steps within AdamW's bound; 192 / 96 / 96
+             launches of the flash forward / dK/dV / dQ a step (each
+             stage's backward recomputes its forward), by the counters and
+             in one profiled 1f1b step (all sm90 forms).  In turns
+             (monolithic, gpipe, 1f1b, 1f1b v2, 1f1b, gpipe, monolithic;
+             2 warm-up and 5 timed steps): step ms, tokens/s, enqueue ms,
+             pipeline.bubble_seconds, memory held and peak, the peak
+             carries and their bytes against the plan's.  The three
+             kernels at b1 h12 s1024 against their bound.  gpipe through
+             ParallelAxes(data, pipe) at a pipe axis of one, 2
+             microbatches, 3 steps of make_parallel_train_step against
+             the monolithic step; a pipeline of 4 stages of 3 layers
+             played in one process (pipeline.play_gpipe) against the 12
+             layers in sequence.  One card is one rank: the schedules
+             cannot differ in speed; the phase shows the arithmetic and
+             the costs (recompute, launches, host dispatch).
+12. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -184,7 +209,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-12. resnet - ResNet data parallelism, which runs no kernel of the port's
+13. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -221,7 +246,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "overlap", "parallel", "sharded", "word2vec", "resnet")
+          "overlap", "parallel", "sharded", "pipeline", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -300,13 +325,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches, by CUDA events."""
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
+                 queued: bool = False) -> float:
+    """Mean device time of fn() over iters launches, by CUDA events.
+    ``queued``: the launches are queued behind ~30 ms of spinning on the
+    card, so the device runs them back to back; without it a launch
+    shorter than the host's enqueue of the next is timed at the host's
+    pace."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -363,10 +395,11 @@ def check(name, got, want, allowed):
 
 
 def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
-                seed, timing=False):
+                seed, timing=False, queued=False):
     """One kernel-against-plain comparison on the card.  Returns
     {kernel: {max_abs_err, worst_ratio, ...timings}}; worst_ratio is the
-    largest error over its allowance, so at most 1."""
+    largest error over its allowance, so at most 1.  ``queued``: times
+    as :func:`cuda_time_ms` with ``queued``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -473,17 +506,18 @@ def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
     if q_len == kv_len and q_offset == 0:
         with sdpa_kernel(getattr(SDPBackend, SDP_BACKEND_NAME)):
             lib["flash_fwd"] = cuda_time_ms(
-                lambda: f(q4, k4, v4, is_causal=causal))
+                lambda: f(q4, k4, v4, is_causal=causal), queued=queued)
             ql, kl, vl = (t.detach().requires_grad_(True)
                           for t in (q4, k4, v4))
             o_lib = f(ql, kl, vl, is_causal=causal)
         lib["bwd"] = cuda_time_ms(lambda: torch.autograd.grad(
-            o_lib, (ql, kl, vl), g4, retain_graph=True))
+            o_lib, (ql, kl, vl), g4, retain_graph=True), queued=queued)
     for name, (flops, nbytes) in work.items():
         launches_before = dict(fa.launches)
-        out[name]["ms"] = cuda_time_ms(kernel_fns[name])
+        out[name]["ms"] = cuda_time_ms(kernel_fns[name], queued=queued)
         fa.launches.update(launches_before)  # timing launches do not count
-        out[name]["plain_ms"] = cuda_time_ms(plain_fns[name], iters=5)
+        out[name]["plain_ms"] = cuda_time_ms(plain_fns[name], iters=5,
+                                             queued=queued)
         out[name]["bound_ms"], out[name]["bound_by"] = bound(flops, nbytes,
                                                              dtype)
         out[name]["library_ms"] = lib["flash_fwd" if name == "flash_fwd"
@@ -2740,6 +2774,379 @@ def phase_sharded(fa, smi_line, out_dir):
     return path_launches
 
 
+# pipeline phase: GPT-2-small as a 14-stage pipeline (ROADMAP A.3, second
+# half (b)).
+PIPE_MICROBATCHES = 8
+# First-step gradients of the pipeline against the monolithic step's: each
+# stage's gradient is 8 microbatch gradients, each rounded to bf16, summed
+# in bf16 in 7 more roundings, where the monolithic backward rounds each
+# weight's gradient once.  Up to 15 roundings of partial sums against one:
+# the per-element allowance is this multiple of the kernel phase's bf16
+# allowance.  The played pipeline's weight gradients are sums over its
+# ticks in bf16 in the same way.
+PIPE_GRAD_ALLOWANCE = 4.0
+
+
+class _CaptureGrads(torch.optim.Optimizer):
+    """An optimizer that keeps a copy of each parameter's gradient and
+    leaves the parameter alone: the pipeline step's reduced, divided
+    gradients of one step."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads = []
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone() for g in self.param_groups
+                      for p in g["params"]]
+
+
+def phase_pipeline(fa, smi_line, out_dir):
+    """GPT-2-small as chained_lm_loss (embedding, 12 layer stages, head)
+    through make_pipeline_train_step under GPipe, 1F1B and interleaved
+    1F1B against make_train_step; the three kernels at the microbatch's
+    shape; gpipe through ParallelAxes(data, pipe); a played pipeline of
+    4 stages."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.topology import make_mesh
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import pipeline as PL
+    from horovod_tpu_torch.parallel.training import make_parallel_train_step
+    from horovod_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                              tree_map, tree_unflatten)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = transformer_lm.bench_config()
+    batch, seq, lr, warmup, steps = 8, 1024, 3e-4, 2, 5
+    m = PIPE_MICROBATCHES
+    hvd.init(device="cuda")
+    tokens, targets = tt.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), batch, seq, cfg.vocab_size)
+    data = (tokens.cuda(), targets.cuda())
+    chain = tt.chained_lm_loss(cfg)
+    n_stages = len(chain.stages)
+    per_step = {"flash_fwd": 2 * cfg.n_layers * m,  # forward + recompute
+                "flash_bwd_dkdv": cfg.n_layers * m,
+                "flash_bwd_dq": cfg.n_layers * m}
+
+    def adamw(leaves):
+        return torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4,
+                                 foreach=True)
+
+    def weights():
+        return tt.init_transformer(torch.Generator().manual_seed(0), cfg,
+                                   device="cuda")
+
+    def build(kind, opt_fn=adamw):
+        """The trainer's weights and AdamW: {"step": () -> loss,
+        "leaves": () -> weights in chained_lm_params order, ...}."""
+        params = weights()
+        if kind == "monolithic":
+            opt = hvd.DistributedOptimizer(adamw(tree_leaves(params)))
+            step = hvd.make_train_step(tt.make_loss_fn(cfg), opt)
+            return {"step": lambda: step(params, data), "optimizer": opt,
+                    "leaves": lambda: tree_leaves(
+                        tt.chained_lm_params(params, cfg))}
+        schedule, interleave = {"gpipe": ("gpipe", 1), "1f1b": ("1f1b", 1),
+                                "1f1b_v2": ("1f1b", 2)}[kind]
+        stages = tt.chained_lm_params(params, cfg)
+        del params
+        pstep = PL.make_pipeline_train_step(
+            chain, opt_fn, num_microbatches=m, schedule=schedule,
+            interleave=interleave)
+        held = {"p": stages, "opt": pstep.init(stages)}
+
+        def one():
+            held["p"], held["opt"], loss = pstep(held["p"], held["opt"],
+                                                 data)
+            return loss
+
+        return {"step": one, "optimizer": held["opt"], "pipeline": pstep,
+                "leaves": lambda: [x for st in held["p"]
+                                   for x in tree_leaves(st)]}
+
+    # 1. Three AdamW steps of each schedule from the same weights and
+    # batch: losses and every weight bitwise across GPipe, 1F1B and
+    # interleaved 1F1B; 192 / 96 / 96 launches a step.
+    runs, path_launches = {}, None
+    for kind in ("monolithic", "gpipe", "1f1b", "1f1b_v2"):
+        fa.reset_launches()
+        run = build(kind)
+        losses = [float(run["step"]()) for _ in range(3)]
+        launches = dict(fa.launches)
+        if kind != "monolithic":
+            if {k: v / 3 for k, v in launches.items()} != per_step:
+                raise AssertionError(f"{kind}: flash launches over 3 steps "
+                                     f"{launches}, not 3 x {per_step}")
+            if kind == "1f1b":
+                path_launches = launches
+        runs[kind] = {"losses": losses,
+                      "leaves": [p.detach().clone() for p in run["leaves"]()]}
+        del run
+        torch.cuda.empty_cache()
+    mono = runs.pop("monolithic")
+    base = runs["gpipe"]
+    for kind in ("1f1b", "1f1b_v2"):
+        r = runs[kind]
+        if r["losses"] != base["losses"] or not all(
+                torch.equal(a, b) for a, b in zip(r["leaves"],
+                                                  base["leaves"])):
+            raise AssertionError(f"{kind} is not bitwise gpipe: "
+                                 f"{r['losses']} / {base['losses']}")
+    if not all(np.isfinite(base["losses"])) or not (
+            base["losses"][-1] < base["losses"][0]):
+        raise AssertionError(f"pipeline losses: {base['losses']}")
+
+    # 2. Against the monolithic step: the first loss within 1e-5
+    # relative; the first step's gradients (reduced and divided, before
+    # the optimizer) within PIPE_GRAD_ALLOWANCE x the bf16 allowance of
+    # one whole-batch backward; the weights after 3 steps within AdamW's
+    # bound.
+    first_rel = abs(base["losses"][0] - mono["losses"][0]) / abs(
+        mono["losses"][0])
+    if not first_rel <= 1e-5:
+        raise AssertionError(f"first loss {base['losses'][0]} against the "
+                             f"monolithic {mono['losses'][0]}")
+    cap = build("1f1b", opt_fn=_CaptureGrads)
+    cap["step"]()
+    got = [g for opt in cap["optimizer"] for g in opt.grads]
+    del cap
+    params = weights()
+    stages = tt.chained_lm_params(params, cfg)
+    del params
+    chain(stages, data).backward()
+    want = [p.grad for st in stages for p in tree_leaves(st)]
+    grad_errs = [check(f"pipeline grad {i}", a, b, lambda w: (
+        PIPE_GRAD_ALLOWANCE * bf16_allowed(w))) for i, (a, b) in
+        enumerate(zip(got, want))]
+    grad_row = {"allowance_multiple": PIPE_GRAD_ALLOWANCE,
+                "worst_ratio_of_one_allowance": PIPE_GRAD_ALLOWANCE * max(
+                    e[1] for e in grad_errs),
+                "max_abs_err": max(e[0] for e in grad_errs),
+                "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
+    del got, want, stages
+    torch.cuda.empty_cache()
+    param_worst = max(check("pipeline params", a, b, adamw_allowed(lr, 3))[1]
+                      for a, b in zip(base["leaves"], mono["leaves"]))
+    weights_bitwise = all(torch.equal(a, b) for a, b in
+                          zip(base["leaves"], mono["leaves"]))
+    log({"phase": "pipeline", "check": "GPT-2-small as chained_lm_loss, "
+         f"{n_stages} stages, {m} microbatches, through "
+         "make_pipeline_train_step under gpipe, 1f1b and 1f1b interleave 2, "
+         "3 AdamW(3e-4, foreach) steps from the trainer's weights and "
+         "batch; against make_train_step", "device": smi_line,
+         "schedules_bitwise": True, "losses": base["losses"],
+         "monolithic_losses": mono["losses"],
+         "first_loss_rel_diff": first_rel, "first_step_grads": grad_row,
+         "weights_bitwise_monolithic": weights_bitwise,
+         "weights_worst_ratio_adamw_allowed": param_worst,
+         "launches_per_step": {k: v / 3 for k, v in path_launches.items()}})
+    del runs, mono, base
+    torch.cuda.empty_cache()
+
+    # 3-4. Timed in turns (monolithic, gpipe, 1f1b, 1f1b_v2, 1f1b, gpipe,
+    # monolithic; 2 warm-up and 5 timed steps each): step ms, tokens/s,
+    # the host's enqueue ms, pipeline.bubble_seconds, the memory held
+    # between steps and the peak during them, the peak carries and their
+    # bytes against the plan; one profiled 1F1B step.
+    timed = {k: [] for k in ("monolithic", "gpipe", "1f1b", "1f1b_v2")}
+    carry_bytes = batch // m * seq * cfg.d_model * 2  # one bf16 carry
+    for turn in ("monolithic", "gpipe", "1f1b", "1f1b_v2", "1f1b", "gpipe",
+                 "monolithic"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        fa.reset_launches()
+        run = build(turn)
+        for _ in range(warmup):
+            run["step"]()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run["step"]()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        row = {"step_ms": seconds / steps * 1e3,
+               "enqueue_ms": enqueued / steps * 1e3,
+               "tokens_per_s": batch * seq * steps / seconds,
+               "resident_gb": (resident - base_mem) / 2 ** 30,
+               "peak_gb": (torch.cuda.max_memory_allocated() - base_mem)
+               / 2 ** 30}
+        if turn != "monolithic":
+            if {k: v / (warmup + steps) for k, v in fa.launches.items()} \
+                    != per_step:
+                raise AssertionError(f"{turn}: flash launches "
+                                     f"{dict(fa.launches)}")
+            pstep = run["pipeline"]
+            st = pstep.stats()
+            plan = pstep.plan
+            if st["pipeline.inflight_activations"] != plan.peak_activations \
+                    or st["pipeline.inflight_activation_bytes"] != \
+                    plan.peak_activations * carry_bytes:
+                raise AssertionError(f"{turn}: peak carries {st} against "
+                                     f"the plan's {plan.peak_activations}")
+            row.update({
+                "bubble_seconds_mean": st["pipeline.bubble_seconds"]["sum"]
+                / st["pipeline.bubble_seconds"]["count"],
+                "peak_carries": st["pipeline.inflight_activations"],
+                "peak_carry_bytes": st["pipeline.inflight_activation_bytes"],
+                "plan": {"ticks": plan.total_ticks,
+                         "bubble_fraction": plan.bubble_fraction,
+                         "peak_activations": plan.peak_activations},
+                "buckets": pstep.bucket_count})
+        timed[turn].append(row)
+        if turn == "1f1b" and "1f1b_profile" not in timed:
+            prof = profile_step(run["step"], out_dir, "pipeline_1f1b")
+            timed["1f1b_profile"] = prof
+        del run
+    for turn in ("monolithic", "gpipe", "1f1b", "1f1b_v2"):
+        timed[f"{turn}_mean_step_ms"] = float(np.mean(
+            [r["step_ms"] for r in timed[turn]]))
+    log({"phase": "pipeline_trainer", "model": "GPT-2-small",
+         "stages": n_stages, "microbatches": m, "batch": batch, "seq": seq,
+         "dtype": "bfloat16", "ranks": 1, "device": smi_line, **timed})
+    # The counters above hold the launches exactly.  The profile shows
+    # which forms ran; its counts may fall short by a few records (the
+    # profiler drops some in a call with many profiling sessions: a full
+    # run read 8,513 device events of a step that reads 8,527 alone), so
+    # it is held to 99% of the launches and never above them.
+    names = " ".join(timed["1f1b_profile"]["flash_kernels"])
+    for want_name, n in (("flash_fwd_sm90_kernel", per_step["flash_fwd"]),
+                         ("flash_bwd_dkdv_sm90_kernel",
+                          per_step["flash_bwd_dkdv"]),
+                         ("flash_bwd_dq_sm90_kernel",
+                          per_step["flash_bwd_dq"])):
+        ran = sum(c for name, c in
+                  timed["1f1b_profile"]["flash_kernels"].items()
+                  if want_name in name)
+        if not 0.99 * n <= ran <= n:
+            raise AssertionError(f"the profiled 1f1b step ran {want_name} "
+                                 f"{ran} times, not {n}: {names}")
+    for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                       "flash_bwd_dq_kernel<"):
+        if first_form in names:
+            raise AssertionError(f"the profiled step ran {first_form}")
+    del timed
+    torch.cuda.empty_cache()
+
+    # 5. The three kernels at the microbatch's shape, b1 h12 s1024 d64, and
+    # at the trainer's, b8: as the kernels phase times them, and with the
+    # launches queued behind a spin (a b1 launch is shorter than the
+    # host's enqueue of the next, so the first form times the host).
+    kernel_rows = {}
+    for b_ in (batch // m, batch):
+        for queued in (False, True):
+            kernel_rows[f"b{b_}{'_queued' if queued else ''}"] = kernel_case(
+                fa, b=b_, h=cfg.n_heads, q_len=seq, kv_len=seq,
+                d=cfg.d_model // cfg.n_heads, causal=True, q_offset=0,
+                dtype=torch.bfloat16, seed=23, timing=True, queued=queued)
+    log({"phase": "pipeline_kernels", "case": "h12 s1024 d64 causal bf16, "
+         "b1 (one microbatch) and b8", "device": smi_line, **kernel_rows})
+
+    # 6. gpipe through ParallelAxes(data, pipe) on a one-rank mesh (the pipe
+    # axis has one stage), 2 microbatches, 3 AdamW steps of
+    # make_parallel_train_step against the monolithic step.
+    mesh = make_mesh(data=1, pipe=1)
+    ax = tt.ParallelAxes(data="data", pipe="pipe", num_microbatches=2)
+
+    def parallel_run(axes):
+        params = weights()
+        opt = adamw(tree_leaves(params))
+        step = make_parallel_train_step(tt.make_loss_fn(cfg, axes, mesh),
+                                        opt, mesh, ("data", None))
+        losses = [float(step(params, data)) for _ in range(3)]
+        return losses, [p.detach().clone() for p in tree_leaves(params)]
+
+    fa.reset_launches()
+    pipe_losses, pipe_leaves = parallel_run(ax)
+    pipe_launches = {k: v / 3 for k, v in fa.launches.items()}
+    mono_losses, mono_leaves = parallel_run(tt.ParallelAxes(data="data"))
+    pipe_row = {"losses": pipe_losses, "monolithic_losses": mono_losses,
+                "launches_per_step": pipe_launches,
+                "bitwise": pipe_losses == mono_losses and all(
+                    torch.equal(a, b) for a, b in zip(pipe_leaves,
+                                                      mono_leaves))}
+    if not pipe_row["bitwise"]:
+        pipe_row["held"] = "adamw_allowed"
+        pipe_row["param_worst_ratio"] = max(
+            check("gpipe params", a, b, adamw_allowed(lr, 3))[1]
+            for a, b in zip(pipe_leaves, mono_leaves))
+        pipe_row["loss_max_rel_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(pipe_losses, mono_losses))
+        if not pipe_row["loss_max_rel_diff"] <= RTOL_BF16:
+            raise AssertionError(f"gpipe through ParallelAxes: {pipe_row}")
+    if pipe_launches != {k: 2 * cfg.n_layers for k in fa.KERNELS}:
+        raise AssertionError(f"gpipe over 2 microbatches: launches a step "
+                             f"{pipe_launches}")
+    del pipe_leaves, mono_leaves
+    torch.cuda.empty_cache()
+
+    # 7. A pipeline of 4 stages of 3 layers played in one process
+    # (pipeline.play_gpipe), 4 microbatches of 2 sequences, against the
+    # 12 layers in sequence: the output and the input's gradient within
+    # the bf16 allowance, each weight gradient within PIPE_GRAD_ALLOWANCE
+    # x it (its ticks' contributions summed in bf16).
+    params = weights()
+    layers = params["layers"]
+    x0 = (params["embed"][data[0]] + params["pos_embed"][:seq]).detach()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    ct = torch.randn(x0.shape, generator=gen, device="cuda").to(x0.dtype)
+    axes = tt._resolve_axes(tt.ParallelAxes(data=None), None)
+    per = cfg.n_layers // 4
+
+    def stage_fn(sp, x):
+        for i in range(per):
+            x, _ = tt._layer(x, tt._index_layer(sp, i), cfg, axes)
+        return x
+
+    def grads_of(run_fn):
+        """``run_fn(layers, x)`` on fresh copies of the layers and of x,
+        its backward from ``ct``: (output, x's gradient, the layers'
+        gradients)."""
+        leaves_, spec = tree_flatten(layers)
+        mine = [t.detach().clone().requires_grad_(True) for t in leaves_]
+        x = x0.clone().requires_grad_(True)
+        y = run_fn(tree_unflatten(spec, mine), x)
+        y.backward(ct)
+        return y.detach(), x.grad, [t.grad for t in mine]
+
+    def sequential(tree, x):
+        for i in range(cfg.n_layers):
+            x, _ = tt._layer(x, tt._index_layer(tree, i), cfg, axes)
+        return x
+
+    def played(tree, x):
+        stages_ = [tree_map(lambda t, k=k: t[k * per:(k + 1) * per], tree)
+                   for k in range(4)]
+        return PL.play_gpipe(stage_fn, stages_, x, n=4, num_microbatches=4)
+
+    fa.reset_launches()
+    y_p, dx_p, dw_p = grads_of(played)
+    play_launches = dict(fa.launches)
+    y_s, dx_s, dw_s = grads_of(sequential)
+    play_row = {
+        "launches": play_launches,
+        "out": check("played out", y_p, y_s, bf16_allowed),
+        "dx": check("played dx", dx_p, dx_s, bf16_allowed),
+        "dw_worst_ratio_of_one_allowance": PIPE_GRAD_ALLOWANCE * max(
+            check(f"played dw {i}", a, b, lambda w: (
+                PIPE_GRAD_ALLOWANCE * bf16_allowed(w)))[1]
+            for i, (a, b) in enumerate(zip(dw_p, dw_s)))}
+    del y_p, dx_p, dw_p, y_s, dx_s, dw_s, params, layers, x0, ct
+    torch.cuda.empty_cache()
+    log({"phase": "pipeline_gpipe", "device": smi_line,
+         "parallel_axes_data_pipe": pipe_row,
+         "played_4_stages_of_3_layers_4_microbatches": play_row})
+    hvd.shutdown()
+    return path_launches
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -3058,6 +3465,8 @@ def main() -> int:
                 else None)
     sharded = (phase_sharded(fa, smi, args.out_dir) if "sharded" in phases
                else {})
+    pipeline = (phase_pipeline(fa, smi, args.out_dir) if "pipeline" in phases
+                else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -3091,7 +3500,8 @@ def main() -> int:
                 "trainer": launches[name],
                 **({"parallel": parallel[name]} if parallel else {}),
                 **{path: counts[name] for path, counts in sharded.items()
-                   if path != "monolithic"}}})
+                   if path != "monolithic"},
+                **({"pipeline": pipeline[name]} if pipeline else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.

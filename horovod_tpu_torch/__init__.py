@@ -47,6 +47,9 @@ from .ops.wire import ReduceOp
 from .parallel.data import (DistributedOptimizer, allreduce_gradients,
                             broadcast_parameters, partition_fusion_buckets)
 from .parallel.input import prefetch_to_device
+from .parallel.overlap import ChainedLoss
+from .parallel.pipeline import (PipelinePlan, make_pipeline_train_step,
+                                schedule_plan)
 from .parallel.training import (barrier_fence, make_eval_step,
                                 make_train_step, make_train_step_with_state,
                                 shard_batch, shard_local_batch)
@@ -60,7 +63,8 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
 __all__ = [
-    "Adasum", "Average", "Compression", "DistributedOptimizer",
+    "Adasum", "Average", "ChainedLoss", "Compression",
+    "DistributedOptimizer",
     "HorovodError", "IndexedSlices", "Max", "Min", "NotInitializedError",
     "ProcessSet", "Product", "ReduceOp", "Sum", "add_process_set",
     "allgather",
@@ -77,9 +81,11 @@ __all__ = [
     "load_compression_state", "make_train_step_with_state", "mpi_built",
     "mpi_enabled",
     "mpi_threads_supported", "native_built", "nccl_built",
-    "partition_fusion_buckets", "poll", "prefetch_to_device", "quiesce",
+    "make_pipeline_train_step", "partition_fusion_buckets",
+    "PipelinePlan", "poll", "prefetch_to_device", "quiesce",
     "rank", "reducescatter", "reducescatter_async", "remove_process_set",
-    "rocm_built", "set_compression", "shard_batch", "shard_local_batch",
+    "rocm_built", "schedule_plan", "set_compression", "shard_batch",
+    "shard_local_batch",
     "shutdown", "size",
     "start_timeline", "stop_timeline", "synchronize", "tree_leaves",
     "xla_built",

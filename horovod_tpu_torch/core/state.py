@@ -20,9 +20,10 @@ rank), an eager data group of the device's backend, so that negotiated
 collectives never share a communicator with the monolithic step's, rank
 0's coordinator, the background thread (cycle ``HOROVOD_CYCLE_TIME`` ms,
 default 5) and the process-set table.  Before any collective it
-validates the compression, topology, fusion and overlap knobs; the host
-exchange carries each rank's :func:`..ops.compression.env_fingerprint`,
-and rank 0 warns about a rank that differs.  When the job is
+validates the compression, topology, fusion, overlap and pipeline
+knobs; the host exchange carries each rank's
+:func:`..ops.compression.env_fingerprint`, and rank 0 warns about a
+rank that differs.  When the job is
 hierarchical (:mod:`.topology`) every rank creates the node and
 cross-node groups, in one order.  ``shutdown`` agrees on a SHUTDOWN response with every
 rank, stops the thread, fails pending handles and flushes the
@@ -130,9 +131,11 @@ def init(device=None) -> None:
     _topology.validate_env()
     from ..ops import fused as _fused
     from ..parallel import overlap as _overlap
+    from ..parallel import pipeline as _pipeline
 
     _fused.validate_env()
     _overlap.validate_env()
+    _pipeline.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False

@@ -252,9 +252,13 @@ def make_mesh(config: Optional[ParallelConfig] = None,
     return _mesh_from_grid(names, np.asarray(ranks).reshape(shape))
 
 
-def _mesh_from_grid(names: Tuple[str, ...], grid: np.ndarray) -> Mesh:
+def _mesh_from_grid(names: Tuple[str, ...], grid: np.ndarray,
+                    outside_ok: bool = False) -> Mesh:
     """The mesh whose position ``idx`` holds rank ``grid[idx]``: every
-    axis line's group created by every rank, in one order."""
+    axis line's group created by every rank, in one order.  A rank
+    outside the grid raises, or with ``outside_ok`` gets the mesh with
+    no axes of its own (the pipeline's stage meshes: every rank knows
+    every stage's ranks)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialised "
                            "(horovod_tpu_torch.init() does it)")
@@ -273,7 +277,7 @@ def _mesh_from_grid(names: Tuple[str, ...], grid: np.ndarray) -> Mesh:
                                      index=line.index(me), ranks=tuple(line),
                                      group=group))
     whole = dist.new_group(ranks)
-    if me not in ranks:
+    if me not in ranks and not outside_ok:
         raise ValueError(f"rank {me} is not in the mesh's ranks {ranks}")
     return Mesh(axis_names=names, shape=shape, ranks=grid,
                 axes=tuple(axes), group=whole)

@@ -26,15 +26,17 @@ parallelism shards the heads and the MLP's hidden features over
 ``model`` (:mod:`..parallel.tensor`), sequence parallelism runs ring
 attention over ``seq`` (:mod:`..parallel.sequence`), and with
 ``num_experts > 0`` every FFN is a mixture of experts over ``expert``
-(or ``data``; :mod:`..parallel.expert`).  Parameters are stored whole
+(or ``data``; :mod:`..parallel.expert`).  Pipeline parallelism
+(``pipe``) runs the layers as :func:`..parallel.pipeline.gpipe` stages
+over the pipe axis, ``ax.num_microbatches`` microbatches (dense FFN
+layers only).  Parameters are stored whole
 and each rank slices its shard in the forward.  :func:`make_loss_fn`
 averages the loss over the mesh (:func:`..parallel.axis_ops.pmean_loss`)
 for :func:`..parallel.training.make_parallel_train_step`.  Without a
 mesh every named axis has one rank, and the default axes run exactly
 the data-parallel model.  ``cfg.remat`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``).  Pipeline parallelism
-(``ax.pipe``) and the serving path are the second half of ROADMAP.md
-A.3 and A.4.
+backward pass (``torch.utils.checkpoint``).  The serving path is
+ROADMAP.md A.4.
 
 :func:`chained_lm_loss` is the same loss in stages, for the overlapped
 step (``parallel/overlap.py``).
@@ -53,6 +55,7 @@ from ..core import topology as T
 from ..ops.flash_attention import flash_attention
 from ..parallel.axis_ops import pmean_loss
 from ..parallel.expert import local_experts, moe_layer
+from ..parallel.pipeline import gpipe
 from ..parallel.sequence import ring_attention
 from ..parallel.tensor import (column_parallel, local_shard, row_parallel,
                                tp_mlp)
@@ -101,15 +104,11 @@ class _Axes:
     data: Optional[T.MeshAxis] = None
     model: Optional[T.MeshAxis] = None
     seq: Optional[T.MeshAxis] = None
+    pipe: Optional[T.MeshAxis] = None
     expert: Optional[T.MeshAxis] = None
 
 
 def _resolve_axes(ax: ParallelAxes, mesh) -> _Axes:
-    if ax.pipe is not None:
-        raise NotImplementedError(
-            "pipeline parallelism (ax.pipe) is not ported yet: it is the "
-            "second half of ROADMAP.md A.3")
-
     def one(name):
         if name is None:
             return None
@@ -117,7 +116,7 @@ def _resolve_axes(ax: ParallelAxes, mesh) -> _Axes:
             name)
 
     return _Axes(data=one(ax.data), model=one(ax.model), seq=one(ax.seq),
-                 expert=one(ax.expert))
+                 pipe=one(ax.pipe), expert=one(ax.expert))
 
 
 def _check_config(cfg: TransformerConfig) -> None:
@@ -257,6 +256,32 @@ def _index_layer(layers: dict, i: int) -> dict:
     return tree_map(lambda leaf: leaf[i], layers)
 
 
+def _pipeline_layers(x, layers: dict, cfg: TransformerConfig, axes: _Axes,
+                     layer, num_microbatches: int):
+    """The layers as :func:`~..parallel.pipeline.gpipe` stages over the
+    pipe axis, ``n_layers / stages`` consecutive layers a stage
+    (reference :270-297)."""
+    pipe = axes.pipe
+    per_stage = cfg.n_layers // pipe.size
+    if per_stage * pipe.size != cfg.n_layers:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"pipeline stages {pipe.size}")
+    # The MoE aux loss would have to ride the activations (reference).
+    if cfg.num_experts > 0:
+        raise ValueError("pipeline parallelism currently supports dense "
+                         "FFN layers only (num_experts == 0)")
+    start = pipe.index * per_stage
+    mine = tree_map(lambda leaf: leaf[start:start + per_stage], layers)
+
+    def stage_fn(stage_params, x_mb):
+        for i in range(per_stage):
+            x_mb, _ = layer(x_mb, _index_layer(stage_params, i), cfg, axes)
+        return x_mb
+
+    return gpipe(stage_fn, mine, x, num_microbatches=num_microbatches,
+                 axis=pipe)
+
+
 def _forward(params: dict, tokens, cfg: TransformerConfig,
              ax: ParallelAxes, mesh, return_hidden: bool):
     """``(logits or hidden, aux)``; aux is None without experts."""
@@ -273,10 +298,15 @@ def _forward(params: dict, tokens, cfg: TransformerConfig,
     x = params["embed"][tokens] + params["pos_embed"][seq_off:seq_off + s]
     layer = _layer_remat if cfg.remat else _layer
     aux = None
-    for i in range(cfg.n_layers):
-        x, aux_i = layer(x, _index_layer(params["layers"], i), cfg, axes)
-        if aux_i is not None:
-            aux = aux_i if aux is None else aux + aux_i
+    if axes.pipe is not None:
+        x = _pipeline_layers(x, params["layers"], cfg, axes, layer,
+                             ax.num_microbatches)
+    else:
+        for i in range(cfg.n_layers):
+            x, aux_i = layer(x, _index_layer(params["layers"], i), cfg,
+                             axes)
+            if aux_i is not None:
+                aux = aux_i if aux is None else aux + aux_i
     x = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     if return_hidden:
         return x, aux

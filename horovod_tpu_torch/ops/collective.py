@@ -510,6 +510,13 @@ class Runtime:
         self._work.set()
         return [o.handle.id for o in ops]
 
+    def pending(self, handle_ids: Sequence[int]) -> bool:
+        """Whether any of these handles' ops still waits for its
+        response (the executor has not taken it)."""
+        with self._lock:
+            return any(self.handles.get(h).name in self._ops
+                       for h in handle_ids)
+
     def _take(self, names: Sequence[str]) -> Dict[str, _QueuedOp]:
         with self._lock:
             return {n: self._ops.pop(n) for n in names if n in self._ops}

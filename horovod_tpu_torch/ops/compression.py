@@ -569,6 +569,10 @@ _SPMD_ENV_KNOBS = (
     # parallel/overlap.py: which step a rank runs (the monolithic one, or
     # bucketed collectives the other ranks must match).
     "HVD_TPU_OVERLAP",
+    # parallel/pipeline.py: the schedule decides the order in which a
+    # rank dispatches its per-stage buckets; ranks in different orders
+    # would desynchronize the per-stage negotiation.
+    "HVD_TPU_PIPELINE_SCHEDULE", "HVD_TPU_PIPELINE_INTERLEAVE",
     # ops/fused.py: a rank with another chunk plan issues other
     # collectives.
     "HVD_TPU_FUSE", "HVD_TPU_FUSE_CHUNKS",

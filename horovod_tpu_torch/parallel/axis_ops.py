@@ -309,24 +309,28 @@ def pmean_loss(loss, mesh):
     return _PMeanLoss.apply(loss, mesh.group, mesh.size)
 
 
-def reduce_gradients(leaves, mesh) -> None:
-    """Sum each leaf's ``.grad`` over every rank of ``mesh``, in place:
-    the step's one gradient reduction (see the module docstring).  One
-    all_reduce per dtype, all in flight before any is waited on."""
-    if mesh is None or mesh.size == 1:
-        return
+def sum_in_place(tensors, group) -> None:
+    """Each tensor summed over ``group``, in place: one all_reduce per
+    dtype, all in flight before any is waited on."""
     by_dtype: dict = {}
-    for p in leaves:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
     pending = []
-    for grads in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        pending.append((grads, flat, dist.all_reduce(flat, group=mesh.group,
-                                                     async_op=True)))
-    for grads, flat, work in pending:
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        pending.append((ts, flat, dist.all_reduce(flat, group=group,
+                                                  async_op=True)))
+    for ts, flat, work in pending:
         work.wait()
         off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def reduce_gradients(leaves, mesh) -> None:
+    """Sum each leaf's ``.grad`` over every rank of ``mesh``, in place:
+    the step's one gradient reduction (see the module docstring)."""
+    if mesh is None or mesh.size == 1:
+        return
+    sum_in_place([p.grad for p in leaves if p.grad is not None], mesh.group)

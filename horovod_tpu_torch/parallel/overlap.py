@@ -269,12 +269,16 @@ class _InflightWindow:
 
 def dispatch_bucket_segment(prefix: str, seg: _Segment, seg_leaves: List,
                             handles: List[Optional[int]], tl, stats: dict,
-                            window: Optional[_InflightWindow] = None) -> None:
+                            window: Optional[_InflightWindow] = None,
+                            alone: bool = False) -> None:
     """Hand one segment's buckets to the negotiated path: each bucket is
     one atomic enqueue (see the module docstring) named
     ``<prefix>.g<bucket>.<i>``, followed by a cycle run here, so its
     reduction is launched before the next (earlier) stage's backward is
-    enqueued.  Rank 0's timeline gets a BUCKET_DISPATCH instant."""
+    enqueued.  ``alone``: cycles run until the bucket's response is out
+    before the next bucket is enqueued, so no two buckets fuse (the
+    pipeline step's bitwise contract across schedules).  Rank 0's
+    timeline gets a BUCKET_DISPATCH instant."""
     rt = C._runtime()
     for b in seg.buckets:
         base = f"{prefix}.g{b.gi}"
@@ -282,6 +286,8 @@ def dispatch_bucket_segment(prefix: str, seg: _Segment, seg_leaves: List,
             [seg_leaves[p] for p in b.local_pos], op=ReduceOp.SUM,
             name=base)
         rt.run_cycle()
+        while alone and rt.pending(hs):
+            rt.run_cycle()
         for idx, h in zip(b.global_idx, hs):
             handles[idx] = h
         stats["overlap.buckets_dispatched"] += 1

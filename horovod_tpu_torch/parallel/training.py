@@ -8,10 +8,10 @@ over ranks.  PyTorch runs eagerly, so a step is a plain function; the
 parameters are updated in place by the optimizer.
 
 :func:`make_parallel_train_step` (reference :423-461) is the multi-axis
-step (data, tensor, sequence and expert parallelism over a
+step (data, tensor, sequence, pipeline and expert parallelism over a
 :class:`~..core.topology.Mesh`), with :func:`shard_parallel_batch`.
-Pipeline parallelism, FSDP and ZeRO are the second half of ROADMAP.md
-A.3.
+The per-stage pipeline step, ZeRO and FSDP are :mod:`.pipeline`,
+:mod:`.zero` and :mod:`.fsdp`.
 
 ``make_train_step(..., overlap=)`` (or ``HVD_TPU_OVERLAP``) selects the
 schedule: ``off`` is the monolithic step below; ``on`` and ``serial``

@@ -3,8 +3,9 @@ ParallelAxes, make_loss_fn over a mesh, parallel/training.py's
 make_parallel_train_step) against horovod_tpu's shard_map.
 
 One spawned group of 4 gloo ranks (FileStore in tmp_path) builds the
-meshes data2 x seq2, seq2 x model2, data2 x model2 and data4 (MoE, the
-experts on the data axis) in turn.  The parent computes the reference on
+meshes data2 x seq2, seq2 x model2, data2 x model2, data4 (MoE, the
+experts on the data axis) and data2 x pipe2 (the layers as GPipe stages)
+in turn.  The parent computes the reference on
 the same mesh shapes over 4 of the conftest's CPU devices, where shard
 ``i`` is rank ``i``.  Weights are the reference's init moved through
 utils/convert.py; the batch is drawn with numpy from a seed.
@@ -59,6 +60,10 @@ CASES = [
     ("dp2_sp2_remat_chunked", dict(data=2, seq=2),
      dict(data="data", seq="seq"), dict(remat=True, loss_chunk=8)),
     ("moe_ep4", dict(data=4), dict(data="data", expert="data"), MOE),
+    # Pipeline parallelism: the layers as gpipe stages over pipe, 2
+    # microbatches (the reference's test_pipeline_forward_matches_single_
+    # device mesh).
+    ("dp2_pp2", dict(data=2, pipe=2), dict(data="data", pipe="pipe"), {}),
 ]
 SGD_CASE = ("sp2_tp2", dict(seq=2, model=2),
             dict(data="data", seq="seq", model="model"))
@@ -328,17 +333,6 @@ def test_three_sgd_steps_match_reference(runs):
         for leaf, want in params.items():
             _close(out[f"sgd.param.{leaf}"], want, f"sgd param {leaf}")
     assert outs[0]["sgd.losses"][-1] < outs[0]["sgd.losses"][0]
-
-
-def test_pipe_axis_raises_naming_the_roadmap():
-    cfg = _tcfg({})
-    params = tt.init_transformer(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        tt.forward(params, tokens, cfg, tt.ParallelAxes(pipe="pipe"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        tt.make_loss_fn(cfg, tt.ParallelAxes(pipe="pipe"))(
-            params, (tokens, tokens))
 
 
 def test_moe_needs_an_expert_or_data_axis():
