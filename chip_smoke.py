@@ -199,7 +199,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
              layers in sequence.  One card is one rank: the schedules
              cannot differ in speed; the phase shows the arithmetic and
              the costs (recompute, launches, host dispatch).
-12. word2vec - skip-gram word2vec with sparse embedding gradients
+12. checkpoint - checkpoint and resume (utils/checkpoint.py): GPT-2-small
+             (the trainer's configuration, AdamW(3e-4, foreach), seed 0)
+             through make_train_step, 6 straight steps against 3 steps,
+             save_checkpoint({params, opt}, step=3) without block, a 4th
+             step before wait(), the weights from seed 1 and a fresh AdamW
+             restored, resume_epoch == 3 and 3 resumed steps: losses and
+             weights bitwise; each flash kernel 12 times a resumed step
+             (sm90 forms only, one more resumed step profiled); the
+             checkpoint's bytes, save_checkpoint's call (the snapshot),
+             checkpoint.write_seconds and its MB/s, wait(), the restore
+             and its read / decode / copy to the card.  The run's tree
+             saved with save_checkpoint_sharded at a virtual world of 4
+             and restored into other weights, bitwise, both timed.  The
+             step with a write in flight against none, in turns (6 each).
+             The same resume through make_zero_train_step and
+             make_fsdp_train_step (3 + 3 against 6) and the 14-stage 1f1b
+             pipeline with its per-stage optimizers (1 + 1 against 2),
+             bitwise.  The ResNet example: fit(--full, epochs=1) saving,
+             then fit(epochs=2) resuming: the restored parameters and BN
+             statistics bitwise the saved ones, the run starting at epoch
+             1, the loss finite, everything on the card.  The files live
+             under --out-dir/checkpoint_files for the phase only.
+13. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -209,7 +231,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-13. resnet - ResNet data parallelism, which runs no kernel of the port's
+14. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -246,7 +268,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "overlap", "parallel", "sharded", "pipeline", "word2vec", "resnet")
+          "overlap", "parallel", "sharded", "pipeline", "checkpoint",
+          "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -3147,6 +3170,385 @@ def phase_pipeline(fa, smi_line, out_dir):
     return path_launches
 
 
+CKPT_STEPS, CKPT_SAVE_AT = 6, 3  # run A's steps; run B saves after 3
+CKPT_PIPE_STEPS, CKPT_PIPE_SAVE_AT = 2, 1
+CKPT_TURNS = ("none", "write", "write", "none") * 3  # 6 of each
+
+
+def checkpoint_tensor_bytes(tree) -> int:
+    """Bytes of the tensors a checkpoint of ``tree`` holds: its tensor
+    leaves and, for an object with ``state_dict()``, the tensors of its
+    state dict (an optimizer's moments and step counts)."""
+    from horovod_tpu_torch.utils.tree import tree_flatten
+
+    total = 0
+    for leaf in tree_flatten(tree, lambda x: hasattr(x, "state_dict"))[0]:
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif hasattr(leaf, "state_dict"):
+            total += checkpoint_tensor_bytes(leaf.state_dict())
+    return total
+
+
+def phase_checkpoint(fa, smi_line, out_dir):
+    """GPT-2-small saved mid-training and resumed bitwise through
+    make_train_step, the ZeRO and FSDP steps and the 14-stage pipeline;
+    the sharded round trip; the save's costs and the step with a write in
+    flight; the ResNet example's resume.  Returns the flash launches of
+    the resumed monolithic steps.  The checkpoints (about 0.82 GB each)
+    live under ``out_dir/checkpoint_files`` for the phase only, removed
+    also when it fails."""
+    import shutil
+
+    from horovod_tpu_torch.utils import checkpoint as ck
+
+    files = os.path.join(out_dir, "checkpoint_files")
+    shutil.rmtree(files, ignore_errors=True)
+    os.makedirs(files)
+    try:
+        return _checkpoint_paths(fa, smi_line, out_dir, files)
+    finally:
+        ck.wait_for_writes()
+        shutil.rmtree(files, ignore_errors=True)
+
+
+def _checkpoint_paths(fa, smi_line, out_dir, files):
+    import shutil
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import resnet50_synthetic as ex
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import pipeline as PL
+    from horovod_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from horovod_tpu_torch.parallel.zero import make_zero_train_step
+    from horovod_tpu_torch.utils import checkpoint as ck
+    from horovod_tpu_torch.utils import serialization
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = transformer_lm.bench_config()
+    batch, seq, lr = 8, 1024, 3e-4
+    hvd.init(device="cuda")
+    tokens, targets = tt.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), batch, seq, cfg.vocab_size)
+    data = (tokens.cuda(), targets.cuda())
+    loss_fn = tt.make_loss_fn(cfg)
+
+    def adamw(leaves):
+        return torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4,
+                                 foreach=True)
+
+    def weights(seed):
+        return tt.init_transformer(torch.Generator().manual_seed(seed), cfg,
+                                   device="cuda")
+
+    def build(kind, seed):
+        """GPT-2-small from ``seed`` and AdamW through one step builder:
+        {"step": () -> loss, "tree": () -> the tree to save and restore,
+        "leaves": () -> the weights}."""
+        params = weights(seed)
+        if kind == "monolithic":
+            opt = hvd.DistributedOptimizer(adamw(tree_leaves(params)))
+            step = hvd.make_train_step(loss_fn, opt)
+            return {"step": lambda: step(params, data),
+                    "tree": lambda: {"params": params, "opt": opt},
+                    "leaves": lambda: tree_leaves(params)}
+        if kind == "zero":
+            zstep = make_zero_train_step(loss_fn, adamw)
+            held = {"opt": zstep.init(params)}
+
+            def zero_step():
+                _, held["opt"], loss = zstep.step(params, held["opt"], data)
+                return loss
+
+            return {"step": zero_step,
+                    "tree": lambda: {"params": params, "opt": held["opt"]},
+                    "leaves": lambda: tree_leaves(params)}
+        if kind == "fsdp":
+            # Saved as full_params(p_shard), restored into a whole tree
+            # and re-sharded by shard_params before the next step.
+            fstep = make_fsdp_train_step(loss_fn, adamw)
+            p_shard, opt = fstep.init(params)
+            held = {"p": p_shard, "opt": opt, "full": params}
+
+            def fsdp_step():
+                if held["full"] is not None:
+                    held["p"] = fstep.shard_params(held["full"])
+                    held["full"] = None
+                held["p"], held["opt"], loss = fstep.step(
+                    held["p"], held["opt"], data)
+                return loss
+
+            def fsdp_tree():
+                if held["full"] is None:
+                    held["full"] = fstep.full_params(held["p"])
+                return {"params": held["full"], "opt": held["opt"]}
+
+            return {"step": fsdp_step, "tree": fsdp_tree,
+                    "leaves": lambda: tree_leaves(
+                        fstep.full_params(held["p"]))}
+        stages = tt.chained_lm_params(params, cfg)
+        del params
+        pstep = PL.make_pipeline_train_step(
+            tt.chained_lm_loss(cfg), adamw,
+            num_microbatches=PIPE_MICROBATCHES, schedule="1f1b")
+        held = {"opt": pstep.init(stages)}
+
+        def pipe_step():
+            _, held["opt"], loss = pstep(stages, held["opt"], data)
+            return loss
+
+        return {"step": pipe_step,
+                "tree": lambda: {"params": stages, "opt": held["opt"]},
+                "leaves": lambda: [x for st in stages
+                                   for x in tree_leaves(st)]}
+
+    def resume(kind, steps, save_at, keep=False):
+        """Run A: ``steps`` steps.  Run B: ``save_at`` steps, save_checkpoint
+        without block, one more step before wait() (a snapshot that
+        aliased the live tensors would write that step's update), then
+        the weights from seed 1 and a fresh AdamW restored from the file,
+        resume_epoch, and the remaining steps: losses and final weights
+        bitwise run A's."""
+        path = os.path.join(files, f"{kind}.msgpack")
+        run = build(kind, 0)
+        losses_a = [float(run["step"]()) for _ in range(steps)]
+        weights_a = [p.detach().clone() for p in run["leaves"]()]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = build(kind, 0)
+        losses_b = [float(run["step"]()) for _ in range(save_at)]
+        tree = run["tree"]()
+        row = {"checkpoint_bytes": checkpoint_tensor_bytes(tree)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = ck.save_checkpoint(path, tree, step=save_at)
+        row["save_call_s"] = time.perf_counter() - t0
+        del tree
+        after = float(run["step"]())  # while the write is in flight
+        row["write_in_flight_after_step"] = not handle.done
+        t0 = time.perf_counter()
+        handle.wait()
+        row["wait_s"] = time.perf_counter() - t0
+        row["write_seconds"] = ck.stats()["checkpoint.write_seconds"]["last"]
+        row["file_bytes"] = os.path.getsize(path)
+        row["write_MB_per_s"] = row["file_bytes"] / row["write_seconds"] / 1e6
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = build(kind, 1)
+        tree = run["tree"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.restore_checkpoint(path, tree)
+        torch.cuda.synchronize()
+        row["restore_s"] = time.perf_counter() - t0
+        del tree
+        epoch = ck.resume_epoch(path)
+        fa.reset_launches()
+        losses_c = [float(run["step"]()) for _ in range(steps - save_at)]
+        launches = dict(fa.launches)
+        bitwise = (losses_b + losses_c == losses_a
+                   and after == losses_a[save_at]
+                   and all(torch.equal(a, b) for a, b in
+                           zip(run["leaves"](), weights_a)))
+        row.update(losses=losses_a, resumed_losses=losses_c,
+                   step_during_write_loss=after, resume_epoch=epoch,
+                   bitwise=bitwise, launches=launches)
+        if epoch != save_at or not bitwise:
+            raise AssertionError(f"{kind}: the resumed run is not bitwise "
+                                 f"the straight one: {row}")
+        if not all(np.isfinite(losses_a)) or not losses_a[-1] < losses_a[0]:
+            raise AssertionError(f"{kind} losses: {losses_a}")
+        if not keep:
+            os.remove(path)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            return row
+        return row, run, path
+
+    # 1. make_train_step: 6 straight steps against 3 + save + 3 resumed;
+    # each flash kernel 12 times a resumed step, sm90 forms only (one more
+    # resumed step profiled).
+    mono, run, path = resume("monolithic", CKPT_STEPS, CKPT_SAVE_AT,
+                             keep=True)
+    path_launches = mono.pop("launches")
+    if path_launches != {k: cfg.n_layers * (CKPT_STEPS - CKPT_SAVE_AT)
+                         for k in fa.KERNELS}:
+        raise AssertionError(f"the resumed steps' flash launches "
+                             f"{path_launches}")
+    # The counters above hold the count; the profile shows the forms. In
+    # a run of every phase the profiler drops records (11 of the 12
+    # forward kernels once here, 191 of 192 in the pipeline phase), so
+    # each sm90 kernel must be recorded, never more often than launched,
+    # and no first-form kernel at all.
+    prof = profile_step(run["step"], out_dir, "checkpoint")
+    names = " ".join(prof["flash_kernels"])
+    for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                 "flash_bwd_dq_sm90_kernel"):
+        ran = sum(n for name, n in prof["flash_kernels"].items()
+                  if want in name)
+        if not 1 <= ran <= cfg.n_layers:
+            raise AssertionError(f"the profiled resumed step ran {want} "
+                                 f"{ran} times: {names}")
+    for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                       "flash_bwd_dq_kernel<"):
+        if first_form in names:
+            raise AssertionError(f"the profiled step ran {first_form}")
+    mono["launches_per_resumed_step"] = {
+        k: v / (CKPT_STEPS - CKPT_SAVE_AT) for k, v in path_launches.items()}
+    mono["profiled_resumed_step"] = {
+        k: prof[k] for k in ("profiled_step_ms", "device_busy_ms",
+                             "device_idle_share", "flash_kernels")}
+
+    # The restore's parts on the same file, into the resumed run's tree:
+    # the read, the decode, the copy onto the card.
+    tree = run["tree"]()
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        blob = f.read()
+    t1 = time.perf_counter()
+    state = serialization.msgpack_restore(blob)
+    t2 = time.perf_counter()
+    ck._restore_into(tree, state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    mono["restore_parts_s"] = {"read": t1 - t0, "decode": t2 - t1,
+                               "copy_to_card": t3 - t2}
+    del blob, state, tree
+    os.remove(path)
+    os.remove(path + ".step")
+    log({"phase": "checkpoint", "path": "make_train_step", "check":
+         "GPT-2-small, AdamW(3e-4, foreach), 6 straight steps against 3, "
+         "save_checkpoint({params, opt}) without block, a 4th step before "
+         "wait(), restore into weights from seed 1 and a fresh AdamW, 3 "
+         "resumed steps: bitwise", "device": smi_line, **mono})
+
+    # 2. The sharded format: the run's tree at a virtual world of 4,
+    # restored into weights from seed 2 and a fresh AdamW, bitwise.
+    sharded_dir = os.path.join(files, "sharded")
+    tree = run["tree"]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_checkpoint_sharded(sharded_dir, tree, world=4, block=True)
+    save_s = time.perf_counter() - t0
+    other = build("monolithic", 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.restore_checkpoint_sharded(sharded_dir, other["tree"]())
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    mine, theirs = tree["opt"].state_dict(), other["tree"]()["opt"].state_dict()
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        run["leaves"](), other["leaves"]())) and all(
+        torch.equal(mine["state"][i][k], theirs["state"][i][k])
+        for i in mine["state"] for k in mine["state"][i]) and \
+        mine["param_groups"] == theirs["param_groups"]
+    man = ck.load_sharded_manifest(sharded_dir)
+    sharded_row = {"world": man["world"], "save_s": save_s,
+                   "restore_s": restore_s, "bitwise": bitwise,
+                   "shard_bytes": sorted(
+                       os.path.getsize(os.path.join(
+                           sharded_dir, man["save_dir"], name))
+                       for name in os.listdir(os.path.join(
+                           sharded_dir, man["save_dir"]))
+                       if name.endswith(".msgpack"))}
+    if not bitwise:
+        raise AssertionError(f"sharded round trip: {sharded_row}")
+    del other, tree, mine, theirs
+    shutil.rmtree(sharded_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "checkpoint_sharded", "device": smi_line, **sharded_row})
+
+    # 3. The step with a write in flight against none, in turns (none,
+    # write, write, none, x3): a write turn starts save_checkpoint just
+    # before the step and waits for it after.
+    timed = {"none": [], "write": []}
+    in_flight = 0
+    turn_path = os.path.join(files, "turns.msgpack")
+    for turn in CKPT_TURNS:
+        handle = None
+        if turn == "write":
+            handle = ck.save_checkpoint(turn_path, run["tree"]())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(run["step"]())
+        timed[turn].append((time.perf_counter() - t0) * 1e3)
+        if handle is not None:
+            in_flight += not handle.done
+            handle.wait()
+    os.remove(turn_path)
+    log({"phase": "checkpoint_turns", "device": smi_line,
+         "order": list(CKPT_TURNS), "step_ms": timed,
+         "median_ms": {k: float(np.median(v)) for k, v in timed.items()},
+         "write_turns_in_flight_at_step_end": in_flight,
+         "stats": ck.stats()})
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. ZeRO, FSDP (3 + 3 against 6) and the 14-stage 1f1b pipeline with
+    # its per-stage optimizers (1 + 1 against 2).
+    rows = {"zero": resume("zero", CKPT_STEPS, CKPT_SAVE_AT),
+            "fsdp": resume("fsdp", CKPT_STEPS, CKPT_SAVE_AT),
+            "pipeline_1f1b_14_stages": resume("pipeline", CKPT_PIPE_STEPS,
+                                              CKPT_PIPE_SAVE_AT)}
+    for row in rows.values():
+        row["launches"] = {k: int(v) for k, v in row["launches"].items()}
+    log({"phase": "checkpoint_sharded_steps", "device": smi_line, **rows})
+
+    # 5. The ResNet example: fit(--full, epochs=1) saving its checkpoint,
+    # then fit(epochs=2) resuming from it.
+    seen = {}
+
+    class Resumed:
+        def set_trainer(self, trainer):
+            self.trainer = trainer
+
+        def on_train_begin(self, logs=None):
+            seen["begin"] = [x.detach().clone() for x in tree_leaves(
+                [self.trainer.params, self.trainer.model_state])]
+
+        def on_epoch_begin(self, epoch, logs=None):
+            seen.setdefault("epochs", []).append(epoch)
+
+    path = os.path.join(files, "resnet50.msgpack")
+    first = ex.fit(full=True, epochs=1, device="cuda", ckpt=path)
+    first["checkpoint"].wait()
+    saved = [x.detach().clone() for x in tree_leaves(
+        [first["trainer"].params, first["trainer"].model_state])]
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    second = ex.fit(full=True, epochs=2, device="cuda", ckpt=path,
+                    extra_callbacks=[Resumed()])
+    second["checkpoint"].wait()
+    trainer = second["trainer"]
+    on_card = all(x.device.type == "cuda" for x in tree_leaves(
+        [trainer.params, trainer.model_state]))
+    resnet_row = {
+        "start_epoch": second["start_epoch"], "epochs_run": seen["epochs"],
+        "restored_bitwise": len(seen["begin"]) == len(saved) and all(
+            torch.equal(a, b) for a, b in zip(seen["begin"], saved)),
+        "history": second["history"], "on_cuda": on_card,
+        "checkpoint_bytes": os.path.getsize(path)}
+    if not (resnet_row["restored_bitwise"] and on_card
+            and second["start_epoch"] == 1 and seen["epochs"] == [1]
+            and np.isfinite(second["history"][0]["loss"])):
+        raise AssertionError(f"the ResNet example's resume: {resnet_row}")
+    log({"phase": "checkpoint_resnet", "device": smi_line, **resnet_row})
+    del second, trainer, saved, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return path_launches
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -3467,6 +3869,8 @@ def main() -> int:
                else {})
     pipeline = (phase_pipeline(fa, smi, args.out_dir) if "pipeline" in phases
                 else None)
+    checkpoint = (phase_checkpoint(fa, smi, args.out_dir)
+                  if "checkpoint" in phases else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -3501,7 +3905,8 @@ def main() -> int:
                 **({"parallel": parallel[name]} if parallel else {}),
                 **{path: counts[name] for path, counts in sharded.items()
                    if path != "monolithic"},
-                **({"pipeline": pipeline[name]} if pipeline else {})}})
+                **({"pipeline": pipeline[name]} if pipeline else {}),
+                **({"checkpoint": checkpoint[name]} if checkpoint else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.

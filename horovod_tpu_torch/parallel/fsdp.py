@@ -125,7 +125,7 @@ def make_fsdp_train_step(
                         feature="FSDP", api_name="make_fsdp_train_step")
         p_shard = layout.shard(tree_flatten(params)[0], axis.index)
         p_shard.requires_grad_(True)
-        return p_shard, ShardState(p_shard, optimizer_fn([p_shard]))
+        return p_shard, ShardState(p_shard, optimizer_fn([p_shard]), axis)
 
     def shard_params(params) -> torch.Tensor:
         """Re-shard a whole parameter tree (the structure given to

@@ -75,7 +75,9 @@ leaves, ``None`` for a stage this rank does not hold), in both modes;
 batch, the same on every rank (as ``make_parallel_train_step`` takes
 it), of which a rank takes its replica's rows.  A per-stage optimizer
 equals one over the whole tree only for an elementwise optimizer, as in
-the reference's placed mode.
+the reference's placed mode.  A rank-0 checkpoint
+(:mod:`..utils.checkpoint`) refuses a placed step's optimizers at more
+than one rank (:data:`PLACED_OPTIMIZERS`): no rank holds every stage.
 
 No counterpart: ``_AotProgram`` (:432; XLA's ahead-of-time compile, its
 OOM guard and donation sanitizer), ``_to_mesh``'s ``device_put``
@@ -101,6 +103,7 @@ import collections
 import os
 import pickle
 import time
+import weakref
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -121,6 +124,12 @@ from .zero import _optimizer_factory
 SCHEDULE_ENV = "HVD_TPU_PIPELINE_SCHEDULE"
 INTERLEAVE_ENV = "HVD_TPU_PIPELINE_INTERLEAVE"
 _VALID_SCHEDULES = ("1f1b", "gpipe")
+
+# The stage optimizers of placed steps whose rank does not hold every
+# stage: a rank-0 checkpoint cannot hold such a step's state (rank 0's
+# copy of another rank's stages is stale), so utils/checkpoint.py refuses
+# them.
+PLACED_OPTIMIZERS: "weakref.WeakSet" = weakref.WeakSet()
 
 # The schedule plan below (_nearest_divisors through schedule_plan) is a
 # copy of the reference's jax-free code, horovod_tpu/parallel/
@@ -545,8 +554,11 @@ class _PipelineStep:
         """One optimizer over each stage's leaves; ``None`` for a stage
         this rank does not hold."""
         params = self._chain._check_params(params)
-        return [self._optimizer_fn(tree_leaves(params[k]))
+        opts = [self._optimizer_fn(tree_leaves(params[k]))
                 if k in self._replica else None for k in range(self._S)]
+        if len(self._mine) < self._S:
+            PLACED_OPTIMIZERS.update(o for o in opts if o is not None)
+        return opts
 
     def _check_opt_state(self, params, opt_state) -> list:
         if (not isinstance(opt_state, (list, tuple))

@@ -83,15 +83,67 @@ class ZeroTrainStep(NamedTuple):
 class ShardState:
     """One rank's slice of the flat parameter vector (``shard``, a leaf
     tensor of ``chunk`` elements) and the optimizer that owns it: the
-    opaque optimizer state of the ZeRO and FSDP steps."""
+    opaque optimizer state of the ZeRO and FSDP steps, sharded over
+    ``axis`` (``None``: one rank).
+
+    ``state_dict()``/``load_state_dict()`` are this rank's slice, as a
+    torch optimizer's.  A checkpoint holds the whole flat vector's state,
+    as the reference's one global array does: ``full_state_dict()``
+    all-gathers each per-element state tensor over ``axis`` (a
+    collective), ``load_full_state_dict()`` takes this rank's slice of
+    such a state."""
 
     def __init__(self, shard: torch.Tensor,
-                 optimizer: torch.optim.Optimizer):
+                 optimizer: torch.optim.Optimizer, axis=None):
         self.shard = shard
         self.optimizer = optimizer
+        self.axis = axis
 
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore the shard's optimizer from this rank's ``state_dict()``.
+        The shard's values need no restore: the ZeRO step copies the
+        parameters' slice into it, and the FSDP step its ``p_shard``."""
+        self.optimizer.load_state_dict(state_dict)
+
+    def _per_element(self, state_dict: dict, fn) -> dict:
+        """``state_dict`` with ``fn`` applied to each state tensor of
+        ndim >= 1 (the per-element slices; a step count stays)."""
+        out = dict(state_dict)
+        out["state"] = {
+            k: {name: fn(v) if isinstance(v, torch.Tensor) and v.dim() >= 1
+                else v for name, v in st.items()}
+            for k, st in state_dict["state"].items()}
+        return out
+
+    def full_state_dict(self) -> dict:
+        """The optimizer's state over the whole padded flat vector, on
+        every rank of ``axis``: every rank of the axis must call it."""
+        state = self.state_dict()
+        if self.axis is None or self.axis.size == 1:
+            return state
+        return self._per_element(
+            state, lambda v: axis_ops._all_gather(v, self.axis, 0))
+
+    def load_full_state_dict(self, state_dict: dict) -> None:
+        """Restore the shard's optimizer from a ``full_state_dict()``:
+        each per-element tensor's slice ``[index * chunk, (index + 1) *
+        chunk)``."""
+        n, i = ((1, 0) if self.axis is None
+                else (self.axis.size, self.axis.index))
+        c = self.shard.numel()
+
+        def mine(v):
+            if v.shape[0] != n * c:
+                raise ValueError(
+                    f"the saved optimizer state holds {v.shape[0]} "
+                    f"elements, the flat vector {n} x {c} = {n * c} at "
+                    f"this world: restore at the world of the save")
+            return v[i * c:(i + 1) * c].clone()
+
+        self.load_state_dict(self._per_element(state_dict, mine))
 
 
 def _result_type(dtypes: Sequence[torch.dtype]) -> torch.dtype:
@@ -348,7 +400,7 @@ def make_zero_train_step(
         _state_or_raise(optimizer_fn, layout.chunk, layout.dtype)
         shard = layout.shard(tree_flatten(params)[0], axis.index)
         shard.requires_grad_(True)
-        return ShardState(shard, optimizer_fn([shard]))
+        return ShardState(shard, optimizer_fn([shard]), axis)
 
     def _step(params, model_state, opt_state, batch):
         leaves = tree_flatten(params)[0]

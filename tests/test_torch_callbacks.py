@@ -323,17 +323,24 @@ def test_trainer_hyperparameters_and_refusals(port_cpu):
 
 
 @pytest.mark.parametrize("module", ["resnet50_synthetic", "mnist_callbacks"])
-def test_example_runs_on_the_cpu_when_asked_and_loss_falls(module):
+def test_example_runs_on_the_cpu_when_asked_and_loss_falls(module, tmp_path):
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
     env.pop("RANK", None)
     env.pop("WORLD_SIZE", None)
+    # The ResNet example resumes from its checkpoint: a fresh one each
+    # run, so that it trains both epochs.
+    ckpt = (["--ckpt", str(tmp_path / "ckpt.msgpack")]
+            if module == "resnet50_synthetic" else [])
     out = subprocess.run(
         [sys.executable, "-m", f"horovod_tpu_torch.examples.{module}",
-         "--device", "cpu", "--epochs", "2"], cwd=REPO, env=env,
+         "--device", "cpu", "--epochs", "2", *ckpt], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and f"{module}: OK" in out.stdout, (
         out.stdout + out.stderr)
+    if ckpt:
+        assert "checkpoint saved" in out.stdout
+        assert (tmp_path / "ckpt.msgpack.step").read_text() == "2"
 
 
 def test_examples_refuse_to_start_without_a_gpu(monkeypatch):

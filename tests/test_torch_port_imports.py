@@ -1,6 +1,7 @@
-"""horovod_tpu_torch stands alone: it imports neither jax nor horovod_tpu,
-it refuses to start on the CPU unless asked to, and a CUDA tensor never
-takes a kernel's plain version.
+"""horovod_tpu_torch stands alone: it imports neither jax nor horovod_tpu
+(nor flax or msgpack, which the GPU machine lacks: its checkpoints have a
+codec of their own), it refuses to start on the CPU unless asked to, and
+a CUDA tensor never takes a kernel's plain version.
 """
 
 import ast
@@ -18,7 +19,7 @@ from horovod_tpu_torch.ops import flash_attention as tfa
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "horovod_tpu_torch")
-FORBIDDEN = ("jax", "horovod_tpu")
+FORBIDDEN = ("jax", "horovod_tpu", "flax", "msgpack")
 
 
 def _package_modules():
@@ -33,13 +34,13 @@ def _package_modules():
 def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
     names = [name for _, name in _package_modules()]
     code = ("import importlib, sys, threading\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['horovod_tpu'] = None\n"
+            f"for blocked in {FORBIDDEN!r}:\n"
+            "    sys.modules[blocked] = None\n"
             "threads = threading.active_count()\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "loaded = [m for m, mod in sys.modules.items() if mod is not None"
-            " and m.split('.')[0] in ('jax', 'horovod_tpu')]\n"
+            f" and m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not loaded, loaded\n"
             "assert threading.active_count() == threads, 'import started a "
             "thread'\n"
@@ -69,7 +70,10 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.ops.megakernel",
             "horovod_tpu_torch.core.topology",
             "horovod_tpu_torch.native.lib",
-            "horovod_tpu_torch.parallel.overlap"} <= set(names)
+            "horovod_tpu_torch.parallel.overlap",
+            "horovod_tpu_torch.utils.retry",
+            "horovod_tpu_torch.utils.serialization",
+            "horovod_tpu_torch.utils.checkpoint"} <= set(names)
 
 
 def _imported_roots(tree):
