@@ -221,7 +221,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
              statistics bitwise the saved ones, the run starting at epoch
              1, the loss finite, everything on the card.  The files live
              under --out-dir/checkpoint_files for the phase only.
-13. word2vec - skip-gram word2vec with sparse embedding gradients
+13. serving - GPT-2-small (seed-0 weights, bf16) served by the port's
+             InferenceEngine on the card: 8 slots, page size 16, capacity
+             1024 (513 pages, 302,579,712 B of K and V).  First why the
+             kernels exist: rows of the five products (fused QKV, wo,
+             w_in, w_out, the f32 logits) and of cache_attention at M (or
+             s, b) in 2, 16, 37, 512, 1024 against the full run, for
+             torch.matmul / the batched torch formula and for the port's
+             serving_gemm and cache_attention (which must be invariant),
+             and layer_norm, GELU and the residual add recorded.  Each
+             kernel against its plain version at M 16 and 1024 (f32
+             within 1e-5 of each row's RMS, bf16 within the bf16
+             allowance) and the attention at decode (b8 s2, an inactive
+             slot) and prefill (b1 s1024), two runs bitwise, timed beside
+             the bound and the library call (torch.matmul; SDPA in f32
+             with the same boolean mask).  The contract, bitwise: prompts
+             of 7, 300 and 1000 tokens (the last decoding to the capacity
+             boundary) prefilled and decoded row for row equal to
+             serving_forward at capacity 1024; a ragged batch of 8 equal
+             to each sequence alone; the greedy rollout equal to the
+             argmax of serving_forward token by token; a 512-token
+             prefix-cache hit equal to the cold prefill with fewer
+             prefill tokens; speculative decoding (3 tokens) equal to
+             plain decode with a 2-layer agreement draft (acceptance 1.0)
+             and an uncorrelated 2-layer full-width draft.  bench.py's
+             trace (seed 7, 40 requests) through continuous and static
+             batching: identical tokens; tokens/s, iterations, TTFT and
+             per-token p50/p99, decode-iteration and prefill ms by
+             bucket, one profiled decode iteration (idle share); 8
+             prompts of 512-1000 tokens (the 1024 bucket).  LMServer on
+             127.0.0.1 port 0: /healthz NOT_READY then READY, 4
+             concurrent /generate answers equal to engine.generate, a
+             client that disconnects frees its slot.  A serving
+             checkpoint saved, loaded and served to the same tokens.  No
+             flash kernel launches in the phase.
+14. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -231,7 +265,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-14. resnet - ResNet data parallelism, which runs no kernel of the port's
+15. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -252,6 +286,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import gc
 import itertools
@@ -269,7 +304,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
-          "word2vec", "resnet")
+          "serving", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -3549,6 +3584,626 @@ def _checkpoint_paths(fa, smi_line, out_dir, files):
     return path_launches
 
 
+SERVING_ROWS = (2, 16, 37, 512, 1024)
+SERVING_BATCHES = (2, 16, 37)
+# f32 kernel against plain: |kernel - plain| <= 1e-5 x the RMS of the
+# plain output's row (the sums run in another order: the kernel's eight
+# fixed K slices against the library's blocking).
+SERVING_TOL_F32 = 1e-5
+
+
+def _row_rms_allowed(tol):
+    return lambda want: tol * want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+
+
+def _first_differing(full, part_fn, counts):
+    """The counts M at which part_fn(M) differs from full[:M] in any
+    bit."""
+    return [m for m in counts if not torch.equal(part_fn(m), full[:m])]
+
+
+def _torch_attention(q, k, v, q_pos):
+    """The reference's formula as batched torch (the naive library form:
+    one einsum each way over the whole batch), the yardstick of the
+    row-invariance table."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bshd,bchd->bhsc", q.float(), k.float()) * hd ** -0.5
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    mask = kv_pos[None, None, None, :] <= q_pos[:, None, :, None]
+    scores = torch.where(mask, scores, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(scores - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(denom == 0.0, 1.0, denom)
+    return torch.einsum("bhsc,bchd->bshd", p, v.float()).to(q.dtype)
+
+
+def serving_invariance(S, cfg, g):
+    """Why the kernels exist: rows of each product and of the attention
+    at M (or s, b) in SERVING_ROWS against the full run, for the library
+    form and the port's kernel.  The kernels must be invariant."""
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    table = []
+    x1024 = {K: torch.randn(1024, K, generator=g).cuda().bfloat16()
+             for K in (d, f)}
+    for name, K, N, out in (("qkv", d, 3 * d, None), ("wo", d, d, None),
+                            ("w_in", d, f, None), ("w_out", f, d, None),
+                            ("logits", d, V, torch.float32)):
+        x = x1024[K]
+        w = (torch.randn(K, N, generator=g) * K ** -0.5).cuda().bfloat16()
+        if out is None:
+            lib = lambda m: torch.matmul(x[:m], w)  # noqa: E731
+        else:  # the training path's f32 logits
+            lib = lambda m: torch.matmul(x[:m].float(), w.float())  # noqa
+        ker = lambda m: S.serving_gemm(x[:m], w, out_dtype=out)  # noqa
+        table.append({
+            "op": f"{name} [M,{K}]@[{K},{N}]",
+            "library": "torch.matmul",
+            "library_differs_at": _first_differing(lib(1024), lib,
+                                                   SERVING_ROWS),
+            "kernel_differs_at": _first_differing(ker(1024), ker,
+                                                  SERVING_ROWS)})
+    H, hd, cap = cfg.n_heads, d // cfg.n_heads, 1024
+    q = torch.randn(1, 1024, H, hd, generator=g).cuda().bfloat16()
+    k = torch.randn(1, cap, H, hd, generator=g).cuda().bfloat16()
+    v = torch.randn(1, cap, H, hd, generator=g).cuda().bfloat16()
+    pos = torch.arange(1024, device="cuda")[None]
+
+    def rows_of(fn):
+        full = fn(q, k, v, pos)[0]
+        return _first_differing(
+            full, lambda s: fn(q[:, :s], k, v, pos[:, :s])[0], SERVING_ROWS)
+
+    def batch_of(fn):
+        # Row 0 of a batch of b sequences (decode shape, s = 2), the
+        # others random, against the sequence alone.
+        qb = torch.randn(max(SERVING_BATCHES), 2, H, hd, generator=g).cuda()
+        kb = torch.randn(max(SERVING_BATCHES), cap, H, hd, generator=g).cuda()
+        qb, kb = qb.bfloat16(), kb.bfloat16()
+        pb = torch.randint(0, cap - 2, (max(SERVING_BATCHES), 1),
+                           generator=g).cuda() + torch.arange(2).cuda()
+        alone = fn(qb[:1], kb[:1], kb[:1], pb[:1])
+        return [b for b in SERVING_BATCHES if not torch.equal(
+            fn(qb[:b], kb[:b], kb[:b], pb[:b])[:1], alone)]
+
+    for label, fn in (("torch formula (einsum)", _torch_attention),
+                      ("kernel", S.cache_attention)):
+        table.append({"op": f"cache_attention rows s, b1 h{H} cap{cap}",
+                      "form": label, "differs_at": rows_of(fn)})
+        table.append({"op": f"cache_attention batch b, s2 h{H} cap{cap}",
+                      "form": label, "differs_at": batch_of(fn)})
+    # The other ops of forward_step, recorded (no kernel of ours): a row
+    # that changes bits here would break the contract checks below.
+    ln_w = torch.ones(d, device="cuda", dtype=torch.bfloat16)
+    xs = x1024[d]
+    ys = torch.randn(1024, d, generator=g).cuda().bfloat16()
+    for name, fn in (
+            ("layer_norm", lambda m: torch.nn.functional.layer_norm(
+                xs[:m], (d,), ln_w, ln_w)),
+            ("gelu_tanh", lambda m: S.gelu_tanh(x1024[f][:m])),
+            ("add", lambda m: xs[:m] + ys[:m])):
+        table.append({"op": name, "library": "torch",
+                      "library_differs_at": _first_differing(
+                          fn(1024), fn, SERVING_ROWS)})
+    for row in table:
+        log({"phase": "serving_invariance", **row})
+    bad = [r for r in table if r.get("kernel_differs_at")
+           or (r.get("form") == "kernel" and r["differs_at"])]
+    if bad:
+        raise AssertionError(f"a serving kernel is not row-invariant: {bad}")
+    return table
+
+
+def serving_kernel_cases(S, cfg, g):
+    """Each kernel against its plain version on the card at the main
+    path's shapes, two runs bitwise, timed beside the bound and the
+    library call."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    out = {}
+    for M in (16, 1024):
+        for name, K, N, dt, odt in (
+                ("qkv", d, 3 * d, torch.bfloat16, torch.bfloat16),
+                ("wo", d, d, torch.bfloat16, torch.bfloat16),
+                ("w_in", d, f, torch.bfloat16, torch.bfloat16),
+                ("w_out", f, d, torch.bfloat16, torch.bfloat16),
+                ("logits", d, V, torch.bfloat16, torch.float32),
+                ("w_in_f32", d, f, torch.float32, torch.float32)):
+            x = torch.randn(M, K, generator=g).cuda().to(dt)
+            w = (torch.randn(K, N, generator=g) * K ** -0.5).cuda().to(dt)
+            got = S.serving_gemm(x, w, out_dtype=odt)
+            again = S.serving_gemm(x, w, out_dtype=odt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"serving_gemm {name} M{M}: two runs "
+                                     f"differ")
+            want = S.serving_gemm_plain(x, w, odt)
+            allowed = (bf16_allowed if odt == torch.bfloat16
+                       else _row_rms_allowed(SERVING_TOL_F32))
+            err, margin = check(f"serving_gemm {name} M{M}", got, want,
+                                allowed)
+            nbytes = (M * K + K * N) * x.element_size() + M * N * (
+                2 if odt == torch.bfloat16 else 4)
+            b_ms, b_by = bound(2.0 * M * N * K, nbytes, dt)
+            lib = ((lambda: torch.matmul(x, w)) if odt == dt else
+                   (lambda: torch.matmul(x.float(), w.float())))
+            out[f"gemm_{name}_M{M}"] = {
+                "ms": cuda_time_ms(lambda: S.serving_gemm(x, w, odt),
+                                   iters=20, queued=True),
+                "plain_ms": cuda_time_ms(
+                    lambda: S.serving_gemm_plain(x, w, odt), iters=3,
+                    warmup=1),
+                "library_ms": cuda_time_ms(lib, iters=20, queued=True),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                "worst_over_allowed": margin}
+    H, hd, cap = cfg.n_heads, d // cfg.n_heads, 1024
+    for label, b, s, lengths in (
+            ("decode", 8, 2, torch.tensor([0, 5, 100, 511, 700, 1000, 1021,
+                                           -1])),
+            ("prefill", 1, 1024, torch.tensor([0]))):
+        q = torch.randn(b, s, H, hd, generator=g).cuda().bfloat16()
+        k = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
+        v = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
+        pos = (lengths[:, None] + torch.arange(s)[None]).cuda()
+        pos = torch.where(lengths[:, None].cuda() < 0, -1, pos)
+        got = S.cache_attention(q, k, v, pos)
+        again = S.cache_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"cache_attention {label}: two runs differ")
+        want = S.cache_attention_plain(q, k, v, pos)
+        err, margin = check(f"cache_attention {label}", got, want,
+                            bf16_allowed)
+        if not bool((got[pos < 0] == 0).all()):
+            raise AssertionError("an inactive row is not zero")
+        # The bytes this run's rows need: q of the active rows, every
+        # output row, and each batch's K and V rows up to its furthest
+        # query (the kernel reads j < min(q_pos + 1, cap) and nothing for
+        # an inactive row).
+        visible = int(torch.clamp(pos + 1, 0, cap).sum()) * H
+        kv_rows = int(torch.clamp(pos + 1, 0, cap).amax(dim=1).sum())
+        nbytes = (int((pos >= 0).sum()) * H * hd + b * s * H * hd
+                  + 2 * kv_rows * H * hd) * 2
+        b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.float32)
+        mask = (torch.arange(cap, device="cuda")[None, None, None, :]
+                <= pos[:, None, :, None])
+        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        out[f"attention_{label}"] = {
+            "ms": cuda_time_ms(lambda: S.cache_attention(q, k, v, pos),
+                               iters=20, queued=True),
+            "plain_ms": cuda_time_ms(
+                lambda: S.cache_attention_plain(q, k, v, pos), iters=2,
+                warmup=1),
+            "library_ms": cuda_time_ms(
+                lambda: sdpa(qf, kf, vf, attn_mask=mask), iters=20,
+                queued=True),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "worst_over_allowed": margin}
+    for key, r in out.items():
+        log({"phase": "serving_kernel", "case": key, **r})
+    return out
+
+
+class _Capture:
+    """Records each request's logits rows on an engine: the prefill's
+    last row, then its row of every decode iteration."""
+
+    def __init__(self, engine):
+        self.rows = {}
+        self.times = {"decode": [], "prefill": {}}
+        pf, dec = engine._prefill, engine._decode_iteration
+
+        def prefill(slot, req):
+            t0 = time.perf_counter()
+            last = pf(slot, req)
+            self.times["prefill"].setdefault(
+                engine._bucket_for(len(req.prompt)), []).append(
+                (time.perf_counter() - t0) * 1e3)
+            self.rows.setdefault(req.rid, []).append(last.copy())
+            return last
+
+        def decode(active):
+            t0 = time.perf_counter()
+            logits = dec(active)
+            self.times["decode"].append((time.perf_counter() - t0) * 1e3)
+            for slot, req in active:
+                self.rows.setdefault(req.rid, []).append(logits[slot].copy())
+            return logits
+
+        engine._prefill, engine._decode_iteration = prefill, decode
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * (len(xs) - 1)))] if xs else None
+
+
+def serving_contract(cfg, params, engine_of, g):
+    """The bitwise contract on the card, at GPT-2-small's widths."""
+    import horovod_tpu_torch.telemetry as telemetry
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import harness
+
+    V = cfg.vocab_size
+
+    def prompt(n, seed):
+        return torch.randint(0, V, (n,),
+                             generator=torch.Generator().manual_seed(
+                                 seed)).tolist()
+
+    def forward(tokens):
+        with torch.no_grad():
+            return tt.serving_forward(params, torch.tensor(
+                [tokens], device="cuda"), cfg, 1024)[0].cpu().numpy()
+
+    result = {}
+    # (a) prefill p + N width-2 decodes == serving_forward, row by row,
+    # three prompts sharing the decode batch; the 1000-token one decodes
+    # to the capacity boundary.
+    eng = engine_of()
+    cap = _Capture(eng)
+    prompts = [prompt(7, 1), prompt(300, 2), prompt(1000, 3)]
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in
+            zip(prompts, (16, 16, 64))]
+    eng.run_until_idle()
+    checked = 0
+    for p, r in zip(prompts, reqs):
+        gen = r.result(0)
+        ref = forward(p + gen[:-1])
+        rows = cap.rows[r.rid]
+        if len(rows) != len(gen):
+            raise AssertionError(f"{len(rows)} logits rows for {len(gen)} "
+                                 f"tokens")
+        for i, row in enumerate(rows):
+            if row.tobytes() != ref[len(p) - 1 + i].tobytes():
+                raise AssertionError(
+                    f"prompt {len(p)}: row {i} (position {len(p) - 1 + i}) "
+                    f"differs from serving_forward")
+            checked += 1
+    if reqs[2].finish_reason != "capacity" or \
+            len(prompts[2]) + len(reqs[2].result(0)) != 1024:
+        raise AssertionError("the 1000-token prompt did not decode to the "
+                             "capacity boundary")
+    result["prefill_decode_rows_bitwise"] = checked
+    # (b) a ragged batch of 8 slots == each sequence alone.
+    ragged = [prompt(n, 10 + i) for i, n in
+              enumerate((5, 17, 64, 100, 255, 256, 400, 731))]
+    eng = engine_of()
+    cap_b = _Capture(eng)
+    batch = [eng.submit(p, max_new_tokens=8) for p in ragged]
+    eng.run_until_idle()
+    eng = engine_of()
+    cap_s = _Capture(eng)
+    for p, r in zip(ragged, batch):
+        alone = eng.submit(p, max_new_tokens=8)
+        eng.run_until_idle()
+        if alone.result(0) != r.result(0) or [
+                x.tobytes() for x in cap_s.rows[alone.rid]] != [
+                x.tobytes() for x in cap_b.rows[r.rid]]:
+            raise AssertionError(f"prompt {len(p)}: the batched rows differ "
+                                 f"from the sequence alone")
+    result["ragged_batch_bitwise"] = len(ragged)
+    # (c) the engine's greedy rollout == the token-by-token argmax of
+    # serving_forward.
+    p = prompt(12, 30)
+    got = eng.generate(p, max_new_tokens=16)
+    seq, want = list(p), []
+    for _ in range(16):
+        want.append(int(np.argmax(forward(seq)[-1])))
+        seq.append(want[-1])
+    if got != want:
+        raise AssertionError(f"greedy rollout {got} != argmax {want}")
+    result["greedy_rollout_tokens"] = len(got)
+    # (d) a prefix-cache hit == a cold prefill, with fewer prefill tokens.
+    header = prompt(512, 40)
+    cold = engine_of(prefix_cache=False)
+    cap_c = _Capture(cold)
+    hot = engine_of(prefix_cache=True)
+    cap_h = _Capture(hot)
+    hot.generate(header + [1, 2], max_new_tokens=4)
+    ext = header + prompt(20, 41)
+
+    def prefill_tokens():
+        return telemetry.metrics()["serving.prefill_tokens"]["value"]
+
+    t0 = prefill_tokens()
+    r_hot = hot.submit(ext, max_new_tokens=8)
+    hot.run_until_idle()
+    hot_tokens = prefill_tokens() - t0
+    t0 = prefill_tokens()
+    r_cold = cold.submit(ext, max_new_tokens=8)
+    cold.run_until_idle()
+    cold_tokens = prefill_tokens() - t0
+    if r_hot.result(0) != r_cold.result(0) or [
+            x.tobytes() for x in cap_h.rows[r_hot.rid]] != [
+            x.tobytes() for x in cap_c.rows[r_cold.rid]]:
+        raise AssertionError("the prefix-cache hit differs from the cold "
+                             "prefill")
+    if not hot_tokens < cold_tokens:
+        raise AssertionError(f"the hit ran {hot_tokens} prefill tokens, the "
+                             f"cold prefill {cold_tokens}")
+    result["prefix_hit"] = {"prefill_tokens_hit": hot_tokens,
+                            "prefill_tokens_cold": cold_tokens,
+                            "pages_shared": len(header) // 16}
+    del cold, hot, eng
+    # (e) speculative decoding (spec_tokens 3) == plain decode: the
+    # agreement pair (2-layer draft, acceptance 1.0) and an uncorrelated
+    # 2-layer full-width draft.
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    tp, dp = harness.agreement_pair(cfg, dcfg, device="cuda")
+    rand_draft = tt.init_transformer(torch.Generator().manual_seed(1), dcfg,
+                                     device="cuda")
+    spec_prompts = [prompt(9, 50), prompt(33, 51), prompt(200, 52)]
+    result["speculative"] = {}
+    for label, target, draft in (("agreement", tp, dp),
+                                 ("uncorrelated", params, rand_draft)):
+        plain = engine_of(params=target)
+        want = [plain.generate(p, max_new_tokens=16) for p in spec_prompts]
+        del plain
+        spec = engine_of(params=target, draft=(draft, dcfg), spec_tokens=3)
+        spec.warm_start()
+        reqs = [spec.submit(p, max_new_tokens=16) for p in spec_prompts]
+        iters = spec.run_until_idle()
+        got = [r.result(0) for r in reqs]
+        if got != want:
+            raise AssertionError(f"speculative ({label}) tokens differ from "
+                                 f"plain decode")
+        rate = spec.spec_acceptance_rate
+        if label == "agreement" and rate != 1.0:
+            raise AssertionError(f"agreement pair accepted {rate}")
+        result["speculative"][label] = {"acceptance": rate,
+                                        "iterations": iters}
+        del spec
+    log({"phase": "serving_contract", **result})
+    return result
+
+
+def serving_traffic(cfg, engine_of, S, out_dir):
+    """bench.py's trace (seed 7, 40 requests) at GPT-2-small's vocab:
+    continuous against static batching, identical tokens; then 8 long
+    prompts (512-1000 tokens) so the 1024 bucket runs at full width."""
+    from horovod_tpu_torch.serving import harness
+
+    trace = harness.serving_trace(40, cfg.vocab_size, seed=7)
+    warm = engine_of()
+    warm.warm_start()
+    for n in (4, 16):  # the trace's prefill buckets, off the clock
+        warm.generate(list(range(1, n + 1)), max_new_tokens=2)
+    del warm
+    legs, launches = {}, None
+    for continuous in (True, False):
+        eng = engine_of()
+        eng.warm_start()
+        cap = _Capture(eng)
+        if continuous:
+            S.reset_launches()
+        run = harness.run_trace(eng, trace, continuous)
+        if continuous:
+            launches = dict(S.launches)
+        reqs = run["requests"]
+        tokens = sum(len(t) for t in run["tokens"])
+        ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in reqs]
+        per_tok = [(r.t_done - r.t_first_token) / (len(r.generated) - 1)
+                   * 1e3 for r in reqs if len(r.generated) > 1]
+        legs["continuous" if continuous else "static"] = {
+            "tokens_per_s": tokens / run["seconds"], "tokens": tokens,
+            "iterations": run["iterations"], "seconds": run["seconds"],
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p99": _pct(ttft, 0.99),
+            "token_ms_p50": _pct(per_tok, 0.5),
+            "token_ms_p99": _pct(per_tok, 0.99),
+            "decode_iteration_ms_p50": _pct(cap.times["decode"], 0.5),
+            "decode_iterations": len(cap.times["decode"]),
+            "prefill_ms_by_bucket_p50": {
+                b: _pct(ts, 0.5) for b, ts in sorted(
+                    cap.times["prefill"].items())},
+            "out": run["tokens"]}
+        if continuous:
+            # One profiled decode iteration of a full batch.
+            for i in range(8):
+                eng.submit(list(range(1, 20 + i)), max_new_tokens=40)
+            eng.step()
+            eng.step()
+            prof = profile_step(eng.step, out_dir, "serving_decode")
+            eng.run_until_idle()
+            legs["continuous"]["profiled_decode"] = {
+                k: prof[k] for k in ("device_busy_ms", "device_events",
+                                     "profiled_step_ms", "device_idle_share",
+                                     "enqueue_ms", "top")}
+        del eng
+    if legs["continuous"]["out"] != legs["static"]["out"]:
+        raise AssertionError("continuous and static batching gave different "
+                             "tokens")
+    for leg in legs.values():
+        leg.pop("out")
+    # Long prompts: the 1024 bucket at full width, 8 slots deep.
+    eng = engine_of()
+    eng.warm_start()
+    cap = _Capture(eng)
+    g = torch.Generator().manual_seed(60)
+    lens = torch.randint(512, 1001, (8,), generator=g).tolist()
+    reqs = [eng.submit(torch.randint(0, cfg.vocab_size, (n,),
+                                     generator=g).tolist(),
+                       max_new_tokens=16) for n in lens]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = eng.run_until_idle()
+    long = {"prompt_lengths": lens, "iterations": iters,
+            "seconds": time.perf_counter() - t0,
+            "tokens": sum(len(r.result(0)) for r in reqs),
+            "decode_iteration_ms_p50": _pct(cap.times["decode"], 0.5),
+            "prefill_ms_by_bucket_p50": {
+                b: _pct(ts, 0.5) for b, ts in sorted(
+                    cap.times["prefill"].items())}}
+    if 1024 not in long["prefill_ms_by_bucket_p50"]:
+        raise AssertionError("no prompt ran the 1024 bucket")
+    log({"phase": "serving_traffic", **legs, "long_prompts": long,
+         "launches_continuous": launches})
+    return legs, long, launches
+
+
+def serving_http(cfg, params, engine_of):
+    """LMServer on 127.0.0.1, port 0: /healthz NOT_READY then READY, 4
+    concurrent /generate answers equal to engine.generate's, and a client
+    that disconnects frees its slot."""
+    import socket
+    import urllib.error
+    import urllib.request
+
+    import horovod_tpu_torch.telemetry as telemetry
+    from horovod_tpu_torch.serving import LMServer
+    from horovod_tpu_torch.telemetry import exporter
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    prompts = [[i + 1, 2, 3, 4 + i] for i in range(4)]
+    engine = engine_of()
+    want = [engine.generate(p, max_new_tokens=12) for p in prompts]
+    routes = exporter.RouteRegistry()
+    routes.register_health("serving", engine.health)
+    exp = exporter.start_exporter(telemetry.registry(), 0, host="127.0.0.1",
+                                  routes=routes)
+    base = f"http://127.0.0.1:{exp.port}"
+    try:
+        try:
+            urllib.request.urlopen(base + "/healthz", timeout=30)
+            raise AssertionError("/healthz was ready before warm_start")
+        except urllib.error.HTTPError as e:
+            if e.code != 503:
+                raise
+        with LMServer(engine, routes=routes, port=0) as srv:
+            srv.start()
+            with urllib.request.urlopen(base + "/healthz",
+                                        timeout=30) as r:
+                health = json.loads(r.read())
+            if health["status"] != "ok" or health["serving"]["device"] \
+                    != "cuda:0":
+                raise AssertionError(f"/healthz after start: {health}")
+            results = {}
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+                i, post(base + "/generate", {"tokens": prompts[i],
+                                             "max_tokens": 12})))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            http_s = time.perf_counter() - t0
+            got = [results[i]["tokens"] for i in range(4)]
+            if got != want:
+                raise AssertionError(f"HTTP answers {got} != {want}")
+            # A client that disconnects mid-generation frees its slot.
+            before = telemetry.metrics().get(
+                "serving.client_disconnects", {}).get("value", 0)
+            body = json.dumps({"tokens": [5, 6, 7], "max_tokens": 1000,
+                               "timeout": 120}).encode()
+            sock = socket.create_connection(("127.0.0.1", srv.port),
+                                            timeout=30)
+            sock.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\n"
+                         b"Content-Type: application/json\r\n"
+                         b"Content-Length: " + str(len(body)).encode()
+                         + b"\r\n\r\n" + body)
+            deadline = time.monotonic() + 60
+            while engine.scheduler.occupancy() == 0:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the request was never admitted")
+                time.sleep(0.005)
+            sock.close()
+            while engine.scheduler.occupancy():
+                if time.monotonic() > deadline:
+                    raise AssertionError("the disconnected slot was not "
+                                         "freed")
+                time.sleep(0.005)
+            after = telemetry.metrics().get(
+                "serving.client_disconnects", {}).get("value", 0)
+            if after != before + 1:
+                raise AssertionError("the disconnect was not counted")
+    finally:
+        exp.close()
+    out = {"concurrent_requests": 4, "seconds": http_s,
+           "ttft_ms": [results[i]["ttft_ms"] for i in range(4)],
+           "disconnect_freed_slot": True}
+    log({"phase": "serving_http", **out})
+    return out
+
+
+def phase_serving(fa, smi_line, out_dir):
+    """GPT-2-small served on the card by the port's engine (ROADMAP A.4):
+    the kernels' row invariance, each kernel against its plain version,
+    the bitwise contract, continuous against static batching, LMServer
+    over HTTP, a serving checkpoint.  The flash kernels must not launch.
+    Returns the serving kernels' launches on the continuous leg (the main
+    path), the flash launches of the phase and the kernel numbers."""
+    import shutil
+
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.utils import checkpoint as ck
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    cfg = transformer_lm.bench_config()
+    params = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(0), cfg, device="cuda"))
+    g = torch.Generator().manual_seed(0)
+
+    def engine_of(params=params, **kw):
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024, **kw)
+
+    eng = engine_of()
+    pool_bytes = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+    if eng.cache.n_pages != 513 or pool_bytes != 302_579_712:
+        raise AssertionError(f"KV pool {eng.cache.n_pages} pages, "
+                             f"{pool_bytes} B")
+    del eng
+    table = serving_invariance(S, cfg, g)
+    cases = serving_kernel_cases(S, cfg, g)
+    contract = serving_contract(cfg, params, engine_of, g)
+    legs, long, launches = serving_traffic(cfg, engine_of, S, out_dir)
+    http = serving_http(cfg, params, engine_of)
+    # A serving checkpoint saved from the card, loaded, served alike.
+    files = os.path.join(out_dir, "serving_ckpt")
+    shutil.rmtree(files, ignore_errors=True)
+    try:
+        ck.save_serving_checkpoint(files, params, cfg, block=True)
+        p2, cfg2, _ = ck.load_serving_checkpoint(files)
+        prompt = [11, 22, 33, 44, 55]
+        a = engine_of().generate(prompt, max_new_tokens=12)
+        b = engine_of(params=p2).generate(prompt, max_new_tokens=12)
+        if cfg2 != cfg or a != b:
+            raise AssertionError("the reloaded serving checkpoint serves "
+                                 "other tokens")
+    finally:
+        shutil.rmtree(files, ignore_errors=True)
+    if any(fa.launches.values()):
+        raise AssertionError(f"the serving phase launched flash kernels: "
+                             f"{fa.launches}")
+    for name in S.KERNELS:
+        if not launches.get(name):
+            raise AssertionError(f"{name} never launched on the serving "
+                                 f"path: {launches}")
+    log({"phase": "serving", "device": smi_line, "kv_pool_pages": 513,
+         "kv_pool_bytes": pool_bytes, "flash_launches": dict(fa.launches),
+         "serving_launches": launches, "checkpoint_tokens_equal": True,
+         "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "flash_launches": dict(fa.launches),
+            "cases": cases, "table": table, "contract": contract,
+            "traffic": legs, "long": long, "http": http}
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -3871,6 +4526,8 @@ def main() -> int:
                 else None)
     checkpoint = (phase_checkpoint(fa, smi, args.out_dir)
                   if "checkpoint" in phases else None)
+    serving = (phase_serving(fa, smi, args.out_dir) if "serving" in phases
+               else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -3906,7 +4563,9 @@ def main() -> int:
                 **{path: counts[name] for path, counts in sharded.items()
                    if path != "monolithic"},
                 **({"pipeline": pipeline[name]} if pipeline else {}),
-                **({"checkpoint": checkpoint[name]} if checkpoint else {})}})
+                **({"checkpoint": checkpoint[name]} if checkpoint else {}),
+                **({"serving": serving["flash_launches"][name]}
+                   if serving else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -3928,6 +4587,28 @@ def main() -> int:
                 **({"form": r["form"],
                     "first_form_ms": r["quant_pack_first_form_ms"]}
                    if name == "quant_pack" else {})})
+    # The serving path's kernels (no Pallas counterpart: the reference's
+    # serving half is jnp), timed at the decode shape: the FFN-in product
+    # at M = 16 (8 slots x a width-2 block) and the attention at b8 s2
+    # over a capacity of 1024; launches from the continuous leg.
+    if serving is not None:
+        for name, case, replaces, library in (
+                ("serving_gemm", "gemm_w_in_M16",
+                 "horovod_tpu/models/transformer.py:556,564,210,213,570 "
+                 "(jnp.dot; no Pallas kernel)", "torch.matmul"),
+                ("cache_attention", "attention_decode",
+                 "horovod_tpu/models/transformer.py:458 (jnp.einsum "
+                 ":480,:492; no Pallas kernel)",
+                 "scaled_dot_product_attention, f32, boolean mask")):
+            r = serving["cases"][case]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "horovod_tpu_torch/ops/csrc/serving.cu",
+                "replaces": replaces, "launches": serving["launches"][name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library": library, "case": case})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

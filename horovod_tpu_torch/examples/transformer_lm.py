@@ -26,6 +26,11 @@ examples/transformer_lm.py.
     python -m horovod_tpu_torch.examples.transformer_lm --parallel \
         --remat --device cpu
 
+    # export a serving checkpoint after training (examples/serve_lm.py
+    # serves it; so does the JAX package's):
+    python -m horovod_tpu_torch.examples.transformer_lm --device cpu \
+        --export /tmp/lm-ckpt
+
     # several GPUs: one process per GPU under a launcher that sets RANK,
     # WORLD_SIZE, MASTER_ADDR, MASTER_PORT (torchrun does).
 
@@ -165,9 +170,15 @@ def main() -> None:
                     help="recompute each layer in the backward pass")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--export", type=str, default=None, metavar="DIR",
+                    help="after training, write a serving checkpoint "
+                         "(params + serving.json) for serve_lm")
     args = ap.parse_args()
     if args.parallel and (args.hooks or args.overlap):
         ap.error("--parallel takes neither --hooks nor --overlap")
+    if args.export and args.overlap:
+        ap.error("--export writes the parameter tree, not --overlap's "
+                 "per-stage list")
 
     if args.bench:
         seq = args.seq or 1024
@@ -201,6 +212,17 @@ def main() -> None:
         if not last < first:
             raise SystemExit("transformer_lm: loss did not improve")
         print("transformer_lm: OK")
+    if args.export:
+        from horovod_tpu_torch.utils.checkpoint import (
+            save_serving_checkpoint)
+
+        tokenizer = "byte" if cfg.vocab_size >= 256 else "ids"
+        w = save_serving_checkpoint(args.export, run["params"], cfg,
+                                    tokenizer=tokenizer,
+                                    extra={"trained_steps": warmup + steps},
+                                    block=True)
+        if w:
+            print(f"serving checkpoint exported: {args.export}")
     hvd.shutdown()
 
 

@@ -35,8 +35,15 @@ averages the loss over the mesh (:func:`..parallel.axis_ops.pmean_loss`)
 for :func:`..parallel.training.make_parallel_train_step`.  Without a
 mesh every named axis has one rank, and the default axes run exactly
 the data-parallel model.  ``cfg.remat`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``).  The serving path is
-ROADMAP.md A.4.
+backward pass (``torch.utils.checkpoint``).
+
+**Serving** (reference :444-659): :func:`forward_step`,
+:func:`speculative_propose` and :func:`serving_forward` run the
+incremental decode against a fixed-capacity KV view with no flash
+attention: every product is :func:`..ops.serving.serving_gemm` and the
+attention is :func:`..ops.serving.cache_attention`, both summing in an
+order that does not depend on the number of rows, so a prefill plus N
+one-token decodes gives the non-incremental forward's logits bitwise.
 
 :func:`chained_lm_loss` is the same loss in stages, for the overlapped
 step (``parallel/overlap.py``).
@@ -53,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import topology as T
 from ..ops.flash_attention import flash_attention
+from ..ops.serving import cache_attention, gelu_tanh, serving_gemm
 from ..parallel.axis_ops import pmean_loss
 from ..parallel.expert import local_experts, moe_layer
 from ..parallel.pipeline import gpipe
@@ -446,3 +454,169 @@ def synthetic_lm_batch(generator: torch.Generator, global_batch: int,
     tokens = torch.randint(0, vocab_size, (global_batch, seq_len + 1),
                            generator=generator)
     return tokens[:, :-1].to(device), tokens[:, 1:].to(device)
+
+
+# ---------------------------------------------------------------------------
+# Serving path: incremental decode against a fixed-capacity KV view
+# (reference :444-659).  The model half of horovod_tpu_torch/serving/: a
+# plain masked-softmax attention whose program is the same for a
+# multi-token prefill and a one-token decode step, and products whose
+# sums do not depend on the number of rows (ops/serving.py), so the
+# engine's "prefill + N decode steps == non-incremental forward"
+# contract holds bitwise.  No tensor parallelism here (the reference's
+# GSPMD head sharding is later work, ROADMAP.md A.4).
+# ---------------------------------------------------------------------------
+
+def serving_params(params: dict) -> dict:
+    """``params`` with the layers' fused QKV weight built once:
+    ``layers["wqkv"] = [wq | wk | wv]``, ``[n_layers, d, 3d]`` (the one
+    product of reference :558).  :func:`forward_step` reads it where it is
+    present and otherwise concatenates the three on every call; the
+    serving engine builds it when it places its parameters."""
+    layers = params["layers"]
+    return {**params, "layers": {**layers, "wqkv": torch.cat(
+        [layers["wq"], layers["wk"], layers["wv"]], dim=-1)}}
+
+
+def forward_step(params: dict, tokens, start_pos, k_view, v_view,
+                 cfg: TransformerConfig):
+    """Cache-aware forward over ``tokens`` given already-cached context
+    (reference :496-572): the ONE program both serving phases run.
+
+    ``tokens``: ``[b, s]`` int.  ``start_pos``: ``[b]`` int, the global
+    position of ``tokens[:, 0]`` and the number of valid entries the
+    view already holds for that sequence (ragged across the batch; < 0
+    for an inactive slot).  ``k_view``/``v_view``: ``[n_layers, b,
+    capacity, heads, head_dim]`` with positions ``< start_pos``
+    populated; they are read, never written.
+
+    Returns ``(logits [b, s, vocab] float32, k_new, v_new)``, the new
+    tokens' entries ``[n_layers, b, s, heads, head_dim]`` for the caller
+    to scatter into its paged store.  Each layer puts its new entries
+    into a copy of that layer's view (``capacity + 1`` entries: a row at
+    or past the capacity lands in the extra one and is dropped, the
+    reference's ``mode="drop"``).
+
+    Positions at or past ``cfg.max_seq_len`` (a decode block's dummy
+    column, a verify block's tail at the capacity boundary) read the last
+    row of ``pos_embed``: their outputs are finite garbage where the
+    reference's ``jnp.take`` gives NaN.  No caller samples, keeps or
+    scatters them into a live position."""
+    if cfg.num_experts > 0:
+        raise ValueError("the serving path currently supports dense FFN "
+                         "layers only (num_experts == 0)")
+    _check_config(cfg)
+    b, s = tokens.shape
+    h_n, d = cfg.n_heads, cfg.d_model
+    hd = d // h_n
+    cap = k_view.shape[2]
+    if cap > cfg.max_seq_len:
+        raise ValueError(f"KV capacity {cap} exceeds cfg.max_seq_len "
+                         f"{cfg.max_seq_len}")
+    dev = tokens.device
+    start_pos = start_pos.to(dev)
+    ar = torch.arange(s, device=dev)
+    pos = start_pos[:, None] + ar[None, :]
+    x = (params["embed"][tokens]
+         + params["pos_embed"][pos.clamp(0, cfg.max_seq_len - 1)])
+    # The per-row put (reference :537-550): every row at its true index,
+    # rows past the capacity into the dropped extra entry.
+    put_b = torch.arange(b, device=dev)[:, None].expand(b, s)
+    put_c = (start_pos.clamp(min=0)[:, None] + ar[None, :]).clamp(max=cap)
+    layers = params["layers"]
+    if "wqkv" not in layers:
+        layers = serving_params(params)["layers"]
+    k_news, v_news = [], []
+    for i in range(cfg.n_layers):
+        lp = _index_layer(layers, i)
+        h = _layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
+        qkv = serving_gemm(h, lp["wqkv"])
+        q, k, v = (y.reshape(b, s, h_n, hd) for y in qkv.split(d, dim=-1))
+        views = []
+        for view, new in ((k_view[i], k), (v_view[i], v)):
+            full = view.new_empty((b, cap + 1, h_n, hd))
+            full[:, :cap] = view
+            full[put_b, put_c] = new
+            views.append(full[:, :cap])
+        attn = cache_attention(q, views[0], views[1], pos)
+        x = x + serving_gemm(attn.reshape(b, s, d), lp["wo"])
+        hh = _layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
+        hh = gelu_tanh(serving_gemm(hh, lp["w_in"]) + lp["b_in"])
+        x = x + (serving_gemm(hh, lp["w_out"]) + lp["b_out"])
+        k_news.append(k)
+        v_news.append(v)
+    x = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    logits = serving_gemm(x, params["unembed"], out_dtype=torch.float32)
+    return logits, torch.stack(k_news), torch.stack(v_news)
+
+
+def _put_view(view, new, pos):
+    """A copy of ``view [n_layers, b, capacity, heads, head_dim]`` with
+    ``new [n_layers, b, heads, head_dim]`` written at per-sequence
+    position ``pos [b]``; rows at or past the capacity drop (reference
+    :575-584)."""
+    L, b, cap = view.shape[:3]
+    out = view.new_empty((L, b, cap + 1) + tuple(view.shape[3:]))
+    out[:, :, :cap] = view
+    out[:, torch.arange(b, device=view.device),
+        pos.clamp(0, cap).to(view.device)] = new
+    return out[:, :, :cap]
+
+
+def speculative_propose(params: dict, prev, pending, start_pos, k_view,
+                        v_view, cfg: TransformerConfig, n_propose: int):
+    """Greedy draft rollout for speculative decoding (reference :587-641):
+    ``n_propose`` cache-aware forward steps over the draft's KV view.
+
+    ``prev``/``pending``: ``[b]`` int, the second-newest context token
+    (at ``start_pos``) and the newest, not yet cached one (at
+    ``start_pos + 1``).  The first step is a width-2 block of both (an
+    exact overwrite of ``prev``'s entry, or the catch-up write after a
+    fully accepted iteration); the later steps run ``[token, dummy]``
+    blocks feeding each argmax proposal back, the fresh entries put into
+    the view between steps.  The caller's views are not written.
+
+    Returns ``(proposals [b, n_propose] int64, k_writes, v_writes)``,
+    the writes ``[n_layers, b, n_propose + 1, heads, head_dim]`` for
+    positions ``start_pos .. start_pos + n_propose``."""
+    if n_propose < 1:
+        raise ValueError(f"n_propose must be >= 1, got {n_propose}")
+    kv, vv = k_view, v_view
+    blk = torch.stack([prev, pending], dim=1)
+    logits, kn, vn = forward_step(params, blk, start_pos, kv, vv, cfg)
+    cur = torch.argmax(logits[:, 1], dim=-1)
+    proposals = [cur]
+    k_cols = [kn[:, :, 0], kn[:, :, 1]]
+    v_cols = [vn[:, :, 0], vn[:, :, 1]]
+    kv = _put_view(kv, k_cols[0], start_pos)
+    vv = _put_view(vv, v_cols[0], start_pos)
+    for j in range(1, n_propose):
+        kv = _put_view(kv, k_cols[-1], start_pos + j)
+        vv = _put_view(vv, v_cols[-1], start_pos + j)
+        blk = torch.stack([cur, torch.zeros_like(cur)], dim=1)
+        logits, kn, vn = forward_step(params, blk, start_pos + 1 + j, kv,
+                                      vv, cfg)
+        cur = torch.argmax(logits[:, 0], dim=-1)
+        proposals.append(cur)
+        k_cols.append(kn[:, :, 0])
+        v_cols.append(vn[:, :, 0])
+    return (torch.stack(proposals, dim=1), torch.stack(k_cols, dim=2),
+            torch.stack(v_cols, dim=2))
+
+
+def serving_forward(params: dict, tokens, cfg: TransformerConfig,
+                    capacity: Optional[int] = None):
+    """Non-incremental reference for the serving path (reference
+    :644-659): the whole sequence through :func:`forward_step` from an
+    empty KV view of ``capacity`` (default the sequence length).  Returns
+    ``logits [b, s, vocab]`` f32; a prefill of ``tokens[:, :p]`` and
+    ``s - p`` one-token decodes reproduce them exactly."""
+    b, s = tokens.shape
+    cap = capacity if capacity is not None else s
+    hd = cfg.d_model // cfg.n_heads
+    zeros = torch.zeros((cfg.n_layers, b, cap, cfg.n_heads, hd),
+                        dtype=params["embed"].dtype, device=tokens.device)
+    logits, _, _ = forward_step(
+        params, tokens, torch.zeros((b,), dtype=torch.long,
+                                    device=tokens.device), zeros, zeros, cfg)
+    return logits

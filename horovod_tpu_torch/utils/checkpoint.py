@@ -47,7 +47,9 @@ names until ROADMAP A.5: ``checkpoint.write_seconds`` (count, sum, last),
 ``ckpt.oserror``, the ``checkpoint.write`` trace span, the lock-order
 locks (plain ``threading.Lock`` here) and thread roles, the memory
 ledger's ``checkpoint.snapshots`` and the flight records.  The serving
-checkpoints wait for A.4 and the elastic ``commit()`` for A.5.
+checkpoints (:func:`save_serving_checkpoint`) write the
+reference's two files byte for byte; the elastic ``commit()`` waits for
+A.5.
 """
 
 from __future__ import annotations
@@ -928,6 +930,82 @@ def _fill_absent(target, state):
         elif _absent_ok(v):
             out[k] = None if v is None else {}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving checkpoints (reference :744-801)
+# ---------------------------------------------------------------------------
+
+SERVING_PARAMS_FILE = "params.msgpack"
+SERVING_META_FILE = "serving.json"
+SERVING_FORMAT = "hvd-serving-checkpoint-v1"
+
+
+def save_serving_checkpoint(directory: str, params: Any, cfg: Any,
+                            tokenizer: str = "byte",
+                            extra: Optional[dict] = None,
+                            block: bool = False) -> CheckpointWrite:
+    """Export a serving-ready checkpoint: the parameter tree
+    (``params.msgpack``, through the background writer) and a
+    ``serving.json`` with the model config and tokenizer metadata, so
+    :func:`load_serving_checkpoint` (and ``examples/serve_lm.py``) can
+    build an :class:`~..serving.engine.InferenceEngine` with no knowledge
+    of the training script.  Rank 0 only, like every save.  Both files
+    are byte for byte the reference's for the same parameters: the
+    snapshot takes the reference's sorted key order (its ``tree_map``),
+    and the JSON is the same ``indent=1`` dump."""
+    from .tree import tree_map
+
+    if not _is_saving_process():
+        return CheckpointWrite(None, performed=False)
+    os.makedirs(directory, exist_ok=True)
+    snapshot = tree_map(lambda x: x.detach().to("cpu", copy=True), params)
+    handle = write_tree_async(
+        os.path.join(directory, SERVING_PARAMS_FILE), snapshot)
+    meta = {
+        "format": SERVING_FORMAT,
+        "model": {
+            "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_layers": cfg.n_layers,
+            "d_ff": cfg.d_ff, "max_seq_len": cfg.max_seq_len,
+            "num_experts": cfg.num_experts,
+            "dtype": serialization.DTYPE_NAMES[cfg.dtype],
+        },
+        "tokenizer": {"kind": tokenizer},
+        "extra": extra or {},
+    }
+    _write_bytes(os.path.join(directory, SERVING_META_FILE),
+                 json.dumps(meta, indent=1).encode())
+    if block:
+        handle.wait()
+    return handle
+
+
+def load_serving_checkpoint(directory: str):
+    """Load a :func:`save_serving_checkpoint` export (of either package).
+    Returns ``(params, cfg, meta)``: CPU tensors in the shapes and dtypes
+    ``cfg`` gives (a mismatch raises :class:`CheckpointError` naming the
+    leaf), ``cfg`` a reconstructed
+    :class:`~..models.transformer.TransformerConfig`, ``meta`` the raw
+    ``serving.json``.  Pending background writes are fenced first."""
+    from ..models.transformer import TransformerConfig, init_transformer
+    from .tree import tree_map
+
+    wait_for_writes()
+    with open(os.path.join(directory, SERVING_META_FILE)) as f:
+        meta = json.load(f)
+    m = meta["model"]
+    cfg = TransformerConfig(
+        vocab_size=int(m["vocab_size"]), d_model=int(m["d_model"]),
+        n_heads=int(m["n_heads"]), n_layers=int(m["n_layers"]),
+        d_ff=int(m["d_ff"]), max_seq_len=int(m["max_seq_len"]),
+        num_experts=int(m.get("num_experts", 0)),
+        dtype=serialization.TORCH_DTYPES[m.get("dtype", "float32")])
+    template = tree_map(lambda x: x.detach(), init_transformer(
+        torch.Generator().manual_seed(0), cfg))
+    params = _read_into(os.path.join(directory, SERVING_PARAMS_FILE),
+                        template)
+    return params, cfg, meta
 
 
 def resume_epoch(path: str) -> int:

@@ -73,7 +73,19 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.parallel.overlap",
             "horovod_tpu_torch.utils.retry",
             "horovod_tpu_torch.utils.serialization",
-            "horovod_tpu_torch.utils.checkpoint"} <= set(names)
+            "horovod_tpu_torch.utils.checkpoint",
+            "horovod_tpu_torch.ops.serving",
+            "horovod_tpu_torch.routing.affinity",
+            "horovod_tpu_torch.telemetry",
+            "horovod_tpu_torch.telemetry.registry",
+            "horovod_tpu_torch.telemetry.exporter",
+            "horovod_tpu_torch.serving",
+            "horovod_tpu_torch.serving.scheduler",
+            "horovod_tpu_torch.serving.kv_cache",
+            "horovod_tpu_torch.serving.engine",
+            "horovod_tpu_torch.serving.harness",
+            "horovod_tpu_torch.serving.server",
+            "horovod_tpu_torch.examples.serve_lm"} <= set(names)
 
 
 def _imported_roots(tree):
