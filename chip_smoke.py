@@ -226,16 +226,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
              1024 (513 pages, 302,579,712 B of K and V).  First why the
              kernels exist: rows of the five products (fused QKV, wo,
              w_in, w_out, the f32 logits) and of cache_attention at M (or
-             s, b) in 2, 16, 37, 512, 1024 against the full run, for
-             torch.matmul / the batched torch formula and for the port's
-             serving_gemm and cache_attention (which must be invariant),
-             and layer_norm, GELU and the residual add recorded.  Each
-             kernel against its plain version at M 16 and 1024 (f32
-             within 1e-5 of each row's RMS, bf16 within the bf16
-             allowance) and the attention at decode (b8 s2, an inactive
-             slot) and prefill (b1 s1024), two runs bitwise, timed beside
-             the bound and the library call (torch.matmul; SDPA in f32
-             with the same boolean mask).  The contract, bitwise: prompts
+             s, b) in 2, 16, 37, 65, 127, 512, 1024 against the full run,
+             for torch.matmul / the batched torch formula and for the
+             port's serving_gemm and cache_attention (which must be
+             invariant), and layer_norm, GELU and the residual add
+             recorded.  Each kernel against its plain version at M 16 and
+             1024 (f32 within 1e-5 of each row's RMS, bf16 within the
+             bf16 allowance) and the attention at decode (b8 s2, an
+             inactive slot) and prefill (b1 s1024), two runs bitwise, the
+             form each takes by the counters (bf16: the Hopper form; f32:
+             the first), timed beside the bound, the library call
+             (torch.matmul; SDPA in f32 with the same boolean mask) and,
+             in turns, the first form's bf16 build, which the Hopper form
+             must beat at the prefill shapes; then K and V views holding
+             NaN past every row's position (finite output, within the
+             allowance of the plain version on a zeroed copy) and the
+             host time of a tensor-map encode.  The contract, bitwise: prompts
              of 7, 300 and 1000 tokens (the last decoding to the capacity
              boundary) prefilled and decoded row for row equal to
              serving_forward at capacity 1024; a ragged batch of 8 equal
@@ -254,7 +260,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              concurrent /generate answers equal to engine.generate, a
              client that disconnects frees its slot.  A serving
              checkpoint saved, loaded and served to the same tokens.  No
-             flash kernel launches in the phase.
+             flash kernel launches in the phase, and the continuous leg
+             launches only the serving kernels' Hopper forms.
 14. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
@@ -3584,7 +3591,7 @@ def _checkpoint_paths(fa, smi_line, out_dir, files):
     return path_launches
 
 
-SERVING_ROWS = (2, 16, 37, 512, 1024)
+SERVING_ROWS = (2, 16, 37, 65, 127, 512, 1024)
 SERVING_BATCHES = (2, 16, 37)
 # f32 kernel against plain: |kernel - plain| <= 1e-5 x the RMS of the
 # plain output's row (the sums run in another order: the kernel's eight
@@ -3695,10 +3702,51 @@ def serving_invariance(S, cfg, g):
     return table
 
 
+def _in_turns(fns, rounds=2, timer=None, **kw):
+    """``timer`` (default cuda_time_ms) of each fn, interleaved a, b, b, a
+    (``rounds`` times), averaged per fn: the forms timed in turns within
+    one call."""
+    timer = timer or cuda_time_ms
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for i in order:
+            times[i].append(timer(fns[i], **kw))
+    return [sum(t) / len(t) for t in times]
+
+
+def host_us_per_call(fn, calls=200) -> float:
+    """Host microseconds to enqueue one fn() (no synchronisation inside
+    the window): what a host-bound decode iteration pays a launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def serving_tensor_map_us(S, iters=1000) -> float:
+    """Host microseconds to encode one of the Hopper serving forms' tensor
+    maps (two a GEMM, three an attention launch)."""
+    fn = S._build.library("serving").hvd_serving_tensor_map_us
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_double
+    buf = torch.empty(8 * 1025 * 12 * 64, dtype=torch.bfloat16,
+                      device="cuda")
+    us = fn(buf.data_ptr(), iters)
+    if not us > 0:
+        raise AssertionError(f"tensor map encode failed ({us})")
+    return us
+
+
 def serving_kernel_cases(S, cfg, g):
     """Each kernel against its plain version on the card at the main
-    path's shapes, two runs bitwise, timed beside the bound and the
-    library call."""
+    path's shapes, two runs bitwise, the form each case takes by the
+    counters, timed beside the bound, the library call and (in turns)
+    the first form's bf16 build; then K and V views holding NaN past
+    every row's position."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -3713,9 +3761,18 @@ def serving_kernel_cases(S, cfg, g):
                 ("w_in_f32", d, f, torch.float32, torch.float32)):
             x = torch.randn(M, K, generator=g).cuda().to(dt)
             w = (torch.randn(K, N, generator=g) * K ** -0.5).cuda().to(dt)
+            form, tile_n, split = S.serving_gemm_form(dt, K, N)
+            if form != ("sm90" if dt == torch.bfloat16 else "first"):
+                raise AssertionError(f"serving_gemm {name} takes the {form} "
+                                     f"form")
+            S.reset_launches()
             got = S.serving_gemm(x, w, out_dtype=odt)
             again = S.serving_gemm(x, w, out_dtype=odt)
             torch.cuda.synchronize()
+            if S.launches_by_form[("serving_gemm", form)] != 2 or \
+                    S.launches["serving_gemm"] != 2:
+                raise AssertionError(f"serving_gemm {name}: launches by "
+                                     f"form {S.launches_by_form}")
             if not torch.equal(got, again):
                 raise AssertionError(f"serving_gemm {name} M{M}: two runs "
                                      f"differ")
@@ -3724,21 +3781,61 @@ def serving_kernel_cases(S, cfg, g):
                        else _row_rms_allowed(SERVING_TOL_F32))
             err, margin = check(f"serving_gemm {name} M{M}", got, want,
                                 allowed)
+            first = S._first_form_gemm(x, w, odt)
+            check(f"serving_gemm {name} M{M} first form", first, want,
+                  allowed)
             nbytes = (M * K + K * N) * x.element_size() + M * N * (
                 2 if odt == torch.bfloat16 else 4)
             b_ms, b_by = bound(2.0 * M * N * K, nbytes, dt)
             lib = ((lambda: torch.matmul(x, w)) if odt == dt else
                    (lambda: torch.matmul(x.float(), w.float())))
+            ms, first_ms = _in_turns(
+                [lambda: S.serving_gemm(x, w, odt),
+                 lambda: S._first_form_gemm(x, w, odt)],
+                iters=20, queued=True)
+            host = {}
+            if M == 16:  # the decode shape: the host's cost of a launch
+                # Each form's launcher in turns (the same work around
+                # it), and the path's wrapper, which adds the checks.
+                (host["host_us"], host["first_form_host_us"],
+                 host["wrapper_host_us"]) = _in_turns(
+                    [lambda: S._sm90_gemm(x, w, odt, tile_n, split)
+                     if form == "sm90" else S._first_form_gemm(x, w, odt),
+                     lambda: S._first_form_gemm(x, w, odt),
+                     lambda: S.serving_gemm(x, w, odt)],
+                    rounds=2, timer=host_us_per_call)
             out[f"gemm_{name}_M{M}"] = {
-                "ms": cuda_time_ms(lambda: S.serving_gemm(x, w, odt),
-                                   iters=20, queued=True),
+                "form": form, "tile_n": tile_n, "split": split, "ms": ms,
+                "first_form_ms": first_ms, **host,
                 "plain_ms": cuda_time_ms(
                     lambda: S.serving_gemm_plain(x, w, odt), iters=3,
                     warmup=1),
                 "library_ms": cuda_time_ms(lib, iters=20, queued=True),
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                 "worst_over_allowed": margin}
+    # Strided operands read in place: x a column slice of a wider matrix
+    # (as q of a fused QKV product), w a column slice of a wider weight,
+    # at decode and prefill, split and unsplit; the same bits as on
+    # contiguous copies, within the allowance of the plain version.
+    for M, K, N in ((16, f, d), (1024, f, d), (16, d, f), (1024, d, 3 * d)):
+        xb = torch.randn(M, 3 * K, generator=g).cuda().bfloat16()
+        wb = (torch.randn(K, N + 64, generator=g) * K ** -0.5).cuda().to(
+            torch.bfloat16)
+        xs, ws = xb[:, K:2 * K], wb[:, 64:]
+        got = S.serving_gemm(xs, ws)
+        if not torch.equal(got, S.serving_gemm(xs.contiguous(),
+                                               ws.contiguous())):
+            raise AssertionError(f"serving_gemm on strided operands M{M} "
+                                 f"K{K} N{N} differs from contiguous copies")
+        err, margin = check(f"serving_gemm strided M{M} K{K} N{N}", got,
+                            S.serving_gemm_plain(xs, ws), bf16_allowed)
+        out[f"gemm_strided_M{M}_K{K}_N{N}"] = {
+            "split": S.serving_gemm_form(torch.bfloat16, K, N)[2],
+            "max_abs_err": err, "worst_over_allowed": margin}
     H, hd, cap = cfg.n_heads, d // cfg.n_heads, 1024
+    form = S.cache_attention_form(torch.bfloat16, hd)
+    if form != "sm90":
+        raise AssertionError(f"cache_attention takes the {form} form")
     for label, b, s, lengths in (
             ("decode", 8, 2, torch.tensor([0, 5, 100, 511, 700, 1000, 1021,
                                            -1])),
@@ -3748,31 +3845,49 @@ def serving_kernel_cases(S, cfg, g):
         v = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
         pos = (lengths[:, None] + torch.arange(s)[None]).cuda()
         pos = torch.where(lengths[:, None].cuda() < 0, -1, pos)
+        S.reset_launches()
         got = S.cache_attention(q, k, v, pos)
         again = S.cache_attention(q, k, v, pos)
         torch.cuda.synchronize()
+        if S.launches_by_form[("cache_attention", "sm90")] != 2:
+            raise AssertionError(f"cache_attention {label}: launches by "
+                                 f"form {S.launches_by_form}")
         if not torch.equal(got, again):
             raise AssertionError(f"cache_attention {label}: two runs differ")
         want = S.cache_attention_plain(q, k, v, pos)
         err, margin = check(f"cache_attention {label}", got, want,
                             bf16_allowed)
+        check(f"cache_attention {label} first form",
+              S._first_form_attention(q, k, v, pos), want,
+              bf16_allowed)
         if not bool((got[pos < 0] == 0).all()):
             raise AssertionError("an inactive row is not zero")
         # The bytes this run's rows need: q of the active rows, every
         # output row, and each batch's K and V rows up to its furthest
-        # query (the kernel reads j < min(q_pos + 1, cap) and nothing for
-        # an inactive row).
+        # query (the kernels read j < min(q_pos + 1, cap) and nothing for
+        # an inactive row); the products at the bf16 tensor-core rate.
         visible = int(torch.clamp(pos + 1, 0, cap).sum()) * H
         kv_rows = int(torch.clamp(pos + 1, 0, cap).amax(dim=1).sum())
         nbytes = (int((pos >= 0).sum()) * H * hd + b * s * H * hd
                   + 2 * kv_rows * H * hd) * 2
-        b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.float32)
+        b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.bfloat16)
         mask = (torch.arange(cap, device="cuda")[None, None, None, :]
                 <= pos[:, None, :, None])
         qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        ms, first_ms = _in_turns(
+            [lambda: S.cache_attention(q, k, v, pos),
+             lambda: S._first_form_attention(q, k, v, pos)],
+            iters=20, queued=True)
+        host = {}
+        if label == "decode":
+            (host["host_us"], host["first_form_host_us"],
+             host["wrapper_host_us"]) = _in_turns(
+                [lambda: S._sm90_attention(q, k, v, pos),
+                 lambda: S._first_form_attention(q, k, v, pos),
+                 lambda: S.cache_attention(q, k, v, pos)],
+                rounds=2, timer=host_us_per_call)
         out[f"attention_{label}"] = {
-            "ms": cuda_time_ms(lambda: S.cache_attention(q, k, v, pos),
-                               iters=20, queued=True),
+            "form": form, "ms": ms, "first_form_ms": first_ms, **host,
             "plain_ms": cuda_time_ms(
                 lambda: S.cache_attention_plain(q, k, v, pos), iters=2,
                 warmup=1),
@@ -3781,8 +3896,46 @@ def serving_kernel_cases(S, cfg, g):
                 queued=True),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "worst_over_allowed": margin}
+    # NaN past every row's position, in views one row longer than the
+    # capacity (forward_step's): the output finite and within tolerance
+    # of the plain version on a zeroed copy, at decode and prefill.
+    for label, b, s, lengths in (
+            ("nan_tail_decode", 8, 2, torch.tensor([0, 5, 63, 64, 100, 700,
+                                                    1021, -1])),
+            ("nan_tail_prefill", 2, 127, torch.tensor([0, 300]))):
+        q = torch.randn(b, s, H, hd, generator=g).cuda().bfloat16()
+        kbuf = torch.randn(b, cap + 1, H, hd, generator=g).cuda().bfloat16()
+        vbuf = torch.randn(b, cap + 1, H, hd, generator=g).cuda().bfloat16()
+        k, v = kbuf[:, :cap], vbuf[:, :cap]
+        pos = (lengths[:, None] + torch.arange(s)[None]).cuda()
+        pos = torch.where(lengths[:, None].cuda() < 0, -1, pos)
+        kz, vz = k.clone(), v.clone()
+        for bi in range(b):
+            last = max(0, int(pos[bi].max()) + 1)
+            k[bi, last:], v[bi, last:] = float("nan"), float("nan")
+            kz[bi, last:], vz[bi, last:] = 0.0, 0.0
+        got = S.cache_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"cache_attention {label}: NaN past the "
+                                 f"rows' positions reached the output")
+        err, margin = check(f"cache_attention {label}", got,
+                            S.cache_attention_plain(q, kz, vz, pos),
+                            bf16_allowed)
+        out[f"attention_{label}"] = {"max_abs_err": err,
+                                     "worst_over_allowed": margin}
+    out["tensor_map_encode_us"] = serving_tensor_map_us(S)
     for key, r in out.items():
-        log({"phase": "serving_kernel", "case": key, **r})
+        log({"phase": "serving_kernel", "case": key,
+             **(r if isinstance(r, dict) else {"value": r})})
+    # Each Hopper form faster than its first form at the prefill shapes.
+    slower = {k: (r["ms"], r["first_form_ms"]) for k, r in out.items()
+              if isinstance(r, dict) and r.get("form") == "sm90"
+              and ("M1024" in k or k == "attention_prefill")
+              and not r["ms"] < r["first_form_ms"]}
+    if slower:
+        raise AssertionError(f"a Hopper form is not faster than its first "
+                             f"form at prefill: {slower}")
     return out
 
 
@@ -3982,6 +4135,8 @@ def serving_traffic(cfg, engine_of, S, out_dir):
         run = harness.run_trace(eng, trace, continuous)
         if continuous:
             launches = dict(S.launches)
+            launches["by_form"] = {f"{name}/{form}": n for (name, form), n
+                                   in S.launches_by_form.items()}
         reqs = run["requests"]
         tokens = sum(len(t) for t in run["tokens"])
         ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in reqs]
@@ -4136,8 +4291,8 @@ def serving_http(cfg, params, engine_of):
 
 def phase_serving(fa, smi_line, out_dir):
     """GPT-2-small served on the card by the port's engine (ROADMAP A.4):
-    the kernels' row invariance, each kernel against its plain version,
-    the bitwise contract, continuous against static batching, LMServer
+    the kernels' row invariance, each kernel's forms against its plain
+    version (with NaN past the rows' positions), the bitwise contract, continuous against static batching, LMServer
     over HTTP, a serving checkpoint.  The flash kernels must not launch.
     Returns the serving kernels' launches on the continuous leg (the main
     path), the flash launches of the phase and the kernel numbers."""
@@ -4195,6 +4350,11 @@ def phase_serving(fa, smi_line, out_dir):
         if not launches.get(name):
             raise AssertionError(f"{name} never launched on the serving "
                                  f"path: {launches}")
+        # The bf16 path runs the Hopper forms only.
+        if launches["by_form"][f"{name}/first"] or \
+                launches["by_form"][f"{name}/sm90"] != launches[name]:
+            raise AssertionError(f"{name}: the bf16 serving path launched "
+                                 f"other forms than sm90: {launches}")
     log({"phase": "serving", "device": smi_line, "kv_pool_pages": 513,
          "kv_pool_bytes": pool_bytes, "flash_launches": dict(fa.launches),
          "serving_launches": launches, "checkpoint_tokens_equal": True,
@@ -4590,7 +4750,9 @@ def main() -> int:
     # The serving path's kernels (no Pallas counterpart: the reference's
     # serving half is jnp), timed at the decode shape: the FFN-in product
     # at M = 16 (8 slots x a width-2 block) and the attention at b8 s2
-    # over a capacity of 1024; launches from the continuous leg.
+    # over a capacity of 1024; launches from the continuous leg.  Both
+    # run their Hopper form there; first_form_ms is the first form's bf16
+    # build on the same inputs, timed in turns with it.
     if serving is not None:
         for name, case, replaces, library in (
                 ("serving_gemm", "gemm_w_in_M16",
@@ -4603,11 +4765,12 @@ def main() -> int:
             r = serving["cases"][case]
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": "horovod_tpu_torch/ops/csrc/serving.cu",
+                "source": f"horovod_tpu_torch/ops/csrc/{name}_sm90.cuh",
                 "replaces": replaces, "launches": serving["launches"][name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "form": r["form"], "first_form_ms": r["first_form_ms"],
                 "library": library, "case": case})
     log(smi)
     log({"kernels": kernels})

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the redesigned bf16 flash kernels
-// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh):
+// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh)
+// and serving kernels (serving_gemm_sm90.cuh, cache_attention_sm90.cuh):
 // mbarriers, TMA tile loads, wgmma with f32 accumulators in registers,
-// and the host-side tensor maps.  Inline PTX only, so a build takes
-// seconds.
+// cluster barriers, and the host-side tensor maps.  Inline PTX only, so a
+// build takes seconds.
 //
 // Shared-memory tiles.  A [rows, D] bf16 tile is stored as D/64 panels of
 // [rows, 64]: each panel row is 128 bytes, written by TMA with the
@@ -25,6 +26,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hvdflash {
@@ -112,6 +114,29 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, int panel_bytes,
     tma_load_3d(dst + p * panel_bytes, map, bar, 64 * p, row, bh);
 }
 
+// The same for a 2-D map (serving_gemm's x and w: make_map_2d) and a 4-D
+// map (cache_attention's [b, rows, heads, head_dim] views: make_map_4d);
+// coordinates innermost first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Register budget of warp-specialised blocks: one producer warpgroup and
 // two consumer warpgroups (384 threads, launched with at most 168
@@ -135,13 +160,26 @@ __device__ __forceinline__ void consumer_regs() {
 // bytes.  MN-major (the transpose flag): 64 MN values contiguous in one
 // 128-byte row, K rows 128 bytes apart, 8-row groups `sbo` bytes apart; a
 // k16 step moves the start by 16 rows = 2048 bytes.  Both use sbo = 1024
-// here (consecutive rows); N is never more than one 64-wide panel on the
-// MN-major side, so the leading offset is not used.
+// here (consecutive rows); the flash kernels' MN-major operands are one
+// 64-wide panel, so the leading offset is not used (desc_sw128_lbo sets
+// it for wider ones).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   constexpr uint64_t kSbo = 1024 >> 4;
   constexpr uint64_t kLbo = 1;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kLbo << 16) |
          (kSbo << 32) | (1ull << 62);
+}
+
+// The same for an MN-major operand wider than one 64-value panel: the
+// leading offset is the byte stride between its panels (the canonical
+// MN-major 128-byte-swizzle layout: 64 MN values a 128-byte row, 8-row
+// K groups sbo apart, 64-value MN panels lbo apart).
+__device__ __forceinline__ uint64_t desc_sw128_lbo(uint32_t addr,
+                                                   uint32_t lbo) {
+  constexpr uint64_t kSbo = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (kSbo << 32) |
+         (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -206,6 +244,31 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d[64 x 64] += A[64 x 16] B[16 x 64], A K-major and B MN-major (the
+// transpose flag) in shared memory: serving_gemm's x and w tiles.
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HVD_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HVD_ACC32(d, 0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], A K-major and B MN-major in
+// shared memory, B's two 64-column panels `lbo` bytes apart (see
+// desc_sw128_lbo): serving_gemm's wide tiles.
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HVD_REGS64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HVD_ACC32(d, 0), HVD_ACC32(d, 32)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d[:, 64 P : 64 P + 64] += A[64 x 16] B[16 x 64]: A a bf16 fragment in
 // registers (a[0..3]), B MN-major in shared memory (transpose flag 1),
 // into panel P (accumulator floats 32 P .. 32 P + 31) of a [64 x 64 NP]
@@ -262,6 +325,19 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// Thread-block clusters: every thread of the cluster meeting
+// (release/acquire, so shared-memory writes before it are seen after it,
+// in every block of the cluster).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -310,6 +386,66 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D map over a row-major bf16 [rows, cols] matrix whose rows are `ld`
+// elements apart (a multiple of 8, at least cols): [64, 64] boxes,
+// 128-byte swizzle and zero fill past either edge.  serving_gemm's x and
+// w.
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows,
+                               int cols, long long ld) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (ld < cols || ld % 8) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64u, 64u};
+  const cuuint32_t elem_strides[2] = {1u, 1u};
+  CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D bf16 map over a [b, rows, heads, hd] view with element strides
+// (sb, sr, sh) and unit stride over hd: [64 rows, 64 hd] boxes of one
+// (batch, head), 128-byte swizzle, zero fill past rows.
+// cache_attention's q, K and V views.
+inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, int B,
+                               int rows, int H, int hd, long long sb,
+                               long long sr, long long sh) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sr * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64u, 1u, 64u, 1u};
+  const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
+  CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once a device (`done` holds a bit a device, one `done` a
+// kernel): a host-bound decode does not pay the driver call each launch.
+inline cudaError_t set_smem_once(const void* kernel, int bytes,
+                                 std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace sm90

@@ -8,7 +8,17 @@
 // followed by N one-token decodes gives the logits of the non-incremental
 // forward, row for row.  A library GEMM picks its kernel (and split-K) by
 // shape, so row i of x[:M] @ W changes bits with M; these kernels fix the
-// order of every sum instead:
+// order of every sum instead.
+//
+// Each has two forms.  The Hopper forms (serving_gemm_sm90.cuh,
+// cache_attention_sm90.cuh: TMA, wgmma) take bf16: serving_gemm when K
+// and N are multiples of 8, cache_attention at head_dim 64 and 128.  The
+// first forms below take the rest, f32 included; ops/serving.py chooses
+// by (dtype, K, N) and (dtype, head_dim), never by the number of rows.
+// Each form has its own entry point, so the first form's bf16 build can
+// be timed against the Hopper form.
+//
+// The first forms:
 //
 // serving_gemm: out[M, N] = x[M, K] @ w[K, N], f32 (or bf16) in, f32
 // accumulation, rounded once to the output dtype (bf16 for the layers'
@@ -20,10 +30,7 @@
 // eight warps' partials are added in warp order.  So output (m, n) is one
 // fixed function of x[m, :], w[:, n] and K: no split-K over blocks, no
 // atomics, nothing that depends on M or on the row's place in its tile.
-// Bound on an H100: at decode (M = 16) the bytes of w (GPT-2-small's 0.27
-// GB of layer weights and 0.05 GB of unembedding an iteration); at prefill
-// (M up to 1024) the FMA pipe, since this first form runs outside the
-// tensor cores.  A wgmma form is later work.
+// It runs outside the tensor cores.
 //
 // cache_attention: the reference's formula for one (batch, head, query
 // row) a block: scores s_j = (q . k_j) * hd^-0.5 in f32 (the dot in d
@@ -33,20 +40,21 @@
 // 0), then out_d = sum_j (p_j / denom) v_jd in j order, rounded once to
 // the input dtype.  A row with q_pos < 0 comes out all zero.  The order of
 // every sum depends on q_pos alone, not on the batch, the number of query
-// rows or the capacity.  Bound: the bytes of the K and V rows it reads,
-// min(max q_pos + 1, cap) a batch, and none for an inactive one (at
-// decode, b8 s2 with lengths 0..1021 over a capacity of 1024: 3,351 of
-// the 8,192 rows, 10.3 MB for GPT-2-small's 12 heads a layer).
+// rows or the capacity.  It reads j < min(q_pos + 1, cap) only.
 //
-// Both are built without --use_fast_math: expf, the fused multiply-adds
-// and the adds are IEEE operations nvcc does not reorder, so two runs
-// give the same bits.
+// Both forms are built without --use_fast_math: expf, exp2f, the fused
+// multiply-adds and the adds are IEEE operations nvcc does not reorder,
+// so two runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <chrono>
 #include <cmath>
 #include <cstdint>
+
+#include "cache_attention_sm90.cuh"
+#include "serving_gemm_sm90.cuh"
 
 namespace hvdserve {
 
@@ -241,11 +249,12 @@ int launch_attention(const void* q, const void* k, const void* v,
 
 }  // namespace hvdserve
 
-// in_dtype: 0 f32, 1 bf16 (x and w alike); out_dtype: 0 f32, 1 bf16 (bf16
-// only from bf16 inputs).
-extern "C" int hvd_serving_gemm(const void* x, const void* w, void* out,
-                                int M, int N, int K, int in_dtype,
-                                int out_dtype, void* stream) {
+// The first forms.  in_dtype: 0 f32, 1 bf16 (x and w alike); out_dtype:
+// 0 f32, 1 bf16 (bf16 only from bf16 inputs).
+extern "C" int hvd_serving_gemm_first(const void* x, const void* w,
+                                      void* out, int M, int N, int K,
+                                      int in_dtype, int out_dtype,
+                                      void* stream) {
   if (M < 0 || N < 0 || K < 0) return cudaErrorInvalidValue;
   if (M == 0 || N == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -259,11 +268,13 @@ extern "C" int hvd_serving_gemm(const void* x, const void* w, void* out,
   return cudaErrorInvalidValue;
 }
 
-extern "C" int hvd_cache_attention(const void* q, const void* k,
-                                   const void* v, const void* q_pos,
-                                   void* out, int B, int S, int H, int cap,
-                                   int hd, long long kv_batch_stride,
-                                   int dtype, float scale, void* stream) {
+extern "C" int hvd_cache_attention_first(const void* q, const void* k,
+                                         const void* v, const void* q_pos,
+                                         void* out, int B, int S, int H,
+                                         int cap, int hd,
+                                         long long kv_batch_stride,
+                                         int dtype, float scale,
+                                         void* stream) {
   if (B < 0 || S < 0 || H < 0 || cap < 1 || hd < 1)
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
@@ -276,4 +287,72 @@ extern "C" int hvd_cache_attention(const void* q, const void* k,
     return hvdserve::launch_attention<__nv_bfloat16>(
         q, k, v, pos, out, B, S, H, cap, hd, kv_batch_stride, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// The Hopper forms.  serving_gemm: bf16 x [M, K] and w [K, N] row-major
+// with rows ldx and ldw elements apart (multiples of 8), out [M, N]
+// contiguous, out_dtype 0 f32 or 1 bf16, output tiles tile_n (64 or 128)
+// wide, `split` K ranges (1 to 8) added in one cluster.
+extern "C" int hvd_serving_gemm_sm90(const void* x, long long ldx,
+                                     const void* w, long long ldw, void* out,
+                                     int M, int N, int K, int out_dtype,
+                                     int tile_n, int split, void* stream) {
+  using hvdserve::sm90::launch_gemm;
+  if (M < 0 || N < 0 || K < 1) return cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 1 && tile_n == 64)
+    return launch_gemm<__nv_bfloat16, 64>(x, ldx, w, ldw, out, M, N, K, split,
+                                          s);
+  if (out_dtype == 1 && tile_n == 128)
+    return launch_gemm<__nv_bfloat16, 128>(x, ldx, w, ldw, out, M, N, K,
+                                           split, s);
+  if (out_dtype == 0 && tile_n == 64)
+    return launch_gemm<float, 64>(x, ldx, w, ldw, out, M, N, K, split, s);
+  if (out_dtype == 0 && tile_n == 128)
+    return launch_gemm<float, 128>(x, ldx, w, ldw, out, M, N, K, split, s);
+  return cudaErrorInvalidValue;
+}
+
+// cache_attention: bf16 q [B, S, H, hd], k and v [B, cap, H, hd] with
+// element strides (q_sb, q_ss, q_sh), (k_sb, k_sc, k_sh), (v_sb, v_sc,
+// v_sh) and unit stride over hd; q_pos [B, S] int64 (as the model makes
+// them); out [B, S, H, hd] contiguous bf16; hd 64 or 128.
+extern "C" int hvd_cache_attention_sm90(
+    const void* q, long long q_sb, long long q_ss, long long q_sh,
+    const void* k, long long k_sb, long long k_sc, long long k_sh,
+    const void* v, long long v_sb, long long v_sc, long long v_sh,
+    const void* q_pos, void* out, int B, int S, int H, int cap, int hd,
+    float scale, void* stream) {
+  if (B < 0 || S < 0 || H < 0 || cap < 1) return cudaErrorInvalidValue;
+  if (B == 0 || S == 0 || H == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_sc, k_sh},
+                  vs[3] = {v_sb, v_sc, v_sh};
+  const auto* pos = static_cast<const long long*>(q_pos);
+  if (hd == 64)
+    return hvdserve::sm90::launch_attention<64>(q, qs, k, ks, v, vs, pos, out,
+                                                B, S, H, cap, scale, s);
+  if (hd == 128)
+    return hvdserve::sm90::launch_attention<128>(q, qs, k, ks, v, vs, pos,
+                                                 out, B, S, H, cap, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// Host microseconds to encode one tensor map, averaged over `iters`
+// encodes of the decode attention's K map (b8, cap 1024, 12 heads, hd 64,
+// batch stride 1025 rows) at device address `base`; the Hopper forms
+// encode two (serving_gemm) or three (cache_attention) maps a launch.
+// Returns a negative value if an encode fails.
+extern "C" double hvd_serving_tensor_map_us(const void* base, int iters) {
+  CUtensorMap map;
+  const long long row = 12 * 64;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (hvdflash::sm90::make_map_4d(&map, base, 8, 1024, 12, 64, 1025 * row,
+                                    row, 64) != cudaSuccess)
+      return -1.0;
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / (iters > 0 ? iters : 1);
 }

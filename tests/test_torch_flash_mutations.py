@@ -42,10 +42,26 @@ def test_mutation_text_occurs_once_in_its_source(name):
 def test_mutations_cover_every_kernel_and_the_unmodified_copy():
     assert MUTATIONS["none"] is None
     sources = {m[0] for m in MUTATIONS.values() if m is not None}
-    # The three Hopper redesigns, which the main case runs.
+    # The three flash redesigns, which the main case runs, and the two
+    # Hopper serving forms, which the serving phase runs.
     assert sources == {"flash_fwd_sm90.cuh", "flash_bwd_dkdv_sm90.cuh",
-                       "flash_bwd_dq_sm90.cuh"}
+                       "flash_bwd_dq_sm90.cuh", "serving_gemm_sm90.cuh",
+                       "cache_attention_sm90.cuh"}
+    assert sources == set(_TOOL.PHASE_OF_SOURCE)
     for kernel in ("fwd", "dkdv", "dq"):
         kinds = [n for n in MUTATIONS if n.startswith(kernel + "_")]
         assert any("5pct_low" in n for n in kinds), kernel
         assert any("diagonal" in n for n in kinds), kernel
+
+
+def test_serving_mutations_break_each_rule_of_the_hopper_forms():
+    """The last K tile, the split order, the last key tile, the mask's
+    source and the masked tail's zeroing: each run by the serving
+    phase."""
+    serving = {n for n, m in MUTATIONS.items()
+               if m is not None and _TOOL.PHASE_OF_SOURCE[m[0]] == "serving"}
+    assert serving == {"gemm_last_k_tile_dropped",
+                       "gemm_split_sum_order_by_rows",
+                       "attention_last_key_tile_skipped",
+                       "attention_mask_from_row_index",
+                       "attention_tail_zeroing_removed"}

@@ -772,4 +772,4 @@ def test_chip_smoke_runs_a_serving_phase_before_word2vec():
     assert phases.index("checkpoint") < phases.index("serving") \
         < phases.index("word2vec")
     assert "serving - GPT-2-small" in chip_smoke.__doc__
-    assert chip_smoke.SERVING_ROWS == (2, 16, 37, 512, 1024)
+    assert chip_smoke.SERVING_ROWS == (2, 16, 37, 65, 127, 512, 1024)
