@@ -262,7 +262,54 @@ Phases, in order; any failure exits non-zero and prints no result line:
              checkpoint saved, loaded and served to the same tokens.  No
              flash kernel launches in the phase, and the continuous leg
              launches only the serving kernels' Hopper forms.
-14. word2vec - skip-gram word2vec with sparse embedding gradients
+14. serving_mp - the rest of serving (ROADMAP A.4).  Rank 0 and a
+             follower as two engines in one process (one card, and NCCL
+             puts no two ranks on one device), the leader's broadcasts
+             pickled through a queue: bench.py's trace (seed 7, 40
+             requests) on the leader, the follower calling follow()
+             after every step(); after each iteration the follower's
+             K and V pages (all but the trash page 0, which duplicate
+             writes leave to the device's choice), page table, lengths
+             and live slots' tokens bitwise the leader's; again with
+             speculative decoding (3 tokens, a 2-layer draft); abort_all
+             mid-stream frees every slot on both sides; stop_followers
+             ends follow(); the two sides' ms an iteration.  The serving
+             kernels at one rank's shapes on a model axis of 2 and 4
+             (column-parallel QKV and FFN-in, bf16 out; row-parallel wo
+             and FFN-out with f32 partials; the attention at 6 and 3
+             heads): the Hopper form by the counters, within the
+             allowance of the plain version at M 16 and 1024, two runs
+             bitwise, row-invariant at every M of SERVING_ROWS, timed
+             beside the bound and torch.matmul.  A mesh engine at model
+             axis 1 bitwise the plain engine (tokens and logits); an
+             axis of 2 played in one process (each shard's partials on
+             the card, summed by the closers' ordered_sum): prefill +
+             decode bitwise the played serving_forward at 7 and 300
+             tokens, the logits within twice the single-device bf16
+             engine's own distance from the f32 forward (per row RMS),
+             the greedy agreement with the single device reported.
+15. distill - examples/distill_draft.py: GPT-2-small's serving
+             checkpoint exported and loaded, the half-size draft (d 384,
+             6 heads, 6 layers, d_ff 1536) distilled 20 steps at batch 8,
+             seq 1024 (loss finite and falling; the backward kernels 6
+             times a step over the 20 steps, each flash kernel 6 times
+             in each of 6 more timed steps of distill's own train step,
+             the sm90 forms only in one profiled step), exported,
+             loaded as serve_lm --draft does,
+             and served: the speculative tokens (3 a step) bitwise plain
+             decode's; the held-out agreement and the acceptance rate.
+             Telemetry checks ride other phases: eager (the hook step
+             with the flight recorder on and off in turns, a seeded
+             stall's dump naming the tensor, seeded on a second native
+             coordinator beside the runtime's, the cache's flush and
+             downgrade records, cluster_metrics at one rank, init()
+             serving /metrics on HVD_TPU_METRICS_PORT and shutdown()
+             closing it), parallel (measure_exposed_comm on the fused
+             closer, observed in fused.exposed_comm_seconds), pipeline
+             (the pipeline.* series moved by exactly each step's
+             stats()), resnet (MetricsLogger's values in every epoch's
+             logs of the --full flow).
+16. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -272,7 +319,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-15. resnet - ResNet data parallelism, which runs no kernel of the port's
+17. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -294,6 +341,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import faulthandler
 import functools
 import gc
 import itertools
@@ -311,7 +359,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
-          "serving", "word2vec", "resnet")
+          "serving", "serving_mp", "distill", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1223,7 +1271,133 @@ def phase_eager(fa, smi_line, out_dir):
          "negotiated latencies with the native coordinator (native/, "
          "built by g++) and with HVD_TPU_DISABLE_NATIVE=1, in turns",
          "device": smi_line, **native_vs_python(hvd, fhvd, fa, C, cfg)})
+    log({"phase": "eager_telemetry", "device": smi_line,
+         **eager_telemetry(hvd, cfg, out_dir)})
     hvd.shutdown()
+
+
+def eager_telemetry(hvd, cfg, out_dir, batch=8, seq=1024):
+    """Telemetry on the card (ROADMAP A.5.1): the hook step's ms with the
+    flight recorder on and off, in turns (recorded, not claimed); a
+    seeded stall's flight dump naming the tensor; the response cache's
+    flush and downgrade records; cluster_metrics at one rank; init()
+    serving /metrics on HVD_TPU_METRICS_PORT.  One card is one rank, so
+    the stall is seeded on a second native coordinator of 2 ranks beside
+    the runtime's, whose warnings take the path the runtime's cycle gives
+    them (stall_event).  This check, in this process after the phases
+    before it, is what showed the native library's exported copy of
+    libstdc++ colliding with torch's (native/lib.py ``CXX_FLAGS``)."""
+    import shutil
+    import urllib.request
+
+    import horovod_tpu_torch.telemetry as telemetry
+    from horovod_tpu_torch.core import state
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.ops import cache as cache_mod
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.coordinator import Coordinator
+    from horovod_tpu_torch.telemetry import flight
+
+    out = {}
+    run = transformer_lm.train(cfg, batch=batch, seq=seq, steps=2,
+                               device="cuda", seed=0, hooks=True)
+    ms = {"on": [], "off": []}
+    for on in (True, False, False, True, True, False):
+        flight.recorder.enabled = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run["step"](run["params"], run["data"])
+        torch.cuda.synchronize()
+        ms["on" if on else "off"].append((time.perf_counter() - t0) / 5e-3)
+    flight.recorder.enabled = flight.flight_enabled_env()
+    out["hook_step_ms_flight_on"] = ms["on"]
+    out["hook_step_ms_flight_off"] = ms["off"]
+    del run
+    torch.cuda.empty_cache()
+    # A seeded stall: rank 0 of 2 submits, rank 1 never does.
+    fdir = os.path.join(out_dir, "flight")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.environ["HVD_TPU_FLIGHT_DIR"] = fdir
+    try:
+        flight.recorder._last_dump.pop("stall", None)
+        coord = Coordinator(size=2, fusion_threshold=1 << 20)
+        if type(coord._impl).__name__ != "NativeCoordinator":
+            raise AssertionError(f"the seeded stall runs "
+                                 f"{type(coord._impl).__name__}")
+        coord.submit(wire.Request(
+            request_rank=0, request_type=wire.RequestType.ALLREDUCE,
+            tensor_type=wire.DataType.FLOAT32, tensor_name="stalled.op",
+            tensor_shape=(4,)))
+        telemetry.stall_event(coord.check_stalled(threshold=-1.0))
+        coord.close()
+        # A hit that raced a flush: downgraded to its stored request.
+        cache = cache_mod.ResponseCache(rank=0)
+        coord = Coordinator(2, 1 << 20, cache=cache)
+        for r in range(2):
+            coord.submit(wire.Request(r, wire.RequestType.ALLREDUCE,
+                                      wire.DataType.FLOAT32, "t", -1, -1,
+                                      (4,), wire.ReduceOp.SUM, 0, ()))
+        for resp in coord.poll_responses({}):
+            cache.observe_response(resp)
+        epoch = cache.epoch
+        cache.flush("seeded", broadcast=True)
+        if cache.hit_from_wire(0, 1, epoch) is None:
+            raise AssertionError("the seeded downgrade did not happen")
+        coord.close()
+    finally:
+        os.environ.pop("HVD_TPU_FLIGHT_DIR", None)
+    dumps = sorted(f for f in os.listdir(fdir) if "stall" in f)
+    if not dumps:
+        raise AssertionError(f"no stall dump in {os.listdir(fdir)}")
+    with open(os.path.join(fdir, dumps[-1])) as f:
+        payload = json.load(f)
+    tail = [e for e in payload["events"] if e["kind"] == "stall"][-1]
+    if "stalled.op" not in tail["args"][0] or \
+            "waiting on replicas: [1]" not in tail["args"][0]:
+        raise AssertionError(f"the stall dump's tail: {tail}")
+    kinds = [e[1] for e in flight.snapshot()]
+    for kind in ("cache_flush", "cache_downgrade", "submit", "stall"):
+        if kind not in kinds:
+            raise AssertionError(f"no {kind} record in the flight ring")
+    out["stall_dump"] = {"file": dumps[-1], "tail": tail["args"][0][:120],
+                         "events": len(payload["events"]),
+                         "metrics_tail": len(payload.get("metrics", {}))}
+    out["flight_record_kinds"] = sorted(set(kinds))
+    # cluster_metrics at one rank.
+    hvd.allreduce(torch.ones(4, device="cuda"), name="tel.agg")
+    agg = hvd.cluster_metrics()
+    if agg["collective.submitted"]["ranks"] != 1 or \
+            agg["collective.negotiate_seconds"]["count"] < 1:
+        raise AssertionError(f"cluster_metrics: {agg['collective.submitted']}")
+    out["cluster_metrics_collective_submitted"] = \
+        agg["collective.submitted"]["sum"]
+    # init() with HVD_TPU_METRICS_PORT serves /metrics; shutdown closes it.
+    hvd.shutdown()
+    os.environ.update(HVD_TPU_METRICS_PORT="0",
+                      HVD_TPU_METRICS_HOST="127.0.0.1")
+    try:
+        hvd.init(device="cuda")
+        port = state._state.metrics_exporter.port
+        hvd.allreduce(torch.ones(4, device="cuda"), name="tel.exp")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        if "hvd_collective_submitted" not in text:
+            raise AssertionError("/metrics lacks collective.submitted")
+        hvd.shutdown()
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                   timeout=5)
+            raise AssertionError("the exporter outlived shutdown()")
+        except OSError:
+            pass
+    finally:
+        os.environ.pop("HVD_TPU_METRICS_PORT", None)
+        os.environ.pop("HVD_TPU_METRICS_HOST", None)
+    hvd.init(device="cuda")
+    out["exporter_served_metrics_lines"] = len(text.splitlines())
+    return out
 
 
 def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
@@ -2525,6 +2699,8 @@ def phase_parallel(fa, smi_line, out_dir):
                                "router_prob_max_diff": rounding,
                                "near_ties": near_ties,
                                "tokens_routed_apart": routed_apart}}
+    exposed = parallel_exposed_comm(mesh, cfg, batch * seq)
+    log({"phase": "parallel_fused_exposed", "device": smi_line, **exposed})
     log({"phase": "parallel_moe", "model": "GPT-2-small widths, 8 experts "
          "top-2, capacity factor 2.0, 12 layers, batch 2, seq 1024, bf16",
          "device": smi_line, **moe_row})
@@ -2535,6 +2711,32 @@ def phase_parallel(fa, smi_line, out_dir):
     set_fuse(None)
     hvd.shutdown()
     return path_launches
+
+
+def parallel_exposed_comm(mesh, cfg, rows):
+    """ops/fused.py measure_exposed_comm on the fused step's row-parallel
+    closer (FFN-out, matmul_psum over the model axis, chunked) against
+    the same chunks with the psum legs left out: >= 0 and observed in
+    fused.exposed_comm_seconds."""
+    import horovod_tpu_torch.telemetry as telemetry
+    from horovod_tpu_torch.ops import fused
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(rows, cfg.d_ff, generator=g).cuda().bfloat16()
+    w = (torch.randn(cfg.d_ff, cfg.d_model, generator=g)
+         * cfg.d_ff ** -0.5).cuda().bfloat16()
+    axis = mesh.axis("model")
+    hist = telemetry.registry().histogram("fused.exposed_comm_seconds")
+    before = hist.snapshot()["count"]
+    exposed = fused.measure_exposed_comm(
+        lambda a, b: fused.matmul_psum(a, b, axis=axis, fuse=True),
+        lambda a, b: fused.chunked_map(lambda xc: fused._f32_matmul(xc, b),
+                                       a, fuse=True), (x, w), cycles=5)
+    if not exposed >= 0.0 or hist.snapshot()["count"] != before + 1:
+        raise AssertionError(f"measure_exposed_comm: {exposed}")
+    return {"closer": f"matmul_psum [{rows},{cfg.d_ff}]@[{cfg.d_ff},"
+                      f"{cfg.d_model}], model axis of 1",
+            "chunks": fused.fuse_chunks(), "exposed_comm_seconds": exposed}
 
 
 # sharded phase: ZeRO-1 and FSDP (ROADMAP A.3, second half (a)).
@@ -2867,6 +3069,37 @@ class _CaptureGrads(torch.optim.Optimizer):
                       for p in g["params"]]
 
 
+def pipeline_series_equal_stats(before: dict, st: dict, turn: str) -> None:
+    """The registry's pipeline.* series (ROADMAP A.5.1) moved by exactly
+    what one pipeline step object's stats() holds: the counter and the
+    histogram's count by its values, the histogram's sum by its sum (to
+    float rounding of the running total), the gauges equal."""
+    import horovod_tpu_torch.telemetry as telemetry
+
+    now = telemetry.registry().snapshot(run_collectors=False)
+
+    def value(snap, name, key="value"):
+        return snap.get(name, {}).get(key, 0)
+
+    b = st["pipeline.bubble_seconds"]
+    ok = (value(now, "pipeline.microbatches")
+          - value(before, "pipeline.microbatches")
+          == st["pipeline.microbatches"]
+          and value(now, "pipeline.bubble_seconds", "count")
+          - value(before, "pipeline.bubble_seconds", "count") == b["count"]
+          and abs(value(now, "pipeline.bubble_seconds", "sum")
+                  - value(before, "pipeline.bubble_seconds", "sum")
+                  - b["sum"]) <= 1e-9 * max(1.0, b["sum"])
+          and value(now, "pipeline.inflight_activations")
+          == st["pipeline.inflight_activations"]
+          and value(now, "pipeline.inflight_activation_bytes")
+          == st["pipeline.inflight_activation_bytes"])
+    if not ok:
+        raise AssertionError(f"{turn}: pipeline.* series "
+                             f"{ {k: v for k, v in now.items() if k.startswith('pipeline.')} } "
+                             f"against stats() {st}")
+
+
 def phase_pipeline(fa, smi_line, out_dir):
     """GPT-2-small as chained_lm_loss (embedding, 12 layer stages, head)
     through make_pipeline_train_step under GPipe, 1F1B and interleaved
@@ -2874,6 +3107,7 @@ def phase_pipeline(fa, smi_line, out_dir):
     shape; gpipe through ParallelAxes(data, pipe); a played pipeline of
     4 stages."""
     import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.telemetry as telemetry
     from horovod_tpu_torch.core.topology import make_mesh
     from horovod_tpu_torch.examples import transformer_lm
     from horovod_tpu_torch.models import transformer as tt
@@ -3025,6 +3259,7 @@ def phase_pipeline(fa, smi_line, out_dir):
         torch.cuda.empty_cache()
         base_mem = torch.cuda.memory_allocated()
         fa.reset_launches()
+        reg0 = telemetry.registry().snapshot(run_collectors=False)
         run = build(turn)
         for _ in range(warmup):
             run["step"]()
@@ -3051,6 +3286,7 @@ def phase_pipeline(fa, smi_line, out_dir):
             pstep = run["pipeline"]
             st = pstep.stats()
             plan = pstep.plan
+            pipeline_series_equal_stats(reg0, st, turn)
             if st["pipeline.inflight_activations"] != plan.peak_activations \
                     or st["pipeline.inflight_activation_bytes"] != \
                     plan.peak_activations * carry_bytes:
@@ -4364,6 +4600,558 @@ def phase_serving(fa, smi_line, out_dir):
             "traffic": legs, "long": long, "http": http}
 
 
+# serving_mp phase: the rest of serving (ROADMAP A.4): followers, the
+# serving kernels at the model axis's shard shapes, the axis itself.
+
+# The model axes whose shard shapes the kernels are held at (GPT-2-small:
+# 12 heads, d_ff 3072).
+SHARD_AXES = (2, 4)
+
+
+def _relayed_pair(engine_of, **kw):
+    """Rank 0 and a follower as two engines in one process: the leader's
+    broadcasts are pickled into a queue the follower's receptions read
+    (one card, and NCCL puts no two ranks on one device)."""
+    import collections
+    import pickle
+
+    box = collections.deque()
+    leader, follower = engine_of(**kw), engine_of(**kw)
+    leader._multiprocess = lambda: True
+    leader._bcast = lambda obj: box.append(pickle.dumps(obj))
+    follower._bcast = lambda obj: pickle.loads(box.popleft())
+    return leader, follower, box
+
+
+def _mirrored(a, b):
+    """None when the follower's pools, page tables, lengths, free lists,
+    prefix LRUs and indexes and live slots' tokens are the leader's,
+    else what differs.  The trash
+    page 0 is left out: padded and inactive positions write it with
+    duplicate indices, and which duplicate lands is the device's choice
+    (``kv_cache.write``); nothing reads it unmasked.  A freed slot's last
+    token is not state either (the leader keeps its pending token, the
+    follower the fed one)."""
+    for name, ca, cb in (("target", a.cache, b.cache),
+                         ("draft", a.draft_cache, b.draft_cache)):
+        if ca is None:
+            continue
+        for part in ("k_pages", "v_pages"):
+            pa, pb = getattr(ca, part)[:, 1:], getattr(cb, part)[:, 1:]
+            if not torch.equal(pa, pb):
+                pages = (pa != pb).flatten(2).any(-1).any(0).nonzero()
+                return f"{name} {part}: pages {(pages + 1).flatten().tolist()}"
+        if not np.array_equal(ca._table, cb._table):
+            return f"{name} page table"
+        if not np.array_equal(ca._lengths, cb._lengths):
+            return f"{name} lengths {ca._lengths} {cb._lengths}"
+        # The free list and the prefix LRU in their order, the prefix
+        # index in its insertion order and the reference counts: what the
+        # next allocation and eviction read.
+        for part in ("_free", "_lru", "_index", "_refcount"):
+            pa, pb = getattr(ca, part), getattr(cb, part)
+            if list(pa.items() if isinstance(pa, dict) else pa) != \
+                    list(pb.items() if isinstance(pb, dict) else pb):
+                return f"{name} {part}"
+    live = a.cache._lengths >= 0
+    for part in ("_last_token", "_prev_token"):
+        if not np.array_equal(getattr(a, part)[live],
+                              getattr(b, part)[live]):
+            return f"{part} {getattr(a, part)} {getattr(b, part)}"
+    return None
+
+
+def serving_pressure(leader, cfg, g):
+    """A client abort and an admission that finishes at its prefill in
+    one iteration, on a nearly full pool (``leader.step`` checks the
+    follower after each iteration): A (1000 tokens, 63 pages of 16)
+    runs, then B (one new token) and six more 1000-token prompts take
+    441 of the 449 free pages while A's client aborts; then E maps 32 of
+    A's cached pages and F's 63 pages come mostly out of the prefix LRU.
+    Returns the iterations and the pool's low point."""
+    n = 1000
+
+    def prompt():
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    low = [leader.cache.free_pages()]
+
+    def step():
+        leader.step()
+        low.append(leader.cache.free_pages())
+        return not leader.scheduler.idle()
+
+    pa = prompt()
+    a = leader.submit(pa, max_new_tokens=6)
+    step()
+    b = leader.submit(prompt(), max_new_tokens=1)
+    rest = [leader.submit(prompt(), max_new_tokens=4) for _ in range(6)]
+    if leader.abort_request(a) != "active":
+        raise AssertionError("A was not active at its abort")
+    step()
+    if b.finish_reason != "max_new_tokens" or len(b.result(0)) != 1 or \
+            any(not r.generated for r in rest):
+        raise AssertionError("B did not finish at its prefill beside six "
+                             "admissions")
+    e = leader.submit(pa[:512] + [5, 6, 7], max_new_tokens=3)
+    f = leader.submit(prompt(), max_new_tokens=3)
+    iters = 2
+    while step():
+        iters += 1
+    if a.finish_reason != "client_disconnect" or \
+            any(len(r.result(0)) != k for r, k in
+                ([(e, 3), (f, 3)] + [(r, 4) for r in rest])):
+        raise AssertionError("the pressure trace's requests did not finish")
+    return {"iterations": iters + 1, "min_free_pages": min(low),
+            "pages": leader.cache.n_pages - 1}
+
+
+def serving_followers(cfg, params, engine_of, S):
+    """bench.py's trace on a leader with a follower calling follow()
+    after every step(), plain and speculative; each iteration the
+    follower's state bitwise the leader's; an abort mid-trace frees
+    every slot on both; stop_followers ends follow().  Returns the
+    serving kernels' launches of the plain run and the iteration
+    times."""
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import harness
+
+    trace = harness.serving_trace(40, cfg.vocab_size, seed=7)
+    g = torch.Generator().manual_seed(17)
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    draft = tt.init_transformer(torch.Generator().manual_seed(1), dcfg,
+                                device="cuda")
+    out, launches = {}, None
+    for label, kw in (("plain", {}),
+                      ("speculative", {"draft": (draft, dcfg),
+                                       "spec_tokens": 3})):
+        leader, follower, box = _relayed_pair(engine_of, **kw)
+        leader.warm_start()
+        follower.warm_start()
+        step = leader.step
+        times = {"leader": [], "follower": []}
+        checked = [0]
+
+        def mirrored_step(*a, _step=step, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ran = _step(*a, **k)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if not follower.follow():
+                raise AssertionError("follow() stopped mid-trace")
+            torch.cuda.synchronize()
+            times["leader"].append((t1 - t0) * 1e3)
+            times["follower"].append((time.perf_counter() - t1) * 1e3)
+            diff = "unread broadcasts" if box else _mirrored(leader,
+                                                              follower)
+            if diff:
+                raise AssertionError(f"{label}: the follower differs from "
+                                     f"the leader after iteration "
+                                     f"{checked[0]}: {diff}")
+            checked[0] += 1
+            return ran
+
+        leader.step = mirrored_step
+        if label == "plain":
+            S.reset_launches()
+        run = harness.run_trace(leader, trace, True)
+        if label == "plain":
+            launches = dict(S.launches)
+        pressure = serving_pressure(leader, cfg, g)
+        # An abort mid-iteration stream: requests in flight, abort_all,
+        # the follower's next reception is the marker.
+        for i in range(8):
+            leader.submit(trace[i]["prompt"], max_new_tokens=40)
+        for _ in range(3):
+            leader.step()
+        failed = leader.abort_all()
+        if not follower.follow() or box:
+            raise AssertionError("the abort marker did not reach follow()")
+        free = [c.free_pages() for c in (leader.cache, follower.cache)]
+        if len(failed) != 8 or free != [leader.cache.n_pages - 1] * 2 or \
+                (leader.cache._lengths >= 0).any() or \
+                (follower.cache._lengths >= 0).any() or \
+                _mirrored(leader, follower):
+            raise AssertionError(f"{label}: after abort_all {len(failed)} "
+                                 f"failed, free pages {free}")
+        leader.stop_followers()
+        if follower.follow() is not False or box:
+            raise AssertionError("stop_followers did not end follow()")
+        out[label] = {
+            "iterations_mirrored": checked[0],
+            "tokens": sum(len(t) for t in run["tokens"]),
+            "leader_iteration_ms_p50": _pct(times["leader"], 0.5),
+            "follower_iteration_ms_p50": _pct(times["follower"], 0.5),
+            "leader_iteration_ms_mean": float(np.mean(times["leader"])),
+            "follower_iteration_ms_mean": float(np.mean(times["follower"])),
+            "abort_freed_both": True, "stop_followers_ended_follow": True,
+            "pressure": pressure,
+            **({"acceptance": leader.spec_acceptance_rate}
+               if label == "speculative" else {})}
+        del leader, follower
+        torch.cuda.empty_cache()
+    log({"phase": "serving_followers", "trace": "bench.py seed 7, 40 "
+         "requests, continuous", **out, "launches_plain": launches})
+    return out, launches
+
+
+def serving_shard_kernels(S, cfg, g):
+    """The serving kernels at the products and heads one rank of a model
+    axis of 2 and 4 runs (column-parallel QKV and FFN-in with bf16 out,
+    row-parallel wo and FFN-out with the f32 partials the closers sum):
+    the Hopper form by the counters, within the allowance of the plain
+    version at M 16 and 1024, row-invariant at every M of SERVING_ROWS,
+    two runs bitwise, timed beside the bound and torch.matmul."""
+    d, f = cfg.d_model, cfg.d_ff
+    out = {}
+    for tp in SHARD_AXES:
+        for name, K, N, odt in (("qkv", d, 3 * d // tp, torch.bfloat16),
+                                ("wo", d // tp, d, torch.float32),
+                                ("w_in", d, f // tp, torch.bfloat16),
+                                ("w_out", f // tp, d, torch.float32)):
+            form, tile_n, split = S.serving_gemm_form(torch.bfloat16, K, N)
+            if form != "sm90":
+                raise AssertionError(f"axis {tp} {name}: {form} form")
+            w = (torch.randn(K, N, generator=g) * K ** -0.5).cuda().bfloat16()
+            x = torch.randn(1024, K, generator=g).cuda().bfloat16()
+            full = S.serving_gemm(x, w, out_dtype=odt)
+            differs = _first_differing(
+                full, lambda m: S.serving_gemm(x[:m], w, out_dtype=odt),
+                SERVING_ROWS)
+            if differs:
+                raise AssertionError(f"axis {tp} {name}: rows differ at M "
+                                     f"{differs}")
+            for M in (16, 1024):
+                xm = x[:M]
+                S.reset_launches()
+                got = S.serving_gemm(xm, w, out_dtype=odt)
+                again = S.serving_gemm(xm, w, out_dtype=odt)
+                torch.cuda.synchronize()
+                if S.launches_by_form[("serving_gemm", "sm90")] != 2:
+                    raise AssertionError(f"axis {tp} {name}: launches by "
+                                         f"form {S.launches_by_form}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"axis {tp} {name} M{M}: two runs "
+                                         f"differ")
+                allowed = (bf16_allowed if odt == torch.bfloat16
+                           else _row_rms_allowed(SERVING_TOL_F32))
+                err, margin = check(f"axis {tp} {name} M{M}", got,
+                                    S.serving_gemm_plain(xm, w, odt),
+                                    allowed)
+                nbytes = (M * K + K * N) * 2 + M * N * (
+                    2 if odt == torch.bfloat16 else 4)
+                b_ms, b_by = bound(2.0 * M * N * K, nbytes, torch.bfloat16)
+                ms = cuda_time_ms(lambda: S.serving_gemm(xm, w, odt),
+                                  iters=20, queued=True)
+                lib = ((lambda: torch.matmul(xm, w))
+                       if odt == torch.bfloat16 else
+                       (lambda: torch.matmul(xm.float(), w.float())))
+                out[f"tp{tp}_{name}_M{M}"] = {
+                    "K": K, "N": N, "out": str(odt), "tile_n": tile_n,
+                    "split": split, "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "share_of_bound": b_ms / ms,
+                    "library_ms": cuda_time_ms(lib, iters=20, queued=True),
+                    "max_abs_err": err, "worst_over_allowed": margin}
+        # The attention at the shard's heads, decode and prefill shapes.
+        H, hd, cap = cfg.n_heads // tp, d // cfg.n_heads, 1024
+        q = torch.randn(1, 1024, H, hd, generator=g).cuda().bfloat16()
+        k = torch.randn(1, cap, H, hd, generator=g).cuda().bfloat16()
+        v = torch.randn(1, cap, H, hd, generator=g).cuda().bfloat16()
+        pos = torch.arange(1024, device="cuda")[None]
+        full = S.cache_attention(q, k, v, pos)[0]
+        differs = _first_differing(
+            full, lambda m: S.cache_attention(q[:, :m], k, v, pos[:, :m])[0],
+            SERVING_ROWS)
+        S.reset_launches()
+        got = S.cache_attention(q, k, v, pos)
+        if differs or S.launches_by_form[("cache_attention", "sm90")] != 1:
+            raise AssertionError(f"axis {tp} attention: rows differ at "
+                                 f"{differs}, {S.launches_by_form}")
+        err, margin = check(f"axis {tp} attention", got,
+                            S.cache_attention_plain(q, k, v, pos),
+                            bf16_allowed)
+        visible = int((pos + 1).clamp(0, cap).sum()) * H
+        nbytes = (2 * 1024 * H * hd + 2 * cap * H * hd) * 2
+        b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.bfloat16)
+        ms = cuda_time_ms(lambda: S.cache_attention(q, k, v, pos), iters=20,
+                          queued=True)
+        out[f"tp{tp}_attention_prefill"] = {
+            "heads": H, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms, "max_abs_err": err,
+            "worst_over_allowed": margin}
+    for key, r in out.items():
+        log({"phase": "serving_shard_kernel", "case": key, **r})
+    return out
+
+
+def serving_model_axis(cfg, params, engine_of, S, g):
+    """A mesh engine at model axis 1 bitwise the plain engine; an axis of
+    2 played in one process: prefill + decode bitwise the played
+    serving_forward at 7 and 300 tokens, its logits within the
+    single-device bf16 computation's own error of it (twice the per-row
+    RMS distance of the single-device logits from the f32 forward of the
+    same weights), and the greedy tokens' agreement reported."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.topology import make_mesh
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.utils.convert import serving_shard
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    out = {}
+    hvd.init(device="cuda")
+    try:
+        mesh = make_mesh(model=1)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g)
+                   .tolist() for n in (7, 300, 33)]
+        rows = []
+        for eng in (engine_of(), engine_of(mesh=mesh)):
+            if eng.cache.page_sharding() is not None:
+                raise AssertionError("a model axis of 1 sharded the pages")
+            cap = _Capture(eng)
+            reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            eng.run_until_idle()
+            rows.append(([r.result(0) for r in reqs],
+                         [b"".join(x.tobytes() for x in cap.rows[r.rid])
+                          for r in reqs]))
+            del eng
+        if rows[0] != rows[1]:
+            raise AssertionError("the mesh engine at model axis 1 differs "
+                                 "from the plain engine")
+        out["axis1_bitwise_plain"] = True
+    finally:
+        hvd.shutdown()
+    # The played axis of 2.
+    tp, cap = 2, 1024
+    shards = [serving_shard(params, cfg, i, tp) for i in range(tp)]
+    hd = cfg.d_model // cfg.n_heads
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = tree_map(lambda x: x.float(), params)
+
+    def views(b):
+        return [torch.zeros((cfg.n_layers, b, cap, cfg.n_heads // tp, hd),
+                            dtype=cfg.dtype, device="cuda")
+                for _ in range(tp)]
+
+    def played_forward(tokens):
+        z = views(1)
+        return tt.play_forward_step(shards, tokens, torch.zeros(
+            (1,), dtype=torch.long, device="cuda"), z, z, cfg)[0][0]
+
+    S.reset_launches()
+    for n, new in ((7, 16), (300, 16)):
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=g).cuda()
+        with torch.no_grad():
+            kv = views(1), views(1)
+            logits, kn, vn = tt.play_forward_step(
+                shards, prompt[None], torch.zeros((1,), dtype=torch.long,
+                                                  device="cuda"),
+                kv[0], kv[1], cfg)
+            for r in range(tp):
+                kv[0][r][:, :, :n], kv[1][r][:, :, :n] = kn[r], vn[r]
+            got, seq = [logits[0, -1]], prompt.tolist()
+            for i in range(new - 1):
+                seq.append(int(got[-1].argmax()))
+                blk = torch.tensor([[seq[-1], 0]], device="cuda")
+                logits, kn, vn = tt.play_forward_step(
+                    shards, blk, torch.tensor([len(seq) - 1], device="cuda"),
+                    kv[0], kv[1], cfg)
+                for r in range(tp):
+                    kv[0][r][:, :, len(seq) - 1] = kn[r][:, :, 0]
+                    kv[1][r][:, :, len(seq) - 1] = vn[r][:, :, 0]
+                got.append(logits[0, 0])
+            toks = torch.tensor([seq], device="cuda")
+            want = played_forward(toks)
+            single = tt.serving_forward(params, toks, cfg, cap)[0]
+            ref32 = tt.serving_forward(params32, toks, f32, cap)[0]
+        for i, row in enumerate(got):
+            if not torch.equal(row, want[n - 1 + i]):
+                raise AssertionError(f"played axis {tp}, prompt {n}: row "
+                                     f"{i} differs from serving_forward")
+
+        def row_rms(x):
+            return x.float().pow(2).mean(dim=-1).sqrt()
+
+        dist_single = row_rms(single - ref32)
+        dist_played = row_rms(want - single)
+        worst = float((dist_played / (2 * dist_single).clamp_min(1e-30))
+                      .max())
+        if not worst <= 1.0:
+            raise AssertionError(f"played axis {tp}, prompt {n}: logits "
+                                 f"{worst} of the allowance from the "
+                                 f"single-device engine's")
+        out[f"played_axis{tp}_prompt{n}"] = {
+            "rows_bitwise": len(got), "worst_over_allowed": worst,
+            "max_abs_diff_single": float((want - single).abs().max()),
+            "max_row_rms_single_vs_f32": float(dist_single.max()),
+            "greedy_agreement": float(
+                (want.argmax(-1) == single.argmax(-1)).float().mean())}
+    out["played_launches"] = dict(S.launches)
+    log({"phase": "serving_model_axis", **out})
+    return out
+
+
+def phase_serving_mp(fa, smi_line, out_dir):
+    """The rest of serving on the card (ROADMAP A.4): the follower
+    mirroring rank 0 bitwise, the serving kernels at the model axis's
+    shard shapes, an axis of 1 on a mesh and an axis of 2 played."""
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = transformer_lm.bench_config()
+    params = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(0), cfg, device="cuda"))
+    g = torch.Generator().manual_seed(16)
+
+    def engine_of(params=params, **kw):
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024, **kw)
+
+    followers, launches = serving_followers(cfg, params, engine_of, S)
+    shards = serving_shard_kernels(S, cfg, g)
+    axis = serving_model_axis(cfg, params, engine_of, S, g)
+    for name in S.KERNELS:
+        for path, counts in (("follower", launches),
+                             ("played_axis", axis["played_launches"])):
+            if not counts.get(name):
+                raise AssertionError(f"{name} never launched on the "
+                                     f"{path} path: {counts}")
+    log({"phase": "serving_mp", "device": smi_line,
+         "seconds": time.perf_counter() - t_phase})
+    return {"followers": followers, "launches": launches, "shards": shards,
+            "axis": axis}
+
+
+def phase_distill(fa, smi_line, out_dir):
+    """examples/distill_draft.py on the card: GPT-2-small's serving
+    checkpoint exported, its half-size draft distilled (20 steps, batch
+    8, seq 1024; each flash kernel 6 times a step, the sm90 forms in a
+    profiled step of the returned train step), exported, loaded by serve_lm's path (--draft) and
+    served: the speculative tokens bitwise plain decode's."""
+    import shutil
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import distill_draft, transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.utils import checkpoint as ck
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    steps, batch, seq = 20, 8, 1024
+    cfg = transformer_lm.bench_config()
+    files = os.path.join(out_dir, "distill_ckpt")
+    shutil.rmtree(files, ignore_errors=True)
+    hvd.init(device="cuda")
+    try:
+        params = tree_map(lambda x: x.detach(), tt.init_transformer(
+            torch.Generator().manual_seed(0), cfg, device="cuda"))
+        ck.save_serving_checkpoint(os.path.join(files, "target"), params,
+                                   cfg, block=True)
+        tparams, tcfg, meta = ck.load_serving_checkpoint(
+            os.path.join(files, "target"))
+        fa.reset_launches()
+        run = distill_draft.distill(tparams, tcfg, steps=steps, batch=batch,
+                                    seq=seq)
+        launches = dict(fa.launches)
+        dcfg = run["cfg"]
+        losses = run["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"distill loss not finite and falling: "
+                                 f"{losses}")
+        # The backward kernels run only in the train steps; the forward
+        # also in the teacher's and the held-out forwards.
+        if any(launches[k] != steps * dcfg.n_layers
+               for k in ("flash_bwd_dkdv", "flash_bwd_dq")) or \
+                launches["flash_fwd"] < steps * dcfg.n_layers:
+            raise AssertionError(f"distill's {steps} steps launched "
+                                 f"{launches}")
+        # Further steps of distill's own train step, timed one by one.
+        step, data = run["step"], run["last_batch"]
+        per_step, times = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            step(run["params"], data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(dict(fa.launches))
+        if any(c != {k: dcfg.n_layers for k in fa.KERNELS}
+               for c in per_step):
+            raise AssertionError(f"each flash kernel must launch "
+                                 f"{dcfg.n_layers} times a step: {per_step}")
+        prof = profile_step(lambda: step(run["params"], data), out_dir,
+                            "distill")
+        names = " ".join(prof["flash_kernels"])
+        for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                     "flash_bwd_dq_sm90_kernel"):
+            ran = sum(n for name, n in prof["flash_kernels"].items()
+                      if want in name)
+            if not 1 <= ran <= dcfg.n_layers:
+                raise AssertionError(f"the profiled distill step ran {want} "
+                                     f"{ran} times: {names}")
+        for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                           "flash_bwd_dq_kernel<"):
+            if first_form in names:
+                raise AssertionError(f"the distill step ran {first_form}")
+        ck.save_serving_checkpoint(os.path.join(files, "draft"),
+                                   run["params"], dcfg,
+                                   tokenizer=meta["tokenizer"]["kind"],
+                                   block=True)
+    finally:
+        hvd.shutdown()
+    # serve_lm's --draft path: both exports loaded from their files.
+    tparams, tcfg, _ = ck.load_serving_checkpoint(
+        os.path.join(files, "target"))
+    dparams, dcfg2, _ = ck.load_serving_checkpoint(
+        os.path.join(files, "draft"))
+    shutil.rmtree(files, ignore_errors=True)
+    if dcfg2 != dcfg or (dcfg.d_model, dcfg.n_heads, dcfg.n_layers,
+                         dcfg.d_ff) != (384, 6, 6, 1536):
+        raise AssertionError(f"draft config {dcfg2}")
+    g = torch.Generator().manual_seed(70)
+    prompts = [torch.randint(0, tcfg.vocab_size, (n,), generator=g).tolist()
+               for n in (9, 100, 400)]
+
+    def engine(**kw):
+        return InferenceEngine(tparams, tcfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024, **kw)
+
+    plain = engine()
+    want = [plain.generate(p, max_new_tokens=24) for p in prompts]
+    del plain
+    spec = engine(draft=(dparams, dcfg2), spec_tokens=3)
+    spec.warm_start()
+    reqs = [spec.submit(p, max_new_tokens=24) for p in prompts]
+    spec.run_until_idle()
+    got = [r.result(0) for r in reqs]
+    if got != want:
+        raise AssertionError("the distilled draft's speculative tokens "
+                             "differ from plain decode")
+    out = {"steps": steps, "batch": batch, "seq": seq, "losses": losses,
+           "step_ms_mean": float(np.mean(times[1:])),
+           "launches_per_step": per_step[-1], "launches_in_distill": launches,
+           "held_out_greedy_agreement": run["agreement"],
+           "spec_acceptance": spec.spec_acceptance_rate,
+           "speculative_bitwise_plain": True,
+           "teacher_params": run["teacher_params"],
+           "draft_params": run["draft_params"],
+           "profiled_step": {k: prof[k] for k in (
+               "profiled_step_ms", "device_busy_ms", "device_idle_share",
+               "flash_kernels")},
+           "seconds": time.perf_counter() - t_phase}
+    log({"phase": "distill", "device": smi_line, **out})
+    return {"launches": launches, **out}
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -4552,10 +5340,14 @@ def phase_resnet(smi_line, out_dir):
     epochs = 3
     t0 = time.perf_counter()
     flow = ex.fit(full=True, epochs=epochs, device="cuda", prefetch=2,
-                  extra_callbacks=[Spy()])
+                  extra_callbacks=[Spy(), callbacks.MetricsLogger()])
     flow_s = time.perf_counter() - t0
     trainer, history = flow["trainer"], flow["history"]
     losses = [h["loss"] for h in history]
+    # MetricsLogger put the control plane's counts into every epoch's logs.
+    if not all(h.get("hvd/collective.submitted", 0) >= 1
+               and "hvd/handles.live" in h for h in history):
+        raise AssertionError(f"MetricsLogger's epoch logs: {history}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {history}")
     want = expected_lr_sequence(flow["base_lr"], hvd.size(), epochs,
@@ -4629,6 +5421,9 @@ def _named_leaves(tree, prefix=""):
 
 
 def main() -> int:
+    # A crash in native code (a kernel launcher, the native coordinator)
+    # prints every thread's Python stack before the process dies.
+    faulthandler.enable()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
@@ -4688,6 +5483,10 @@ def main() -> int:
                   if "checkpoint" in phases else None)
     serving = (phase_serving(fa, smi, args.out_dir) if "serving" in phases
                else None)
+    serving_mp = (phase_serving_mp(fa, smi, args.out_dir)
+                  if "serving_mp" in phases else None)
+    distill = (phase_distill(fa, smi, args.out_dir) if "distill" in phases
+               else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -4725,7 +5524,9 @@ def main() -> int:
                 **({"pipeline": pipeline[name]} if pipeline else {}),
                 **({"checkpoint": checkpoint[name]} if checkpoint else {}),
                 **({"serving": serving["flash_launches"][name]}
-                   if serving else {})}})
+                   if serving else {}),
+                **({"distill": distill["launches"][name]}
+                   if distill else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -4771,7 +5572,12 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "form": r["form"], "first_form_ms": r["first_form_ms"],
-                "library": library, "case": case})
+                "library": library, "case": case,
+                **({"launches_by_path": {
+                    "serving": serving["launches"][name],
+                    "follower": serving_mp["launches"][name],
+                    "played_axis": serving_mp["axis"]["played_launches"][
+                        name]}} if serving_mp else {})})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -45,7 +45,8 @@ from .ops.process_set import ProcessSet
 from .ops.sparse import IndexedSlices
 from .ops.wire import ReduceOp
 from .parallel.data import (DistributedOptimizer, allreduce_gradients,
-                            broadcast_parameters, partition_fusion_buckets)
+                            broadcast_global_variables, broadcast_parameters,
+                            partition_fusion_buckets)
 from .parallel.input import prefetch_to_device
 from .parallel.overlap import ChainedLoss
 from .parallel.pipeline import (PipelinePlan, make_pipeline_train_step,
@@ -54,6 +55,10 @@ from .parallel.training import (barrier_fence, make_eval_step,
                                 make_train_step, make_train_step_with_state,
                                 shard_batch, shard_local_batch)
 from .utils.tree import tree_leaves
+from . import telemetry  # noqa: E402  (hvd.telemetry.flight & registry)
+from .telemetry import cluster_metrics, metrics  # noqa: E402
+from . import serving  # noqa: E402  (hvd.serving.InferenceEngine & co)
+from .ops import fused  # noqa: E402  (hvd.fused: matmul_psum & co)
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
@@ -71,22 +76,24 @@ __all__ = [
     "allgather_async", "allgather_object", "allreduce",
     "allreduce_async", "allreduce_gradients", "alltoall",
     "alltoall_async", "barrier", "barrier_fence", "broadcast",
-    "broadcast_async", "broadcast_object", "broadcast_parameters",
+    "broadcast_async", "broadcast_global_variables", "broadcast_object",
+    "broadcast_parameters", "cluster_metrics",
     "ccl_built", "compression_state", "cross_rank", "cross_size",
     "cuda_built", "ddl_built", "device", "get_compression", "gloo_built", "gloo_enabled", "global_process_set",
     "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
     "grouped_allreduce_async", "grouped_reducescatter",
-    "grouped_reducescatter_async", "init", "is_initialized", "join",
-    "local_rank", "local_size", "make_eval_step", "make_train_step",
+    "grouped_reducescatter_async", "fused", "init", "is_initialized", "join",
+    "local_rank", "local_size", "make_eval_step", "metrics", "make_train_step",
     "load_compression_state", "make_train_step_with_state", "mpi_built",
     "mpi_enabled",
     "mpi_threads_supported", "native_built", "nccl_built",
     "make_pipeline_train_step", "partition_fusion_buckets",
     "PipelinePlan", "poll", "prefetch_to_device", "quiesce",
     "rank", "reducescatter", "reducescatter_async", "remove_process_set",
-    "rocm_built", "schedule_plan", "set_compression", "shard_batch",
+    "rocm_built", "schedule_plan", "serving", "set_compression", "shard_batch",
     "shard_local_batch",
     "shutdown", "size",
-    "start_timeline", "stop_timeline", "synchronize", "tree_leaves",
+    "start_timeline", "stop_timeline", "synchronize", "telemetry",
+    "tree_leaves",
     "xla_built",
 ]

@@ -4,7 +4,8 @@ port of horovod.keras.callbacks).
 The same four callbacks with the same semantics, bound to
 :class:`horovod_tpu_torch.frontends.loop.Trainer`: its ``lr`` and
 ``momentum`` properties read and write the optimizer's ``param_groups``,
-the counterpart of the reference's ``inject_hyperparams`` state.
+the counterpart of the reference's ``inject_hyperparams`` state; and
+:class:`MetricsLogger`, which puts telemetry values into the epoch logs.
 """
 
 from __future__ import annotations
@@ -78,6 +79,66 @@ class MetricAverageCallback(Callback):
             red = _average_metric(C.allreduce, metric, logs[metric])
             if red is not None:
                 logs[metric] = red
+
+
+#: Default metric selection for :class:`MetricsLogger` (reference :88):
+#: the few that say whether the control plane is healthy; pass
+#: ``metrics="all"`` for every metric in the registry.
+_DEFAULT_LOGGED_METRICS = (
+    "collective.submitted",
+    "collective.completed",
+    "collective.errors",
+    "cache.hits",
+    "cache.misses",
+    "events.stall_warnings",
+    "events.dead_peers",
+    "handles.live",
+)
+
+
+class MetricsLogger(Callback):
+    """Telemetry values in the epoch logs (reference :105-160).
+
+    At each epoch end the selected registry metrics go into ``logs`` under
+    ``<prefix><name>`` (scalars; a histogram logs its ``count``), so later
+    callbacks and loggers see them beside the model's metrics;
+    ``verbose=1`` also prints one line.  ``metrics`` is an iterable of
+    registry names, one name, ``"all"``, or None for the default above.
+    """
+
+    def __init__(self, metrics=None, prefix: str = "hvd/",
+                 verbose: int = 0):
+        self.metrics = metrics
+        self.prefix = prefix
+        self.verbose = verbose
+
+    def on_epoch_end(self, epoch: int, logs=None) -> None:
+        from . import telemetry
+
+        snap = telemetry.metrics()
+        if self.metrics == "all":
+            names = sorted(snap)
+        elif self.metrics is None:
+            names = [n for n in _DEFAULT_LOGGED_METRICS if n in snap]
+        elif isinstance(self.metrics, str):
+            # One name, not the "all" sentinel: a one-element selection,
+            # not an iteration over its characters.
+            names = [self.metrics] if self.metrics in snap else []
+        else:
+            names = [n for n in self.metrics if n in snap]
+        rendered = {}
+        for name in names:
+            m = snap[name]
+            v = m.get("count") if m.get("type") == "histogram" \
+                else m.get("value")
+            if v is None:
+                continue
+            rendered[name] = v
+            if logs is not None:
+                logs[self.prefix + name] = v
+        if self.verbose:
+            line = ", ".join(f"{k}={v}" for k, v in rendered.items())
+            print(f"[hvd-telemetry] epoch {epoch}: {line}")
 
 
 class LearningRateScheduleCallback(Callback):

@@ -25,8 +25,12 @@ knobs; the host exchange carries each rank's
 :func:`..ops.compression.env_fingerprint`, and rank 0 warns about a
 rank that differs.  When the job is
 hierarchical (:mod:`.topology`) every rank creates the node and
-cross-node groups, in one order.  ``shutdown`` agrees on a SHUTDOWN response with every
-rank, stops the thread, fails pending handles and flushes the
+cross-node groups, in one order.  It installs the telemetry's runtime
+collector and, when ``HVD_TPU_METRICS_PORT`` is set, starts the metrics
+exporter (rank 0 only unless ``HVD_TPU_METRICS_ALL_RANKS=1``; host
+``HVD_TPU_METRICS_HOST``, default 0.0.0.0; a bad port warns).
+``shutdown`` agrees on a SHUTDOWN response with every rank, stops the
+thread, fails pending handles, closes the exporter and flushes the
 quantization state.
 """
 
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import os
 import socket
+import sys
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -81,6 +86,7 @@ class _State:
     hierarchy: Any = None
     node_group: Any = None
     cross_group: Any = None
+    metrics_exporter: Any = None  # telemetry.exporter.MetricsExporter
 
 
 _state = _State()
@@ -191,6 +197,28 @@ def init(device=None) -> None:
 
         _state.runtime.set_timeline(Timeline(timeline_path))
     _state.runtime.start()
+    _start_telemetry(rank)
+
+
+def _start_telemetry(rank: int) -> None:
+    """Reference core/state.py:343-369: the runtime collector, and the
+    exporter on ``HVD_TPU_METRICS_PORT``."""
+    from .. import telemetry as _telemetry
+
+    _telemetry.install_runtime_collector()
+    port = os.environ.get("HVD_TPU_METRICS_PORT")
+    if port and _state.metrics_exporter is None and (
+            rank == 0 or os.environ.get("HVD_TPU_METRICS_ALL_RANKS") == "1"):
+        from ..telemetry import exporter as _exporter
+
+        try:
+            # ValueError too: a mistyped port must not stop the job.
+            _state.metrics_exporter = _exporter.start_exporter(
+                _telemetry.registry(), int(port.strip()),
+                host=os.environ.get("HVD_TPU_METRICS_HOST", "0.0.0.0"))
+        except (OSError, ValueError) as e:
+            print(f"WARNING: hvd-telemetry exporter could not serve on "
+                  f"HVD_TPU_METRICS_PORT={port!r}: {e}", file=sys.stderr)
 
 
 def shutdown() -> None:
@@ -199,6 +227,9 @@ def shutdown() -> None:
     ``init`` created, and reset."""
     if _state.runtime is not None:
         _state.runtime.shutdown()
+    if _state.metrics_exporter is not None:
+        _state.metrics_exporter.close()
+        _state.metrics_exporter = None
     _megakernel.flush("shutdown")
     if dist.is_initialized():
         for ps in _state.process_sets.values():

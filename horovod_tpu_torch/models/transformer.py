@@ -463,23 +463,81 @@ def synthetic_lm_batch(generator: torch.Generator, global_batch: int,
 # multi-token prefill and a one-token decode step, and products whose
 # sums do not depend on the number of rows (ops/serving.py), so the
 # engine's "prefill + N decode steps == non-incremental forward"
-# contract holds bitwise.  No tensor parallelism here (the reference's
-# GSPMD head sharding is later work, ROADMAP.md A.4).
+# contract holds bitwise.
+#
+# Tensor parallelism over a ``model`` axis (the reference shards the
+# heads by GSPMD; here one rank a GPU): a rank holds n_heads / tp heads
+# of every KV page and its shard of the weights (utils/convert.py
+# ``serving_shard``).  QKV and FFN-in are column-parallel (no exchange);
+# wo and FFN-out are row-parallel, each rank's partial product summed
+# over the axis.  The sum's ORDER is the hard part.  ``all_reduce``
+# (parallel/axis_ops.py ``_psum``) leaves it to the backend: NCCL's ring
+# and tree and gloo's ring pick their algorithm and chunking by the
+# tensor's size, so the order in which one element's partials are added
+# can change with the number of rows, and a prefill of M rows would not
+# be bitwise the decode of one.  At 2 ranks every order is a + b == b + a
+# (IEEE addition commutes), but at 3 or more it is not associative.  So
+# the serving closers use :func:`axis_sum`: an all_gather (which moves
+# bits and adds nothing) of the f32 partials, then
+# ``((p_0 + p_1) + p_2) + ...`` in rank order on every rank, elementwise,
+# so an element's sum does not depend on M, on the rank or on the
+# backend, and every rank holds the same bits.  The training path's
+# ``psum`` is left as it is.  An axis of one adds nothing: the program
+# is the single-device one, bit for bit.
 # ---------------------------------------------------------------------------
 
 def serving_params(params: dict) -> dict:
     """``params`` with the layers' fused QKV weight built once:
     ``layers["wqkv"] = [wq | wk | wv]``, ``[n_layers, d, 3d]`` (the one
-    product of reference :558).  :func:`forward_step` reads it where it is
-    present and otherwise concatenates the three on every call; the
-    serving engine builds it when it places its parameters."""
+    product of reference :558; on one rank of a ``model`` axis the
+    rank's heads' columns of each, ``[n_layers, d, 3d / tp]``).
+    :func:`forward_step` reads it where it is present and otherwise
+    concatenates the three on every call; the serving engine builds it
+    when it places its parameters."""
     layers = params["layers"]
     return {**params, "layers": {**layers, "wqkv": torch.cat(
         [layers["wq"], layers["wk"], layers["wv"]], dim=-1)}}
 
 
+def ordered_sum(parts):
+    """``((parts[0] + parts[1]) + parts[2]) + ...``: the serving closers'
+    fixed-order sum of the ranks' partials, elementwise (so it does not
+    depend on how many rows the partials have)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def axis_sum(partial, axis):
+    """The sum over ``axis`` (a :class:`~..core.topology.MeshAxis`, or
+    None) of every rank's ``partial``, in rank order: an all_gather, then
+    :func:`ordered_sum`.  Every rank gets the same bits.  An axis of one
+    returns ``partial`` itself."""
+    if axis is None or axis.size == 1:
+        return partial
+    import torch.distributed as dist
+
+    partial = partial.contiguous()
+    parts = [torch.empty_like(partial) for _ in range(axis.size)]
+    dist.all_gather(parts, partial, group=axis.group)
+    return ordered_sum(parts)
+
+
+def _row_parallel(hs, ws, reduce, tp: int):
+    """``sum_r hs[r] @ ws[r]`` over the shards: one shard's product as it
+    is (tp 1, the single-device program), else each shard's f32 partial
+    through ``reduce`` and the sum rounded once to the activations'
+    dtype."""
+    if tp == 1:
+        return serving_gemm(hs[0], ws[0])
+    parts = [serving_gemm(h, w, out_dtype=torch.float32)
+             for h, w in zip(hs, ws)]
+    return reduce(parts).to(hs[0].dtype)
+
+
 def forward_step(params: dict, tokens, start_pos, k_view, v_view,
-                 cfg: TransformerConfig):
+                 cfg: TransformerConfig, axis=None):
     """Cache-aware forward over ``tokens`` given already-cached context
     (reference :496-572): the ONE program both serving phases run.
 
@@ -488,7 +546,9 @@ def forward_step(params: dict, tokens, start_pos, k_view, v_view,
     view already holds for that sequence (ragged across the batch; < 0
     for an inactive slot).  ``k_view``/``v_view``: ``[n_layers, b,
     capacity, heads, head_dim]`` with positions ``< start_pos``
-    populated; they are read, never written.
+    populated; they are read, never written.  ``axis``: the ``model``
+    axis this rank serves on (``params`` then its shard, the views its
+    heads); None for one device.
 
     Returns ``(logits [b, s, vocab] float32, k_new, v_new)``, the new
     tokens' entries ``[n_layers, b, s, heads, head_dim]`` for the caller
@@ -502,17 +562,48 @@ def forward_step(params: dict, tokens, start_pos, k_view, v_view,
     row of ``pos_embed``: their outputs are finite garbage where the
     reference's ``jnp.take`` gives NaN.  No caller samples, keeps or
     scatters them into a live position."""
+    tp = 1 if axis is None else axis.size
+    logits, k_new, v_new = _forward_step_shards(
+        [params], tokens, start_pos, [k_view], [v_view], cfg,
+        lambda parts: axis_sum(parts[0], axis), tp)
+    return logits, k_new[0], v_new[0]
+
+
+def play_forward_step(shards, tokens, start_pos, k_views, v_views,
+                      cfg: TransformerConfig):
+    """:func:`forward_step` over a ``model`` axis of ``len(shards)``
+    played in one process (as ``parallel/sequence.py`` ``play_ring``
+    plays the ring): ``shards[r]`` is rank r's parameter shard and
+    ``k_views[r]``/``v_views[r]`` its heads' views; each shard's partials
+    are computed here and summed by the closers' :func:`ordered_sum`.
+    Returns ``(logits, [k_new per shard], [v_new per shard])``: the bits
+    every rank of a real axis computes."""
+    return _forward_step_shards(shards, tokens, start_pos, k_views,
+                                v_views, cfg, ordered_sum, len(shards))
+
+
+def _forward_step_shards(shards, tokens, start_pos, k_views, v_views,
+                         cfg: TransformerConfig, reduce, tp: int):
+    """:func:`forward_step` for the shards held here (one, or every shard
+    of a played axis); ``reduce`` sums the row-parallel closers'
+    per-shard partial lists over the axis of ``tp`` ranks."""
     if cfg.num_experts > 0:
         raise ValueError("the serving path currently supports dense FFN "
                          "layers only (num_experts == 0)")
     _check_config(cfg)
+    if cfg.n_heads % tp:
+        raise ValueError(f"tensor-parallel degree {tp} must divide n_heads "
+                         f"({cfg.n_heads})")
     b, s = tokens.shape
-    h_n, d = cfg.n_heads, cfg.d_model
-    hd = d // h_n
-    cap = k_view.shape[2]
+    d = cfg.d_model
+    hd = d // cfg.n_heads
+    h_n = cfg.n_heads // tp  # heads a shard holds
+    dl = h_n * hd
+    cap = k_views[0].shape[2]
     if cap > cfg.max_seq_len:
         raise ValueError(f"KV capacity {cap} exceeds cfg.max_seq_len "
                          f"{cfg.max_seq_len}")
+    params = shards[0]  # the replicated leaves are every shard's
     dev = tokens.device
     start_pos = start_pos.to(dev)
     ar = torch.arange(s, device=dev)
@@ -523,31 +614,39 @@ def forward_step(params: dict, tokens, start_pos, k_view, v_view,
     # rows past the capacity into the dropped extra entry.
     put_b = torch.arange(b, device=dev)[:, None].expand(b, s)
     put_c = (start_pos.clamp(min=0)[:, None] + ar[None, :]).clamp(max=cap)
-    layers = params["layers"]
-    if "wqkv" not in layers:
-        layers = serving_params(params)["layers"]
-    k_news, v_news = [], []
+    layers = [sh["layers"] if "wqkv" in sh["layers"]
+              else serving_params(sh)["layers"] for sh in shards]
+    k_news = [[] for _ in shards]
+    v_news = [[] for _ in shards]
     for i in range(cfg.n_layers):
-        lp = _index_layer(layers, i)
+        lps = [_index_layer(lay, i) for lay in layers]
+        lp = lps[0]
         h = _layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        qkv = serving_gemm(h, lp["wqkv"])
-        q, k, v = (y.reshape(b, s, h_n, hd) for y in qkv.split(d, dim=-1))
-        views = []
-        for view, new in ((k_view[i], k), (v_view[i], v)):
-            full = view.new_empty((b, cap + 1, h_n, hd))
-            full[:, :cap] = view
-            full[put_b, put_c] = new
-            views.append(full[:, :cap])
-        attn = cache_attention(q, views[0], views[1], pos)
-        x = x + serving_gemm(attn.reshape(b, s, d), lp["wo"])
+        attns = []
+        for r, lr in enumerate(lps):
+            qkv = serving_gemm(h, lr["wqkv"])
+            q, k, v = (y.reshape(b, s, h_n, hd)
+                       for y in qkv.split(dl, dim=-1))
+            views = []
+            for view, new in ((k_views[r][i], k), (v_views[r][i], v)):
+                full = view.new_empty((b, cap + 1, h_n, hd))
+                full[:, :cap] = view
+                full[put_b, put_c] = new
+                views.append(full[:, :cap])
+            attns.append(cache_attention(q, views[0], views[1],
+                                         pos).reshape(b, s, dl))
+            k_news[r].append(k)
+            v_news[r].append(v)
+        x = x + _row_parallel(attns, [lr["wo"] for lr in lps], reduce, tp)
         hh = _layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
-        hh = gelu_tanh(serving_gemm(hh, lp["w_in"]) + lp["b_in"])
-        x = x + (serving_gemm(hh, lp["w_out"]) + lp["b_out"])
-        k_news.append(k)
-        v_news.append(v)
+        hhs = [gelu_tanh(serving_gemm(hh, lr["w_in"]) + lr["b_in"])
+               for lr in lps]
+        x = x + (_row_parallel(hhs, [lr["w_out"] for lr in lps], reduce, tp)
+                 + lp["b_out"])
     x = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     logits = serving_gemm(x, params["unembed"], out_dtype=torch.float32)
-    return logits, torch.stack(k_news), torch.stack(v_news)
+    return (logits, [torch.stack(kn) for kn in k_news],
+            [torch.stack(vn) for vn in v_news])
 
 
 def _put_view(view, new, pos):
@@ -564,7 +663,8 @@ def _put_view(view, new, pos):
 
 
 def speculative_propose(params: dict, prev, pending, start_pos, k_view,
-                        v_view, cfg: TransformerConfig, n_propose: int):
+                        v_view, cfg: TransformerConfig, n_propose: int,
+                        axis=None):
     """Greedy draft rollout for speculative decoding (reference :587-641):
     ``n_propose`` cache-aware forward steps over the draft's KV view.
 
@@ -578,12 +678,14 @@ def speculative_propose(params: dict, prev, pending, start_pos, k_view,
 
     Returns ``(proposals [b, n_propose] int64, k_writes, v_writes)``,
     the writes ``[n_layers, b, n_propose + 1, heads, head_dim]`` for
-    positions ``start_pos .. start_pos + n_propose``."""
+    positions ``start_pos .. start_pos + n_propose``.  ``axis``: as
+    :func:`forward_step`'s (every rank of it proposes the same tokens:
+    the logits are the same bits on each)."""
     if n_propose < 1:
         raise ValueError(f"n_propose must be >= 1, got {n_propose}")
     kv, vv = k_view, v_view
     blk = torch.stack([prev, pending], dim=1)
-    logits, kn, vn = forward_step(params, blk, start_pos, kv, vv, cfg)
+    logits, kn, vn = forward_step(params, blk, start_pos, kv, vv, cfg, axis)
     cur = torch.argmax(logits[:, 1], dim=-1)
     proposals = [cur]
     k_cols = [kn[:, :, 0], kn[:, :, 1]]
@@ -595,7 +697,7 @@ def speculative_propose(params: dict, prev, pending, start_pos, k_view,
         vv = _put_view(vv, v_cols[-1], start_pos + j)
         blk = torch.stack([cur, torch.zeros_like(cur)], dim=1)
         logits, kn, vn = forward_step(params, blk, start_pos + 1 + j, kv,
-                                      vv, cfg)
+                                      vv, cfg, axis)
         cur = torch.argmax(logits[:, 0], dim=-1)
         proposals.append(cur)
         k_cols.append(kn[:, :, 0])
@@ -605,18 +707,21 @@ def speculative_propose(params: dict, prev, pending, start_pos, k_view,
 
 
 def serving_forward(params: dict, tokens, cfg: TransformerConfig,
-                    capacity: Optional[int] = None):
+                    capacity: Optional[int] = None, axis=None):
     """Non-incremental reference for the serving path (reference
     :644-659): the whole sequence through :func:`forward_step` from an
     empty KV view of ``capacity`` (default the sequence length).  Returns
     ``logits [b, s, vocab]`` f32; a prefill of ``tokens[:, :p]`` and
-    ``s - p`` one-token decodes reproduce them exactly."""
+    ``s - p`` one-token decodes reproduce them exactly, on one device and
+    on each rank of a ``model`` ``axis`` (``params`` the rank's shard)."""
     b, s = tokens.shape
     cap = capacity if capacity is not None else s
     hd = cfg.d_model // cfg.n_heads
-    zeros = torch.zeros((cfg.n_layers, b, cap, cfg.n_heads, hd),
+    tp = 1 if axis is None else axis.size
+    zeros = torch.zeros((cfg.n_layers, b, cap, cfg.n_heads // tp, hd),
                         dtype=params["embed"].dtype, device=tokens.device)
     logits, _, _ = forward_step(
         params, tokens, torch.zeros((b,), dtype=torch.long,
-                                    device=tokens.device), zeros, zeros, cfg)
+                                    device=tokens.device), zeros, zeros, cfg,
+        axis)
     return logits

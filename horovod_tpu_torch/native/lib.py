@@ -48,8 +48,18 @@ SRC_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = SRC_DIR / "_build"
 SOURCES = ("wire.cc", "coordinator.cc", "handle_manager.cc", "timeline.cc")
 HEADERS = ("wire.h",)
-# The reference Makefile's flags.
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
+# The reference Makefile's flags, and a private C++ runtime: libstdc++
+# linked in statically with its symbols hidden.  A library that carries
+# libstdc++ code but exports it (what a g++ that links libstdc++
+# statically makes of the reference's flags) has some of its calls bound
+# to the process's own libstdc++.so, loaded by torch, and others to its
+# copy; a stream then reads a locale facet by the other copy's index and
+# dereferences null (on the H100 machine: SIGSEGV in
+# ``hvd_coord_check_stalled``'s ``ostream << long``).  Hidden, every call
+# stays inside the copy.
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared",
+             "-static-libstdc++", "-static-libgcc",
+             "-Wl,--exclude-libs,ALL")
 LIBRARY = "libhvdtorch.so"
 
 _lock = threading.Lock()

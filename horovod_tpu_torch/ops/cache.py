@@ -32,10 +32,10 @@ rule (the registration allgather of ``add_process_set`` /
 rank 0 turns it back into the stored request and submits that
 (downgrade).  ``join`` also disarms insertion until the JOIN release.
 
-Left out of the copy: the reference's race and lock-order
-instrumentation and its flight recorder (telemetry and analysis,
-ROADMAP.md A.5), and its program-tracker gate (A.5 analysis; read here
-as off).
+The flight recorder keeps each flush (``cache_flush``) and downgrade
+(``cache_downgrade``), as in the reference.  Left out of the copy: the
+reference's race and lock-order instrumentation and its program-tracker
+gate (analysis, ROADMAP.md A.5.2; the gate reads here as off).
 
 Env contract (the reference's):
   HVD_TPU_RESPONSE_CACHE=0           disable (default on)
@@ -52,6 +52,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+from ..telemetry import flight as _flight
 from . import wire
 from .wire import Request, Response, ResponseType
 
@@ -104,7 +105,7 @@ _MEMBERSHIP_MARKERS = ("process_set.register.", "process_set.remove.")
 
 def cache_enabled() -> bool:
     """Env gate.  The reference also turns the cache off while its
-    program tracker runs (HVD_TPU_VERIFY_PROGRAM, A.5 analysis); the
+    program tracker runs (HVD_TPU_VERIFY_PROGRAM, A.5.2 analysis); the
     port has no tracker, so that gate reads as off."""
     return os.environ.get("HVD_TPU_RESPONSE_CACHE", "1") != "0"
 
@@ -348,7 +349,10 @@ class ResponseCache:
         if broadcast:
             self._marker = (self._epoch, self._disarmed)
         self.stats.flushes += 1
-        # The reference records the flush in its flight ring here (A.5).
+        # Flight ring: epoch transitions are the divergence points a
+        # forensic replay needs (record() takes no lock, so the cache
+        # lock stays a leaf).
+        _flight.record("cache_flush", reason, self._epoch, n)
         if n or disarm:
             self._log(f"cache flush ({reason}): {n} entries dropped, "
                       f"epoch {self._epoch}"
@@ -492,7 +496,8 @@ class ResponseCache:
             entry = retired.get(idx)
             if entry is not None and grank in entry.requests:
                 self.stats.downgrades += 1
-                # (The reference's flight-ring record goes, A.5.)
+                _flight.record("cache_downgrade", entry.name, grank,
+                               epoch)
                 return entry.requests[grank]
         self._log(f"dropping unresolvable cache bit (entry {idx}, rank "
                   f"{grank}, epoch {epoch}; current epoch {self.epoch})")

@@ -69,8 +69,15 @@ then each tensor's QUEUE, WAIT_FOR_DATA (GPU), MEMCPY_IN_FUSION_BUFFER,
 
 ALLREDUCE with Adasum (ROADMAP.md A.6; never fused) runs pairwise
 exchanges with ``batch_isend_irecv``: the recursive-doubling ladder, or
-VHDD when n > 2 and the tensor has at least 2n elements.  The
-reference's telemetry is later work (A.5).
+VHDD when n > 2 and the tensor has at least 2n elements.
+
+Telemetry (reference :160-185, :1395-1420): ``collective.submitted``/
+``completed``/``errors`` and ``collective.negotiate_seconds``; an ERROR
+response is an ``error_event`` (flight-recorded and dumped), a failed
+control exchange or a peer's unexpected SHUTDOWN a ``dead_peer_event``,
+a stall warning a ``stall_event``.  Rank 0's :meth:`Runtime.collect_metrics`
+pulls every rank's metrics snapshot through the cycle
+(:func:`..telemetry.cluster_metrics`).
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import telemetry as _telemetry
 from ..core import state as _state
 from . import cache as _cache
 from . import compression as _compression
@@ -116,6 +124,17 @@ SHUT_DOWN_ERROR_MESSAGE = (
 # torch 2.13 renamed reduce_scatter_tensor; older releases have only it.
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
+
+_M_SUBMITTED = _telemetry.counter(
+    "collective.submitted", "collective ops enqueued on this rank")
+_M_COMPLETED = _telemetry.counter(
+    "collective.completed", "collective ops whose data launch finished")
+_M_ERRORS = _telemetry.counter(
+    "collective.errors", "collective ops failed by an ERROR response or "
+    "a failed launch")
+_M_NEGOTIATE_S = _telemetry.histogram(
+    "collective.negotiate_seconds", "seconds",
+    "enqueue to the start of execution (negotiation + queueing)")
 
 _DATA_RESPONSES = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
                    ResponseType.BROADCAST, ResponseType.REDUCESCATTER,
@@ -290,6 +309,7 @@ class _QueuedOp:
     ready: Any = None  # CUDA event on the caller's stream
     request: Optional[Request] = None  # for the cache's insertion
     cache_hit: bool = False  # sent as a cache hit, not as the request
+    t_submit: float = 0.0  # perf_counter at enqueue
 
 
 class Runtime:
@@ -331,6 +351,12 @@ class Runtime:
         self.join_result: Optional[int] = None
         self._join_done = threading.Event()
         self.stats = self._zero_stats()
+        # cluster_metrics: rank 0 asks for the ranks' snapshots in a
+        # cycle's broadcast; each worker answers in its next batch.
+        self._metrics_ask = False  # rank 0, guarded by _lock
+        self._metrics_due = False  # workers: answer in the next batch
+        self._metrics_replies: Dict[int, dict] = {}  # rank 0, under _lock
+        self._metrics_done = threading.Event()
 
     @staticmethod
     def _zero_stats() -> Dict[str, int]:
@@ -420,6 +446,7 @@ class Runtime:
             self.shutdown_message = (
                 f"Horovod has been shut down: the control exchange "
                 f"failed on rank {self.rank}: {exc!r}")
+            _telemetry.dead_peer_event(self.shutdown_message)
             self._stopped.set()
             if self.cache is not None:
                 self.cache.flush("control exchange failed")
@@ -484,7 +511,7 @@ class Runtime:
                 red_op=spec["red_op"], handle=h,
                 nbytes=max(_numel(x.shape), 1) * wire.dtype_size(dt),
                 ps=ps, out=out, ready=ready, request=req,
-                cache_hit=hit is not None))
+                cache_hit=hit is not None, t_submit=time.perf_counter()))
         with self._lock:
             taken = [o.name for o in ops if o.name in self._ops]
             if taken or len({o.name for o in ops}) < len(ops):
@@ -501,6 +528,7 @@ class Runtime:
             self._hits.extend(hits)
             self.stats["cache_hits"] += len(hits)
             self.stats["cache_misses"] += len(msgs)
+        _M_SUBMITTED.inc(len(ops))
         tl = self.timeline
         if tl is not None:
             for o in ops:
@@ -530,6 +558,23 @@ class Runtime:
             o.handle.finish(error=HorovodError(message))
         self._join_done.set()
 
+    def collect_metrics(self, local: dict,
+                        timeout: float) -> Dict[int, dict]:
+        """Rank 0: every rank's metrics snapshot by rank, ``local`` as
+        rank 0's.  The next cycle's broadcast asks; each worker's
+        background thread answers in the batch of its cycle after that.
+        A rank that has not answered within ``timeout`` seconds is left
+        out (the reference's pull behaves the same)."""
+        with self._lock:
+            self._metrics_replies = {}
+            self._metrics_done.clear()
+            self._metrics_ask = True
+        self._work.set()
+        self._metrics_done.wait(timeout)
+        with self._lock:
+            replies = dict(self._metrics_replies)
+        return {0: local, **replies}
+
     # -- one cycle (background thread) -------------------------------------
     def _cycle(self) -> None:
         with self.cycle_lock:
@@ -539,6 +584,9 @@ class Runtime:
             with self._lock:
                 batch = b"".join(self._outbox) + _tp.encode_hits(self._hits)
                 self._outbox, self._hits = [], []
+            if self._metrics_due:
+                self._metrics_due = False
+                batch += _tp.encode_metrics(_telemetry.metrics())
             if self.channel is None:
                 batches = [batch]
             else:
@@ -561,7 +609,15 @@ class Runtime:
                     payload = (_tp.encode_replay(groups, epoch)
                                if compact and groups and n_other == 0
                                else _tp.encode_responses(responses))
+                if self.rank == 0:
+                    with self._lock:
+                        ask, self._metrics_ask = self._metrics_ask, False
+                    if ask:
+                        payload = _tp.encode_metrics_pull(payload)
                 payload = self.channel.broadcast(payload)
+                if self.rank != 0:
+                    pull, payload = _tp.strip_metrics_pull(payload)
+                    self._metrics_due = self._metrics_due or pull
                 if self.rank != 0 and payload:
                     kind, body = _tp.decode_payload(payload)
                     responses = (cache.rebuild_groups(*body)
@@ -630,6 +686,11 @@ class Runtime:
                             pending.append(down)
                 elif kind == _tp.KIND_WITHDRAW:
                     withdrawals.append((r, body))
+                elif kind == _tp.KIND_METRICS:
+                    with self._lock:
+                        self._metrics_replies[r] = body
+                        if len(self._metrics_replies) == self.size - 1:
+                            self._metrics_done.set()
                 else:
                     shutdown = True
         for req in pending:
@@ -675,8 +736,10 @@ class Runtime:
         if now - self._last_stall_check > stall_s:
             self._last_stall_check = now
             for coord in coords:
-                for w in coord.check_stalled(now, stall_s):
+                warnings = coord.check_stalled(now, stall_s)
+                for w in warnings:
                     print(f"WARNING: {w}", file=sys.stderr, flush=True)
+                _telemetry.stall_event(warnings)
         if shutdown:
             negotiated.append(Response(ResponseType.SHUTDOWN,
                                        error_message=SHUT_DOWN_ERROR_MESSAGE))
@@ -709,7 +772,10 @@ class Runtime:
         rt = resp.response_type
         if rt == ResponseType.ERROR:
             err = HorovodError(resp.error_message)
-            for o in self._take(resp.tensor_names).values():
+            taken = self._take(resp.tensor_names)
+            _M_ERRORS.inc(max(len(taken), 1))
+            _telemetry.error_event(resp.error_message or "")
+            for o in taken.values():
                 o.handle.finish(error=err)
             return
         if rt == ResponseType.JOIN:
@@ -718,6 +784,11 @@ class Runtime:
             self._join_done.set()
             return
         if rt == ResponseType.SHUTDOWN:
+            if resp.error_message and \
+                    resp.error_message != SHUT_DOWN_ERROR_MESSAGE:
+                # Not the agreed shutdown: a rank's control exchange
+                # failed (worker side of reference :1415).
+                _telemetry.dead_peer_event(resp.error_message)
             self.peer_shutdown = True
             self.shutdown_message = resp.error_message \
                 or SHUT_DOWN_ERROR_MESSAGE
@@ -733,6 +804,10 @@ class Runtime:
         if resp.process_set_id and (ps is None or not ps.included()):
             return  # not a member: the set's members run it
         ops = self._take(resp.tensor_names)
+        if _telemetry.enabled():
+            t0 = time.perf_counter()
+            for o in ops.values():
+                _M_NEGOTIATE_S.observe(t0 - o.t_submit)
         if tl is not None:
             for name in ops:
                 tl.activity_end(name)  # QUEUE
@@ -760,6 +835,7 @@ class Runtime:
                 f"{rt.name.lower()} of {resp.tensor_names} failed on rank "
                 f"{self.rank}: {exc!r}")
             err.__cause__ = exc
+            _M_ERRORS.inc(len(ops))
             for name, o in ops.items():
                 if tl is not None:
                     tl.end(name)
@@ -771,6 +847,7 @@ class Runtime:
             if tl is not None:
                 tl.end(name, dtype=str(o.tensor.dtype))
             o.handle.finish(result=outs[name], event=event)
+        _M_COMPLETED.inc(len(ops))
 
     def _run(self, resp: Response, ops: Dict[str, _QueuedOp], ps, tl=None):
         """Launch one data response; returns {name: result} for the ops

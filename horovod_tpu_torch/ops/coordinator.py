@@ -17,9 +17,9 @@ every rank executes in the same order:
 * stall detection (≙ ``CheckForStalledTensors``, operations.cc:1072-1115;
   ``HOROVOD_STALL_WARNING_SECONDS``, default 60).
 
-The copy leaves out the reference's telemetry, lock-order and race
-instrumentation and flight recorder; responses are byte for byte the
-reference's.  One repair: a request for a tensor that a JOIN has already
+The copy leaves out the reference's lock-order and race instrumentation
+(the flight records are in the ``Coordinator`` facade); responses are
+byte for byte the reference's.  One repair: a request for a tensor that a JOIN has already
 made ready is not listed twice (the reference's next poll raises
 ``KeyError`` there, ROADMAP.md C.1).
 
@@ -42,6 +42,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..native import lib as _native
+from ..telemetry import flight as _flight
 from . import cache as _cache
 from . import megakernel as _megakernel
 from . import wire
@@ -518,8 +519,11 @@ class Coordinator:
     rank's exact request.  Below it runs :class:`NativeCoordinator`, or
     :class:`PyCoordinator` when ``HVD_TPU_DISABLE_NATIVE`` is set
     (reference :593-597); a process set has a coordinator of its own.
-    The reference's program tracker and telemetry are not in the port
-    (A.5)."""
+    Submissions that are not cache hits and withdrawals go into the
+    flight ring (reference :692, :725); the runtime's cycle turns
+    :meth:`check_stalled`'s warnings into a ``stall_event`` (reference
+    :766).  The reference's program tracker is not in the port
+    (A.5.2)."""
 
     def __init__(self, size: int, fusion_threshold: int, timeline=None,
                  cache=None, ranks=None):
@@ -582,6 +586,10 @@ class Coordinator:
                     # so does this one (the usual mismatch messages).
                     self._resubmit(info)
                 self._retain(req)
+        # Flight ring: the negotiation traffic that is not a cache hit
+        # (the hit path returned above).
+        _flight.record("submit", req.tensor_name, req.request_rank,
+                       req.request_type)
         try:
             done = self._impl.submit(req)
         finally:
@@ -610,6 +618,7 @@ class Coordinator:
                 self._impl_dirty = True
 
     def withdraw(self, name: str, rank: int) -> None:
+        _flight.record("withdraw", name, rank)
         if self.cache is not None:
             # A withdrawal means the ranks' programs diverged: invalidate,
             # downgrading cached submissions so the impl's withdraw fails
@@ -649,6 +658,9 @@ class Coordinator:
 
     def check_stalled(self, now: Optional[float] = None,
                       threshold: Optional[float] = None) -> List[str]:
+        """The stalled tensors' warnings, from the Python or the native
+        coordinator alike (the caller prints them and passes them to
+        :func:`..telemetry.stall_event`)."""
         return self._impl.check_stalled(now, threshold)
 
     def close(self) -> None:

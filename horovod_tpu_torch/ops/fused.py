@@ -30,22 +30,34 @@ collectives):
 
 The reference's ``FusedProgram`` (AOT compiles, the compile manifest,
 the memory ledger's charges) serves XLA executables and has no
-counterpart; its ``fused.*`` telemetry waits for the port's telemetry
-(ROADMAP.md A.5).
+counterpart, nor has its ``fused.groups_compiled`` (nothing is
+compiled).  Telemetry (reference :97-107, :363-395): ``fused.launches``
+counts chunked groups run, and :func:`measure_exposed_comm` feeds
+``fused.exposed_comm_seconds``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from .. import telemetry as _telemetry
 
 FUSE_ENV = "HVD_TPU_FUSE"
 CHUNKS_ENV = "HVD_TPU_FUSE_CHUNKS"
 _VALID_MODES = ("auto", "on", "off")
 DEFAULT_CHUNKS = 4
 MIN_CHUNK_ROWS = 2
+
+_M_LAUNCHES = _telemetry.counter(
+    "fused.launches", "chunked computation-collective groups run")
+_M_EXPOSED = _telemetry.histogram(
+    "fused.exposed_comm_seconds", "seconds",
+    "communication seconds not hidden under producer compute in one "
+    "fused group: max(0, fused_total - compute_only)")
 
 
 def fuse_mode() -> str:
@@ -127,7 +139,45 @@ def chunked_map(fn: Callable, x: torch.Tensor, *, axis: int = 0,
     # whole-sized gradient and add it in).
     parts = torch.split(x, [size for _, size in plan], dim=axis)
     pending = [fn(part) for part in parts]
+    _M_LAUNCHES.inc()
     return torch.cat([wait(p) for p in pending], dim=axis)
+
+
+def observe_exposed(seconds: float) -> None:
+    """Record one fused group's exposed-communication window
+    (``fused.exposed_comm_seconds``)."""
+    if _telemetry.enabled():
+        _M_EXPOSED.observe(max(0.0, float(seconds)))
+
+
+def measure_exposed_comm(program: Callable, compute_only: Callable,
+                         args: tuple, *, cycles: int = 5) -> float:
+    """Median exposed-communication seconds of ``program`` over
+    ``compute_only`` (the same producer computation with the collective
+    legs left out): ``max(0, total - compute)``, observed into
+    ``fused.exposed_comm_seconds`` and returned.  Each leg is warmed once,
+    then timed ``cycles`` times with its dispatch and a full fence inside
+    the window: ``torch.cuda.synchronize`` when a result lives on the
+    card, nothing more on the CPU (the call returns when the work is
+    done)."""
+    def fence(out):
+        leaves = out if isinstance(out, (tuple, list)) else (out,)
+        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in leaves):
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        fence(fn(*args))
+        lats = []
+        for _ in range(cycles):
+            t0 = time.perf_counter()
+            fence(fn(*args))
+            lats.append(time.perf_counter() - t0)
+        lats.sort()
+        return lats[len(lats) // 2]
+
+    exposed = max(0.0, timed(program) - timed(compute_only))
+    observe_exposed(exposed)
+    return exposed
 
 
 def matmul_psum(x, w, *, axis, chunks: Optional[int] = None,

@@ -4,7 +4,11 @@
 The reference's recipe: pickle the object into a uint8 vector;
 ``allgather_object`` rides the variable-dim-0 allgather (one gather of
 the byte counts gives each rank's split), ``broadcast_object`` first
-broadcasts the byte count, then the payload.
+broadcasts the byte count, then the payload.  The port pads the payload
+to a power of two (at least 64 bytes) and names its broadcast by that
+size, so a name broadcast again and again with payloads of other sizes
+(the serving engine's per-iteration plans) hits the response cache
+instead of flushing it on a changed shape.
 
 Unpickling runs code: only trust peers you would trust with code
 execution, as with Horovod's own object collectives.
@@ -54,7 +58,9 @@ def broadcast_object(obj: Any = None, root_rank: int = 0,
     data = _to_bytes(obj) if is_root else None
     size = torch.tensor([data.numel() if is_root else 0], dtype=torch.int64)
     size = int(_C.broadcast(size, root_rank, name=f"{name}.size")[0])
-    if not is_root:
-        data = torch.zeros(size, dtype=torch.uint8)
-    payload = _C.broadcast(data, root_rank, name=f"{name}.data")
-    return pickle.loads(payload.numpy().tobytes())
+    padded = max(64, 1 << (size - 1).bit_length())
+    buf = torch.zeros(padded, dtype=torch.uint8)
+    if is_root:
+        buf[:size] = data
+    payload = _C.broadcast(buf, root_rank, name=f"{name}.data.{padded}")
+    return pickle.loads(payload[:size].numpy().tobytes())

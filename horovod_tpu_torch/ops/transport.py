@@ -24,17 +24,22 @@ A batch is a sequence of messages, each a one-byte kind and a body:
 response-cache entry indices: the requests of this rank that hit its
 cache replica (:mod:`.cache`), in place of the reference's TCP
 ``FRAME_REQUEST_BATCH`` bit-vectors (horovod_tpu/ops/transport.py:
-101-110,163).
+101-110,163); ``KIND_METRICS`` + ``<I`` length + this rank's metrics
+snapshot as JSON, its answer to rank 0's pull (the reference's
+``FRAME_METRICS``).
 
 Rank 0's broadcast is one kind byte and a body: ``PAYLOAD_RESPONSES`` +
 :func:`wire.pack_response_list`, or, for a cycle that is all cache
 replay, ``PAYLOAD_REPLAY`` + ``<II`` (epoch, groups) + per fused
 response ``<I`` count + that many ``<I`` entry indices, which the
-workers rebuild from their replica.
+workers rebuild from their replica.  A broadcast that asks the workers
+for their metrics snapshots (``telemetry.cluster_metrics``) is
+``PAYLOAD_PULL_METRICS`` followed by the cycle's payload, if any.
 """
 
 from __future__ import annotations
 
+import json
 import struct
 import sys
 from typing import List, Optional, Tuple
@@ -46,7 +51,8 @@ from . import wire
 from .wire import Request, Response
 
 KIND_REQUEST, KIND_WITHDRAW, KIND_SHUTDOWN, KIND_HITS = 0, 1, 2, 3
-PAYLOAD_RESPONSES, PAYLOAD_REPLAY = 0, 1
+KIND_METRICS = 4
+PAYLOAD_RESPONSES, PAYLOAD_REPLAY, PAYLOAD_PULL_METRICS = 0, 1, 2
 
 
 def encode_request(req: Request) -> bytes:
@@ -78,9 +84,26 @@ def encode_hits(hits: List[Tuple[int, int]]) -> bytes:
     return b"".join(out)
 
 
+def encode_metrics(snapshot: dict) -> bytes:
+    body = json.dumps(snapshot).encode("utf-8")
+    return struct.pack("<BI", KIND_METRICS, len(body)) + body
+
+
+def encode_metrics_pull(payload: bytes) -> bytes:
+    """Rank 0's broadcast ``payload`` with the metrics pull in front."""
+    return struct.pack("<B", PAYLOAD_PULL_METRICS) + payload
+
+
+def strip_metrics_pull(payload: bytes) -> Tuple[bool, bytes]:
+    """``(whether the broadcast asks for metrics, the rest)``."""
+    if payload and payload[0] == PAYLOAD_PULL_METRICS:
+        return True, payload[1:]
+    return False, payload
+
+
 def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
-    """``[(kind, body)]``: a Request, a (process set, name) pair, None, or
-    an (epoch, [entry index]) pair."""
+    """``[(kind, body)]``: a Request, a (process set, name) pair, None, an
+    (epoch, [entry index]) pair, or a metrics snapshot."""
     out: List[Tuple[int, object]] = []
     off = 0
     while off < len(buf):
@@ -103,6 +126,11 @@ def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
             out.append((kind, (epoch, list(struct.unpack_from(
                 f"<{count}I", buf, off)))))
             off += 4 * count
+        elif kind == KIND_METRICS:
+            (n,) = struct.unpack_from("<I", buf, off)
+            off += 4
+            out.append((kind, json.loads(bytes(buf[off:off + n]))))
+            off += n
         else:
             raise ValueError(f"control batch: unknown message kind {kind} "
                              f"at byte {off - 1}")

@@ -281,3 +281,8 @@ def broadcast_parameters(params, root_rank: int = 0):
             if buf.data_ptr() != leaf.data_ptr():
                 leaf.copy_(buf)
     return params
+
+
+# The reference's alias (horovod_tpu/parallel/data.py:466; Horovod's
+# TensorFlow name for the same broadcast).
+broadcast_global_variables = broadcast_parameters

@@ -21,7 +21,8 @@ thread.  The contract is the reference's:
 * **Bounded**: at most ``depth`` staged batches exist at once (plus the
   one the stager is producing).
 * **Exceptions**: a loader exception is re-raised at the consuming
-  ``next()`` with its original traceback.
+  ``next()`` with its original traceback, and recorded by
+  ``telemetry.prefetch_error_event``.
 * **Clean shutdown**: ``close()`` (also via the context manager, loop
   exhaustion or garbage collection) stops the stager, closes a generator
   loader and joins the thread, even mid-epoch with a full queue.
@@ -35,6 +36,7 @@ from typing import Any, Iterable, Optional
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..core import state as _state
 from ..utils.tree import tree_leaves, tree_map
 
@@ -119,6 +121,7 @@ class PrefetchIterator:
                 if not self._put(self._stage(host_batch, stream)):
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
+            _telemetry.prefetch_error_event(f"{type(e).__name__}: {e}")
             self._put(e)
         finally:
             close = getattr(it, "close", None)

@@ -86,6 +86,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..core import state as _state
 from ..ops import collective as C
 from ..ops.compression import NoneCompressor
@@ -390,6 +391,7 @@ class _OverlapStep:
         print(f"[hvd-overlap] falling back to the monolithic step "
               f"[{reason}]: {detail}", file=sys.stderr)
         self._stats["overlap.fallbacks"] += 1
+        _telemetry.overlap_fallback_event(reason, detail)
         self._fallback_reason = reason
         self._fallback_step = self._fallback_builder()
         return self._fallback_step

@@ -82,10 +82,11 @@ than one rank (:data:`PLACED_OPTIMIZERS`): no rank holds every stage.
 No counterpart: ``_AotProgram`` (:432; XLA's ahead-of-time compile, its
 OOM guard and donation sanitizer), ``_to_mesh``'s ``device_put``
 (placed carries move by send and receive), and ``donate`` (accepted,
-without effect: PyTorch updates in place).  Waiting for ROADMAP.md A.5:
-the memory pre-flight (``_preflight`` :626), the
-``pipeline.activations`` memory-ledger charges, and the ``_M_*``
-telemetry metrics, whose values ``step.stats()`` carries until then.
+without effect: PyTorch updates in place).  The reference's four
+``pipeline.*`` series (:130-145) are in the telemetry registry, and
+``step.stats()`` keeps the step's own values of the same names.  Waiting
+for ROADMAP.md A.5.2: the memory pre-flight (``_preflight`` :626) and the
+``pipeline.activations`` memory-ledger charges.
 
 Env contract (validated at ``init``, and part of the env fingerprint
 ``init`` compares across ranks: the schedule decides the order in which
@@ -112,6 +113,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry as _telemetry
 from ..core import state as _state
 from ..core import topology as T
 from ..ops import collective as C
@@ -124,6 +126,21 @@ from .zero import _optimizer_factory
 SCHEDULE_ENV = "HVD_TPU_PIPELINE_SCHEDULE"
 INTERLEAVE_ENV = "HVD_TPU_PIPELINE_INTERLEAVE"
 _VALID_SCHEDULES = ("1f1b", "gpipe")
+
+# The reference's pipeline series (parallel/pipeline.py:130-145).
+_M_MICROBATCHES = _telemetry.counter(
+    "pipeline.microbatches",
+    "microbatches executed through the pipeline schedule")
+_M_BUBBLE = _telemetry.histogram(
+    "pipeline.bubble_seconds", "seconds",
+    "host seconds waiting on gradient reductions after the last "
+    "schedule tick was dispatched")
+_M_INFLIGHT = _telemetry.gauge(
+    "pipeline.inflight_activations",
+    "peak stage-boundary activations held live by the last schedule")
+_M_INFLIGHT_BYTES = _telemetry.gauge(
+    "pipeline.inflight_activation_bytes",
+    "peak stage-boundary activation bytes held live by the last schedule")
 
 # The stage optimizers of placed steps whose rank does not hold every
 # stage: a rank-0 checkpoint cannot hold such a step's state (rank 0's
@@ -537,8 +554,9 @@ class _PipelineStep:
         return self._stage_meshes is not None
 
     def stats(self) -> dict:
-        """The reference's four pipeline metrics (its telemetry waits for
-        ROADMAP.md A.5): ``pipeline.microbatches`` (microbatches run, all
+        """This step's values of the reference's four pipeline metrics
+        (the registry's series sum them over every step of the process):
+        ``pipeline.microbatches`` (microbatches run, all
         steps), ``pipeline.bubble_seconds`` (host seconds from the last
         tick to the reduced gradients: count, sum, last),
         ``pipeline.inflight_activations`` and
@@ -805,6 +823,10 @@ class _PipelineStep:
         self._stats["pipeline.microbatches"] += m
         self._stats["pipeline.inflight_activations"] = live["peak"]
         self._stats["pipeline.inflight_activation_bytes"] = live["peak_b"]
+        _M_BUBBLE.observe(bubble)
+        _M_MICROBATCHES.inc(m)
+        _M_INFLIGHT.set(live["peak"])
+        _M_INFLIGHT_BYTES.set(live["peak_b"])
         if placed:
             return params, opt_state, self._placed_loss(losses)
         self._apply_unplaced(params, opt_state, reduced)

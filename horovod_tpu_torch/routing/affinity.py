@@ -9,7 +9,7 @@ a prompt (:func:`prompt_header_hashes`): a page-aligned chain hash,
 little-endian int32 bytes and emitting its digest, so ``h_j`` commits to
 the model fingerprint and every token of pages ``0..j``.  The keys are
 byte-identical to the reference's (tests/test_torch_serving.py holds
-them so).  The rest of the routing tier waits for ROADMAP.md A.5.
+them so).  The rest of the routing tier waits for ROADMAP.md A.5.6.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The inference engine: prefill and decode programs over the paged KV
 cache, driven by the continuous-batching scheduler (port of
-horovod_tpu/serving/engine.py, single process).
+horovod_tpu/serving/engine.py).
 
 Each serving phase is one program, gather -> cache-aware forward
 (:func:`..models.transformer.forward_step`) -> in-place scatter of the new
@@ -28,12 +28,32 @@ the decode program once on the trash page (propose and verify too with a
 draft), then marks the engine ready; the reference's replay of a
 manifest of AOT executables has no counterpart (nothing is compiled
 ahead).  Telemetry: the reference's ``serving.*`` series, through
-:mod:`..telemetry`.
+:mod:`..telemetry`; a single request's abort is flight-recorded.
 
-Waiting for later work (ROADMAP.md A.4 and A.5): serving over a ``model``
-mesh axis, the multi-process ``follow``/``stop_followers`` mirroring, the
-elastic ``ServingState``, the memory planner's what-ifs, tuning
-actuation (the reference's ``set_spec_tokens``), the trace span, the flight records and the lock-order and
+Multi-process serving (reference :1104-1203): rank 0 owns the scheduler
+and the HTTP front door; every other rank runs :meth:`InferenceEngine.
+follow` in a loop and repeats rank 0's iteration from what rank 0
+broadcasts (``broadcast_object`` under the name ``hvd-serve-plan``): the
+admission plan, the post-prefill sync, the fed tokens (or the
+speculative acceptance).  A follower has no scheduler; it runs the same
+prefill, decode, propose and verify programs in the same order, so its
+page pool stays bitwise rank 0's.  The plan rides the negotiated
+broadcast on CPU tensors; the runtime moves them to its device, so this
+works when ``init()`` chose NCCL for the data group.  ``abort_all``
+broadcasts an abort marker so blocked followers free their mirrors too;
+:meth:`stop_followers` ends their loops.
+
+With a ``mesh`` whose ``model`` axis has more than one rank, each rank of
+the axis holds its shard of the weights (``utils/convert.py``
+``serving_shard``) and its heads of every KV page, and the programs'
+row-parallel closers sum over the axis in rank order
+(:func:`..models.transformer.axis_sum`): every rank of the axis runs the
+data plane, rank 0 schedules and the others follow.  The draft's cache
+and weights are sharded on the same axis.
+
+Waiting for later work (ROADMAP.md A.5.2 and later): the elastic
+``ServingState``, the memory planner's what-ifs, tuning actuation (the
+reference's ``set_spec_tokens``), the trace span and the lock-order and
 thread-role hooks (a plain ``threading.Lock`` here).
 """
 
@@ -49,7 +69,10 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..core.topology import MODEL_AXIS
 from ..models import transformer as _transformer
+from ..telemetry import flight as _flight
+from ..utils.convert import serving_shard
 from ..utils.serialization import DTYPE_NAMES
 from ..utils.tree import tree_map
 from .kv_cache import PagedKVCache
@@ -110,15 +133,20 @@ class InferenceEngine:
     ``params``/``cfg`` are the training-side parameter tree and
     :class:`~..models.transformer.TransformerConfig`; ``device`` is where
     the parameters, the KV pages and every program live (``cuda`` unless
-    asked for the CPU).  Threading contract: the data plane (``step``/
-    ``generate``/``run_until_idle``/``warm_start``) is driven from ONE
-    thread (the serve loop); ``submit`` is thread-safe (the scheduler's
-    lock), and the drain family (``drain``, ``import_requests``,
-    ``export_requests``, ``abort_all``) may run from other threads,
-    serialized by ``_drain_lock``.
+    asked for the CPU).  With a ``mesh`` (``core/topology.make_mesh``)
+    whose ``model`` axis has more than one rank, the head axis of the KV
+    pages and the attention/FFN weights shard over it (every rank passes
+    the FULL ``params``; each keeps its shard).  Threading contract: the
+    data plane (``step``/``follow``/``generate``/``run_until_idle``/
+    ``warm_start``) is driven from ONE thread (the serve loop); ``submit``
+    is thread-safe (the scheduler's lock), and the drain family
+    (``drain``, ``import_requests``, ``export_requests``) may run from
+    other threads, serialized by ``_drain_lock``.  ``abort_all``
+    broadcasts under multi-process serving, so there only the serve-loop
+    thread may call it (between iterations).
     """
 
-    def __init__(self, params: Any, cfg, *, device="cuda",
+    def __init__(self, params: Any, cfg, *, device="cuda", mesh=None,
                  max_slots: int = 8, page_size: int = 16,
                  capacity: Optional[int] = None,
                  eos_id: Optional[int] = None,
@@ -168,11 +196,14 @@ class InferenceEngine:
             cfg.n_layers, cfg.n_heads, cfg.d_model // cfg.n_heads,
             max_slots, cap // page_size, page_size, dtype=cfg.dtype,
             device=self.device, prefix_cache=prefix_cache,
-            prefix_pages=prefix_pages, fingerprint=fingerprint)
+            prefix_pages=prefix_pages, fingerprint=fingerprint, mesh=mesh)
+        # The model axis the programs' closers sum over (None: one device
+        # or an axis of one rank, whose program is the single-device one).
+        self._axis = self.cache.page_sharding()
         self.capacity = self.cache.capacity
         self.scheduler = ContinuousBatchingScheduler(max_slots,
                                                      self.capacity)
-        self.params = _on(self.device, params)
+        self.params = _on(self.device, self._shard(params, cfg))
         # The fused QKV weight built once, not on every forward.
         self._step_params = _transformer.serving_params(self.params)
         # Speculative decoding: a draft model proposes spec_tokens greedy
@@ -213,9 +244,9 @@ class InferenceEngine:
                 prefix_cache=prefix_cache,
                 fingerprint=json.dumps(_model_dict(draft_cfg),
                                        sort_keys=True),
-                gauges=False)
+                gauges=False, mesh=mesh)
             self._draft_params = _transformer.serving_params(
-                _on(self.device, draft_params))
+                _on(self.device, self._shard(draft_params, draft_cfg)))
         self._buckets = [b for b in (2 ** i for i in range(1, 31))
                          if b <= self.capacity]
         if self._buckets[-1] != self.capacity:
@@ -234,6 +265,13 @@ class InferenceEngine:
         # the "_drained" check-then-act must be atomic with the
         # scheduler drain it guards.  Taken BEFORE the scheduler's lock.
         self._drain_lock = threading.Lock()
+
+    def _shard(self, params, cfg):
+        """This rank's serving parameters: its shard on a model axis of
+        more than one rank, else the tree as it is."""
+        if self._axis is None:
+            return params
+        return serving_shard(params, cfg, self._axis.index, self._axis.size)
 
     # -- readiness / warm start -------------------------------------------
     @property
@@ -325,7 +363,8 @@ class InferenceEngine:
                 k_view, v_view = cache.gather_views(table)
                 blk = torch.stack([tokens, torch.zeros_like(tokens)], dim=1)
                 logits, k_new, v_new = _transformer.forward_step(
-                    self._step_params, blk, lengths, k_view, v_view, cfg)
+                    self._step_params, blk, lengths, k_view, v_view, cfg,
+                    self._axis)
                 flat = self._flat(table, lengths.clamp(min=0)[:, None],
                                   cache)
                 cache.write(flat, k_new[:, :, 0], v_new[:, :, 0])
@@ -350,7 +389,8 @@ class InferenceEngine:
                 start_t = torch.tensor([start], dtype=torch.long,
                                        device=self.device)
                 logits, k_new, v_new = _transformer.forward_step(
-                    params, tokens, start_t, k_view, v_view, cfg)
+                    params, tokens, start_t, k_view, v_view, cfg,
+                    self._axis)
                 pos = start + torch.arange(bucket, device=self.device)
                 flat = self._flat(table_row, pos[None], cache)
                 cache.write(flat, k_new[:, 0], v_new[:, 0])
@@ -373,7 +413,8 @@ class InferenceEngine:
             with torch.no_grad():
                 k_view, v_view = cache.gather_views(table)
                 logits, k_new, v_new = _transformer.forward_step(
-                    self._step_params, blocks, lengths, k_view, v_view, cfg)
+                    self._step_params, blocks, lengths, k_view, v_view, cfg,
+                    self._axis)
                 pos = (lengths.clamp(min=0)[:, None]
                        + torch.arange(W, device=self.device)[None])
                 flat = self._flat(table, pos, cache)
@@ -398,7 +439,7 @@ class InferenceEngine:
                 sp = lengths - 1
                 proposals, kc, vc = _transformer.speculative_propose(
                     self._draft_params, prev, pending, sp, k_view, v_view,
-                    dcfg, m)
+                    dcfg, m, self._axis)
                 pos = sp[:, None] + torch.arange(m + 1,
                                                  device=self.device)[None]
                 flat = self._flat(table, pos, dcache)
@@ -464,26 +505,55 @@ class InferenceEngine:
         admission on logical arrival stamps (trace replay); ``admit=
         False`` skips admission, which is the whole difference between
         this engine and a static batcher.  Returns whether any work
-        ran."""
+        ran.
+
+        Multi-process: rank 0 (the only rank with a scheduler) broadcasts
+        the admission plan, then the post-prefill state, then the sampled
+        tokens, so :meth:`follow` on the other ranks mirrors the cache
+        and runs the same programs in the same order."""
+        mp = self._multiprocess()
         admitted = self._admit(now) if admit else []
-        for slot, req in admitted:
-            self._prefill_and_sample(slot, req)
+        if mp:
+            self._bcast({"stop": False,
+                         "admit": [(slot, list(req.prompt))
+                                   for slot, req in admitted]})
+        finished = [slot for slot, req in admitted
+                    if self._prefill_and_sample(slot, req) is not None]
         # Clean abort of disconnected clients' slots, at the iteration
         # boundary on the serve-loop thread (the only one that frees KV
-        # slots).
+        # slots).  The slots are freed here, after every prefill, in the
+        # order of the sync's evict list, which the followers replay: the
+        # free list is FIFO and the prefix LRU ordered, so freeing an
+        # admission that finished at its prefill before a later
+        # admission's pages are mapped, or before the cancelled slots,
+        # would leave the ranks' page ids apart.
         cancelled = [s for s in self.scheduler.evict_cancelled()
                      if self.cache.length(s) >= 0]
-        for slot in cancelled:
+        evict = cancelled + [s for s, _ in admitted if s not in cancelled
+                             and (s in finished or self.cache.length(s) < 0)]
+        for slot in evict:
             self._free_slot(slot)
         active = self.scheduler.active()
         # A speculative iteration writes spec_tokens positions past the
         # length (target) and spec_tokens - 1 (draft): map the whole
         # block first.  An all-temperature batch runs plain decode
-        # (sampled slots never consult proposals).
+        # (sampled slots never consult proposals).  Page allocation (the
+        # host step that can raise) runs before the decode announcement:
+        # a follower that has read a non-empty "decode" list is inside
+        # the programs and no abort marker reaches it.
         spec = (self._draft_params is not None
                 and any(req.temperature <= 0.0 for _, req in active))
         depth = self.spec_tokens if spec else 0
         self._ensure_block(active, depth)
+        if mp:
+            # Post-prefill sync: first sampled tokens, the slots that
+            # decode (a max_new_tokens=1 admission can finish at
+            # prefill), and the evictions.
+            self._bcast({
+                "last": {s: int(self._last_token[s]) for s, _ in active},
+                "decode": [s for s, _ in active],
+                "spec": spec,
+                "evict": evict})
         if active:
             if spec:
                 self._speculative_iteration(active)
@@ -531,10 +601,12 @@ class InferenceEngine:
         if self.draft_cache is not None:
             self.draft_cache.free_slot(slot)
 
-    def _feed(self, slot: int, req: Request,
-              token: int) -> Optional[str]:
+    def _feed(self, slot: int, req: Request, token: int,
+              free: bool = True) -> Optional[str]:
         """Record one sampled/accepted token; returns the finish reason
-        when this token ended the sequence, else None."""
+        when this token ended the sequence, else None.  A finished
+        sequence's slot is freed here unless ``free`` is False (then the
+        caller frees it)."""
         if not req.generated:
             req.t_first_token = time.perf_counter()
             _M_TTFT.observe(req.t_first_token - req.t_submit)
@@ -545,7 +617,8 @@ class InferenceEngine:
         reason = self.scheduler.feed(slot, token, expect=req)
         if reason is not None:
             req.t_done = time.perf_counter()
-            self._free_slot(slot)  # idempotent vs the drain
+            if free:
+                self._free_slot(slot)  # idempotent vs the drain
         else:
             self._last_token[slot] = token
         return reason
@@ -593,16 +666,25 @@ class InferenceEngine:
             tokens[slot] = self._last_token[slot]
         logits = self._decode_exec()(table, lengths, self._tokens(tokens))
         logits_np = logits.cpu().numpy()
+        fed, evicted = {}, []
         for slot, req in active:
             self.cache.advance(slot)  # the input token's KV landed
-            self._feed(slot, req, self._sample(req, logits_np[slot]))
+            fed[slot] = self._sample(req, logits_np[slot])
+            self._feed(slot, req, fed[slot])
+            if self.cache.length(slot) < 0:
+                evicted.append(slot)
+        if self._multiprocess():
+            self._bcast({"tokens": fed, "evict": evicted})
         _M_DECODES.inc()
         _M_TOKEN_LAT.observe(time.perf_counter() - t0)
         return logits_np
 
-    def _prefill_and_sample(self, slot: int, req: Request) -> None:
+    def _prefill_and_sample(self, slot: int,
+                            req: Request) -> Optional[str]:
+        """Prefill and feed the first token; a sequence that finishes
+        here keeps its slot until :meth:`step` frees it."""
         last = self._prefill(slot, req)
-        self._feed(slot, req, self._sample(req, last))
+        return self._feed(slot, req, self._sample(req, last), free=False)
 
     # -- speculative decoding ---------------------------------------------
     def _spec_dispatch(self, slots: Sequence[int]):
@@ -640,6 +722,10 @@ class InferenceEngine:
         t0 = time.perf_counter()
         m = self.spec_tokens
         props, logits_np = self._spec_dispatch([s for s, _ in active])
+        fed: Dict[int, int] = {}
+        prev: Dict[int, int] = {}
+        advance: Dict[int, int] = {}
+        evicted: List[int] = []
         for slot, req in active:
             if req.temperature <= 0.0:
                 greedy = np.argmax(logits_np[slot], axis=-1)
@@ -665,6 +751,7 @@ class InferenceEngine:
                     finished = True
                     break
             if finished or self.cache.length(slot) < 0:
+                evicted.append(slot)
                 continue
             # The accepted inputs' KV is now valid: pending plus the
             # accepted drafts (the bonus token is the new pending).
@@ -673,8 +760,14 @@ class InferenceEngine:
                 self.draft_cache.advance(slot)
             self._prev_token[slot] = (emitted[-2] if len(emitted) >= 2
                                       else last_before)
+            fed[slot] = int(self._last_token[slot])
+            prev[slot] = int(self._prev_token[slot])
+            advance[slot] = 1 + accept
         if self._spec_proposed:
             _M_SPEC_RATE.set(self._spec_accepted / self._spec_proposed)
+        if self._multiprocess():
+            self._bcast({"tokens": fed, "prev": prev, "advance": advance,
+                         "evict": evicted})
         _M_DECODES.inc()
         _M_TOKEN_LAT.observe(time.perf_counter() - t0)
 
@@ -685,6 +778,89 @@ class InferenceEngine:
         if not self._spec_proposed:
             return None
         return self._spec_accepted / self._spec_proposed
+
+    # -- multi-process mirroring (reference :1104-1203) ---------------------
+    def _multiprocess(self) -> bool:
+        from ..core import state as _state
+
+        return _state.is_initialized() and _state.size() > 1
+
+    def _bcast(self, obj):
+        from ..ops.objects import broadcast_object
+
+        return broadcast_object(obj, root_rank=0, name="hvd-serve-plan")
+
+    def follow(self) -> bool:
+        """A worker rank's mirror of ONE rank-0 :meth:`step`: receive the
+        admission plan (prefill those slots), the post-prefill sync
+        (first tokens, the decode batch, early evictions), run the same
+        decode (or propose + verify) program when rank 0 does, then
+        apply its fed tokens and evictions to the local mirror.  Returns
+        False when rank 0 announced shutdown (:meth:`stop_followers`).
+
+        Any of the three receptions may instead carry rank 0's ``abort``
+        marker (:meth:`abort_all` after a step died mid-iteration): the
+        worker frees every cache slot and returns, so the ranks' caches
+        stay identical for the next iteration."""
+        plan = self._bcast(None)
+        if plan.get("stop"):
+            return False
+        if plan.get("abort"):
+            self._free_all_slots()
+            return True
+        for slot, prompt in plan.get("admit", ()):
+            self._prefill(int(slot), Request(prompt=list(prompt)))
+        sync = self._bcast(None)
+        if sync.get("abort"):
+            self._free_all_slots()
+            return True
+        for slot, token in sync.get("last", {}).items():
+            self._last_token[int(slot)] = int(token)
+        for slot in sync.get("evict", ()):
+            if self.cache.length(int(slot)) >= 0:
+                self._free_slot(int(slot))
+        decode = [int(s) for s in sync.get("decode", ())]
+        if not decode:
+            return True
+        spec = bool(sync.get("spec")) and self._draft_params is not None
+        self._ensure_block([(s, None) for s in decode],
+                           self.spec_tokens if spec else 0)
+        if spec:
+            # Rank 0's two programs, then ITS acceptance results.
+            self._spec_dispatch(decode)
+        else:
+            table, lengths = self.cache.device_tables()
+            tokens = np.zeros((self.max_slots,), np.int64)
+            for slot in decode:
+                tokens[slot] = self._last_token[slot]
+            self._decode_exec()(table, lengths, self._tokens(tokens))
+        fed = self._bcast(None)
+        if fed.get("abort"):
+            # Rank 0's iteration died before it broadcast the tokens (and
+            # it never advanced): free everything, as it did.
+            self._free_all_slots()
+            return True
+        if spec:
+            for slot, n_adv in fed.get("advance", {}).items():
+                for _ in range(int(n_adv)):
+                    self.cache.advance(int(slot))
+                    self.draft_cache.advance(int(slot))
+            for slot, token in fed.get("prev", {}).items():
+                self._prev_token[int(slot)] = int(token)
+        else:
+            for slot in decode:
+                self.cache.advance(slot)
+        for slot, token in fed.get("tokens", {}).items():
+            self._last_token[int(slot)] = int(token)
+        for slot in fed.get("evict", ()):
+            if self.cache.length(int(slot)) >= 0:
+                self._free_slot(int(slot))
+        return True
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' :meth:`follow` loops."""
+        if self._multiprocess():
+            self._bcast({"stop": True})
 
     # -- drain / resume ----------------------------------------------------
     @staticmethod
@@ -783,7 +959,19 @@ class InferenceEngine:
         evict and FAIL every queued and in-flight request
         (``finish_reason`` "error" before ``done`` is set), free the KV
         slots, and re-open admission unless a :meth:`drain` is pending.
-        Returns the failed requests."""
+        Returns the failed requests.
+
+        Multi-process: broadcasts an abort marker first, so followers
+        blocked in :meth:`follow` free their mirrors too (reference
+        :1332-1380).  A dead control plane must not stop the local
+        recovery: the broadcast's failure is swallowed.  The broadcast
+        is outside the lock (a wedged control plane would otherwise hold
+        the drain family too)."""
+        if self._multiprocess():
+            try:
+                self._bcast({"abort": True})
+            except Exception:  # noqa: BLE001 — see the docstring
+                pass
         with self._drain_lock:
             drained, pending = self._drain_and_finish(FinishReason.ERROR)
             if not self._drained:
@@ -796,7 +984,9 @@ class InferenceEngine:
         request finishes at once; an active one is marked and evicted by
         the serve loop at its next iteration boundary.  Returns
         "queued"/"active"/"gone"."""
-        return self.scheduler.cancel(req, reason)
+        disposition = self.scheduler.cancel(req, reason)
+        _flight.record("serve_abort_request", req.rid, reason, disposition)
+        return disposition
 
     def import_requests(self, exported: List[dict]) -> List[Request]:
         """Resubmit a drained export.  Continuations keep their

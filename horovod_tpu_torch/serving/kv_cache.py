@@ -31,11 +31,19 @@ hittable, recycled only when the free list runs dry.  Ghost rows
 (:meth:`PagedKVCache.alloc_ghost`) let ``seed_prefixes`` prefill a
 prefix without a decode slot.
 
-Waiting for later work: sharding the head axis over a ``model`` mesh
-axis (ROADMAP.md A.4, later), the memory ledger and planner, the live
+Tensor parallelism (reference :23-30, :211-225): with a ``mesh`` whose
+``model`` axis has more than one rank, each rank's pool holds its
+``n_heads / tp`` heads of every page (:meth:`PagedKVCache.page_sharding`
+returns that axis), the same head split the serving closers and
+``utils/convert.py`` ``serving_shard`` use.  The page table, the free
+list and the prefix index stay whole and identical on every rank: rank
+0 decides, the followers repeat its decisions
+(:meth:`..engine.InferenceEngine.follow`).
+
+Waiting for later work: the memory ledger and planner, the live
 retune of the index's size (the reference's ``set_prefix_target``, with
 tuning actuation), the lock-order and race-checker hooks (ROADMAP.md
-A.5; a plain ``threading.Lock`` here).
+A.5.2; a plain ``threading.Lock`` here).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..core.topology import MODEL_AXIS
 from ..routing.affinity import chain_hashes as _chain_hash_scheme
 
 # Free-page headroom beside serving.batch_occupancy: a router dispatches
@@ -100,15 +109,19 @@ class PagedKVCache:
                  max_slots: int, pages_per_slot: int, page_size: int,
                  dtype=torch.float32, device="cuda",
                  prefix_cache: bool = False, prefix_pages: int = 0,
-                 fingerprint: str = "", gauges: bool = True) -> None:
+                 fingerprint: str = "", gauges: bool = True,
+                 mesh=None) -> None:
         if pages_per_slot < 1 or page_size < 1:
             raise ValueError("pages_per_slot and page_size must be >= 1")
         if prefix_pages < 0:
             raise ValueError(f"prefix_pages must be >= 0, got "
                              f"{prefix_pages}")
         self.n_layers = n_layers
-        self.n_heads = n_heads
+        self.n_heads = n_heads  # global; the pool holds local_heads
         self.head_dim = head_dim
+        self.mesh = mesh
+        axis = self.page_sharding()
+        self.local_heads = n_heads // (1 if axis is None else axis.size)
         self.max_slots = max_slots
         self.pages_per_slot = pages_per_slot
         self.page_size = page_size
@@ -127,7 +140,8 @@ class PagedKVCache:
         # serving.* page gauges; a draft store must not clobber them.
         self._gauges = bool(gauges)
 
-        shape = (n_layers, self.n_pages, page_size, n_heads, head_dim)
+        shape = (n_layers, self.n_pages, page_size, self.local_heads,
+                 head_dim)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
 
@@ -150,6 +164,23 @@ class PagedKVCache:
         if self._gauges:
             _M_KV_TOTAL.set(self.total_pages)
         self._set_page_gauges_locked()
+
+    # -- sharding ----------------------------------------------------------
+    def page_sharding(self):
+        """The ``model`` :class:`~..core.topology.MeshAxis` the head axis
+        is split over (this rank's pool holds ``n_heads / size`` heads),
+        or None when there is no such axis of more than one rank."""
+        if self.mesh is None or MODEL_AXIS not in getattr(
+                self.mesh, "axis_names", ()):
+            return None
+        axis = self.mesh.axis(MODEL_AXIS)
+        if axis.size <= 1:
+            return None
+        if self.n_heads % axis.size != 0:
+            raise ValueError(
+                f"tensor-parallel degree {axis.size} must divide n_heads "
+                f"({self.n_heads}) to shard the KV head axis")
+        return axis
 
     # -- gauges ------------------------------------------------------------
     def _set_page_gauges_locked(self) -> None:
@@ -531,7 +562,7 @@ class PagedKVCache:
         pages_per_slot]``: a gather into new tensors, the store
         untouched."""
         shape = (self.n_layers, table.shape[0], self.capacity,
-                 self.n_heads, self.head_dim)
+                 self.local_heads, self.head_dim)
         return (self.k_pages[:, table].reshape(shape),
                 self.v_pages[:, table].reshape(shape))
 
@@ -543,6 +574,6 @@ class PagedKVCache:
         0; several may share a position there, and which one lands is
         immaterial."""
         shape = (self.n_layers, self.n_pages * self.page_size,
-                 self.n_heads, self.head_dim)
+                 self.local_heads, self.head_dim)
         self.k_pages.view(shape)[:, flat] = k_new
         self.v_pages.view(shape)[:, flat] = v_new

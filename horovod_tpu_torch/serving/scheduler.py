@@ -18,7 +18,7 @@ iteration (``serving.admission_deferred``).
 
 Telemetry: ``serving.queue_depth`` / ``serving.batch_occupancy`` gauges,
 ``serving.requests`` / ``serving.completed`` counters.  The lock-order
-and race-checker hooks wait for ROADMAP.md A.5 (a plain
+and race-checker hooks wait for ROADMAP.md A.5.2 (a plain
 ``threading.Lock`` here).
 """
 
@@ -307,7 +307,7 @@ class ContinuousBatchingScheduler:
         submission racing the drain is either in ``pending`` or was
         rejected; it cannot be silently dropped.  The elastic relaunch
         path requeues ``pending`` plus continuations of ``drained``
-        (the reference's ``elastic.ServingState``, ROADMAP.md A.5); the
+        (the reference's ``elastic.ServingState``, ROADMAP.md A.5.3); the
         error-recovery path fails both (``InferenceEngine.abort_all``)."""
         with self._lock:
             self._drained = True

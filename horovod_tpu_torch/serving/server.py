@@ -38,7 +38,7 @@ HEALTH_KEY = "serving"
 GENERATE_PATH = "/generate"
 # The live prefix index, for a router or autoscaler warming a newcomer.
 # (The reference's /drain and /resume call its elastic module and wait
-# for it, ROADMAP.md A.5.)
+# for it, ROADMAP.md A.5.3.)
 PREFIXES_PATH = "/prefixes"
 
 # finish_reason -> (HTTP status, message) for requests that did not
@@ -95,8 +95,10 @@ class LMServer:
     registry: the process-global one by default, or a private
     :class:`~..telemetry.exporter.RouteRegistry` so that several servers
     in one process keep their ``/generate`` and ``/healthz`` apart.
-    Without a ``port`` no exporter is started (the reference then uses
-    the one ``hvd.init()`` started, which waits for ROADMAP.md A.5).
+    With the process-global registry, the exporter ``hvd.init()`` started
+    on ``HVD_TPU_METRICS_PORT`` serves ``/generate`` when there is one,
+    and ``port`` is its port; otherwise, without a ``port``, no exporter
+    is started.
 
     The serve-loop thread sets the engine's CUDA device itself and is
     the only thread that runs tensor work; HTTP handler threads only
@@ -124,7 +126,15 @@ class LMServer:
     def port(self) -> Optional[int]:
         if self._own_exporter is not None:
             return self._own_exporter.port
-        return None
+        exp = self._shared_exporter()
+        return exp.port if exp is not None else None
+
+    def _shared_exporter(self):
+        """The exporter ``hvd.init()`` started, serving the global route
+        registry (None with private routes or none started)."""
+        if self._routes is not None:
+            return None
+        return _state._state.metrics_exporter
 
     def start(self) -> "LMServer":
         routes = (self._routes if self._routes is not None
@@ -140,7 +150,7 @@ class LMServer:
                         methods=("POST",), pass_client=True)
         routes.register(PREFIXES_PATH, self._handle_prefixes,
                         methods=("GET",))
-        if self._port is not None:
+        if self._port is not None and self._shared_exporter() is None:
             self._own_exporter = _exporter.start_exporter(
                 _telemetry.registry(), self._port, host=self._host,
                 routes=self._routes)
@@ -154,6 +164,8 @@ class LMServer:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+        # Worker ranks in follow() return False (reference :184).
+        self.engine.stop_followers()
         routes = (self._routes if self._routes is not None
                   else _exporter.routes())
         routes.unregister(GENERATE_PATH)

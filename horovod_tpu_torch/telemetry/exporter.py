@@ -10,8 +10,9 @@ raw snapshot), ``GET /healthz`` (``{"status": "ok"|"NOT_READY", ...}``,
 the load-balancer contract).  :func:`start_exporter` with port 0 picks
 a free port (``exporter.port``).
 
-Waiting for ROADMAP.md A.5: starting an exporter from ``hvd.init()``
-(``HVD_TPU_METRICS_PORT``), the flight records, the chaos site
+``hvd.init()`` starts one when ``HVD_TPU_METRICS_PORT`` is set
+(``core/state.py``); a client gone at the reply is flight-recorded.
+Waiting for ROADMAP.md A.5.2 and later: the chaos site
 ``serving.disconnect``, the lock-order locks and the thread roles.
 """
 
@@ -24,6 +25,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
+from . import flight as _flight
 from .registry import MetricsRegistry
 
 _PROM_HELP_TYPES = {"counter": "counter", "gauge": "gauge",
@@ -50,7 +52,7 @@ class ClientProbe:
     connected).  The hvd-chaos ``serving.disconnect`` site injects a
     positive answer here, which is exactly where a real disconnect is
     observed (the reference's chaos site ``serving.disconnect`` waits
-    for ROADMAP.md A.5)."""
+    for ROADMAP.md A.5.4)."""
 
     def __init__(self, sock: Optional[_socket.socket]) -> None:
         self._sock = sock
@@ -208,16 +210,16 @@ class MetricsExporter:
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     self.wfile.write(body)
-                except (BrokenPipeError, ConnectionResetError):
+                except (BrokenPipeError, ConnectionResetError) as e:
                     # The client vanished between the handler finishing
                     # and the response write (hvd-chaos hardening):
                     # nothing to deliver to, and one gone client must
                     # never take the server thread down with a
                     # traceback.  The handler-side ClientProbe catches
                     # MID-request disconnects; this catches the
-                    # at-reply race.  (The reference's flight record
-                    # here waits for ROADMAP.md A.5.)
-                    pass
+                    # at-reply race.
+                    _flight.record("client_gone_at_reply", self.path,
+                                   f"{type(e).__name__}")
 
             def _dispatch(self, method: str, body: bytes) -> None:
                 path, _, query = self.path.partition("?")

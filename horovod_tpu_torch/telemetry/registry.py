@@ -7,10 +7,10 @@ path); histograms use fixed log2 bucket edges per kind (seconds, bytes,
 count); ``HVD_TPU_METRICS=0`` (or ``set_enabled(False)``) makes every
 ``inc``/``observe``/``set`` one flag check.  Collectors registered with
 :meth:`MetricsRegistry.register_collector` run at snapshot time.
-:func:`aggregate` merges per-rank snapshots (the reference's
-``cluster_metrics``, whose transport waits for ROADMAP.md A.5).
+:func:`aggregate` merges per-rank snapshots (``telemetry.
+cluster_metrics``).
 
-Waiting for A.5 too: the lock-order graph's named locks (plain
+Waiting for ROADMAP.md A.5.2: the lock-order graph's named locks (plain
 ``threading.Lock`` here) and the race detector's ``race_checked``
 descriptors.
 """

@@ -40,16 +40,18 @@ The PyTorch idiom (the reference's trees are immutable jax arrays):
   rank 0 holds only its own stages.
 
 The reference's telemetry metrics live in :func:`stats` under the same
-names until ROADMAP A.5: ``checkpoint.write_seconds`` (count, sum, last),
+names: ``checkpoint.write_seconds`` (count, sum, last),
 ``checkpoint.pending``, ``checkpoint.errors``, ``checkpoint.retries``,
 ``checkpoint.shards_written``, ``checkpoint.manifest_commits``,
-``checkpoint.broadcast_skipped``.  Also waiting for A.5: the chaos site
+``checkpoint.broadcast_skipped``.  A retried write is flight-recorded
+(``ckpt_retry``) and a failed one is a ``checkpoint_error_event``
+(reference :165, :238).  Waiting for A.5.2 and later: the chaos site
 ``ckpt.oserror``, the ``checkpoint.write`` trace span, the lock-order
 locks (plain ``threading.Lock`` here) and thread roles, the memory
-ledger's ``checkpoint.snapshots`` and the flight records.  The serving
+ledger's ``checkpoint.snapshots``.  The serving
 checkpoints (:func:`save_serving_checkpoint`) write the
 reference's two files byte for byte; the elastic ``commit()`` waits for
-A.5.
+A.5.3.
 """
 
 from __future__ import annotations
@@ -67,7 +69,9 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..core import state as _state
+from ..telemetry import flight as _flight
 from . import serialization
 from .retry import BackoffPolicy, retry_call
 
@@ -159,7 +163,7 @@ def _write_bytes_once(path: str, data) -> None:
     """One atomic publish attempt: full write to a private tmp, then
     rename.  A crash at any point leaves either the previous file or the
     new one, never a torn read.  (The reference's chaos site
-    ``ckpt.oserror`` fires here, before the rename; it waits for A.5.)"""
+    ``ckpt.oserror`` fires here, before the rename; it waits for A.5.4.)"""
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     try:
         with open(tmp, "wb") as f:
@@ -184,6 +188,8 @@ def _write_bytes(path: str, data) -> None:
 
     def on_retry(attempt: int, exc: BaseException, delay: float) -> None:
         _inc("checkpoint.retries")
+        _flight.record("ckpt_retry", path, attempt,
+                       f"{type(exc).__name__}: {exc}")
         print(f"WARNING: checkpoint write to {path!r} failed "
               f"(attempt {attempt + 1}/{_write_retries()}: "
               f"{type(exc).__name__}: {exc}); retrying in "
@@ -237,6 +243,8 @@ class _Writer:
             except BaseException as e:  # noqa: BLE001 — carried to wait()
                 handle.error = e
                 _inc("checkpoint.errors")
+                _telemetry.checkpoint_error_event(
+                    handle.path, f"{type(e).__name__}: {e}")
             finally:
                 seconds = time.perf_counter() - t0
                 with _stats_lock:

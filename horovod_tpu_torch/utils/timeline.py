@@ -36,8 +36,9 @@ events are formatted and flushed by its C++ writer, ``native/timeline.cc``
 (reference utils/timeline.py:67-180): the same events, names and rows.
 It has no counter phase, so the ``response_cache`` counter becomes an
 instant on a ``response_cache`` row with the same args, as in the
-reference.  Left out of the port: the reference's flight-recorder and
-trace-context hooks (A.5).
+reference.  Opening and closing a timeline go into the flight ring
+(reference :86, :221).  Left out of the port: the reference's
+trace-context hooks (A.5.2).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import time
 from typing import Optional
 
 from ..native import lib as _native
+from ..telemetry import flight as _flight
 
 # Flush cadence, seconds (≙ TIMELINE_FLUSH_TIME, timeline.h:32).
 _FLUSH_SECONDS = 1.0
@@ -80,6 +82,8 @@ class Timeline:
         else:
             self._file = open(path, "w")
             self._file.write("[\n")
+        # A dump that shows a timeline was live names the file.
+        _flight.record("timeline_open", path)
 
     # -- low-level ---------------------------------------------------------
     def _ts_us(self) -> float:
@@ -188,6 +192,7 @@ class Timeline:
     def close(self) -> None:
         """Finish the file (a valid JSON array).  Idempotent; an event
         after it is a no-op."""
+        _flight.record("timeline_close", self._path)
         with self._lock:
             if self._native is not None:
                 self._lib.hvd_timeline_close(self._native)  # frees it
