@@ -309,7 +309,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (the pipeline.* series moved by exactly each step's
              stats()), resnet (MetricsLogger's values in every epoch's
              logs of the --full flow).
-16. word2vec - skip-gram word2vec with sparse embedding gradients
+16. observe - the analysis, trace and memory tooling (ROADMAP A.5.2) at
+             GPT-2-small's width.  (a) 3 hook-driven AdamW steps (bf16,
+             batch 8, seq 1024) in a child process under
+             HVD_TPU_LOCK_CHECK=1, HVD_TPU_RACE_CHECK=1,
+             HVD_TPU_VERIFY_PROGRAM=1 and the tracer, bitwise the same 3
+             steps here with all of them off (losses, weights, AdamW's
+             moments); each flash kernel 12 times a step (and the sm90
+             forms in the child's profiled step); verify_program's
+             report (18 signatures a step), the race checker's count, the
+             step's trace.analyze decomposition; the hook step with the
+             tracer on and off in turns (5 pairs).  (b) bench.py's trace
+             (seed 7, 40 requests) served with the tracer on and off in
+             turns (5 pairs): identical tokens, one serving.iteration
+             span per iteration that ran work, the decode iteration's
+             p50.  (c) plan_serving (8 slots, 64 pages of 16, bf16) equal
+             to the engine's K and V pools and the ledger's
+             serving.kv_pages (302,579,712 B); the --prefix-pages 64 and
+             --draft-layers 6 what-ifs beside a draft engine's cache
+             (distill_draft.draft_config, d 384); plan_transformer_lm at
+             f32 and adam: the parameter bytes (544,548,864) and AdamW's
+             moments equal to the port's tensors exactly, the plan's
+             total beside the allocator's peak over one step, the
+             ledger's categories.  (d) HVD_TPU_MEM_CAPACITY just under
+             the ledger's total: a serving decode raises
+             ResourceExhaustedError through guard, its flight dump naming
+             serving/decode and the top categories; an allocation larger
+             than the card inside guard("oom_probe"): the same
+             torch.cuda.OutOfMemoryError re-raised, its dump holding the
+             allocator's figures and a live-tensor sweep between the
+             engine's known bytes and memory_allocated; then one more
+             training step.  (e) python -m horovod_tpu_torch.analysis
+             --strict over the package, as a subprocess, exits 0.
+17. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -319,7 +351,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-17. resnet - ResNet data parallelism, which runs no kernel of the port's
+18. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -359,7 +391,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
-          "serving", "serving_mp", "distill", "word2vec", "resnet")
+          "serving", "serving_mp", "distill", "observe", "word2vec",
+          "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -4876,10 +4909,18 @@ def serving_shard_kernels(S, cfg, g):
         b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.bfloat16)
         ms = cuda_time_ms(lambda: S.cache_attention(q, k, v, pos), iters=20,
                           queued=True)
+        # The library yardstick of the main case: SDPA in f32 with the
+        # boolean mask of the rows' positions.
+        mask = (torch.arange(cap, device="cuda")[None, None, None, :]
+                <= pos[:, None, :, None])
+        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qf, kf, vf, attn_mask=mask), iters=20, queued=True)
         out[f"tp{tp}_attention_prefill"] = {
             "heads": H, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / ms, "max_abs_err": err,
-            "worst_over_allowed": margin}
+            "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+            "max_abs_err": err, "worst_over_allowed": margin}
     for key, r in out.items():
         log({"phase": "serving_shard_kernel", "case": key, **r})
     return out
@@ -5149,6 +5190,495 @@ def phase_distill(fa, smi_line, out_dir):
                "flash_kernels")},
            "seconds": time.perf_counter() - t_phase}
     log({"phase": "distill", "device": smi_line, **out})
+    return {"launches": launches, **out}
+
+
+OBSERVE_ENV = {"HVD_TPU_LOCK_CHECK": "1", "HVD_TPU_RACE_CHECK": "1",
+               "HVD_TPU_VERIFY_PROGRAM": "1", "HVD_TPU_TRACE": "1"}
+
+
+def _digest_tensors(tensors) -> str:
+    """sha256 over the bytes of ``tensors`` in order (bitwise identity of
+    two runs' weights or optimizer moments without keeping a copy)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        h.update(str((tuple(t.shape), str(t.dtype))).encode())
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _observe_hook_run(hvd, fa, steps=3, tracer=True):
+    """GPT-2-small's hook-driven AdamW step (examples/transformer_lm.py,
+    bf16, batch 8, seq 1024) from seed 0, ``steps`` steps with the tracer
+    on or off: the losses, the digests of the weights and of AdamW's
+    moments, each flash kernel's launches a step, and the run for more
+    steps."""
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.analysis import program
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    cfg = transformer_lm.bench_config()
+    run = transformer_lm.train(cfg, batch=8, seq=1024, steps=0,
+                               device="cuda", seed=0, hooks=True)
+    trace.set_enabled(tracer)  # after init, whose reset_run re-reads env
+    losses, per_step = [], []
+    for i in range(steps):
+        if i == steps - 1:
+            program.recorder().clear()  # verify_program sees one step
+        before = dict(fa.launches)
+        losses.append(float(run["step"](run["params"], run["data"])))
+        per_step.append({k: n - before[k] for k, n in fa.launches.items()})
+    torch.cuda.synchronize()
+    leaves = tree_leaves(run["params"])
+    state = run["optimizer"].state
+    moments = [state[p][k] for p in leaves for k in ("exp_avg",
+                                                     "exp_avg_sq")]
+    for launches in per_step:
+        if any(n != cfg.n_layers for n in launches.values()):
+            raise AssertionError(f"each flash kernel must launch "
+                                 f"{cfg.n_layers} times a step: {per_step}")
+    return {"losses": losses, "weights": _digest_tensors(leaves),
+            "moments": _digest_tensors(moments),
+            "launches_per_step": per_step}, run, cfg
+
+
+def observe_child(result_path, out_dir) -> int:
+    """The observe phase's checkers-on leg, in a process of its own (the
+    checkers arm at import and lock creation): 3 hook steps under
+    HVD_TPU_LOCK_CHECK, HVD_TPU_RACE_CHECK, HVD_TPU_VERIFY_PROGRAM and
+    the tracer; verify_program, the race checker's count, the step's
+    trace decomposition and one profiled step's sm90 kernels."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.analysis import lockorder, program, races
+    from horovod_tpu_torch.core import state
+    from horovod_tpu_torch.ops import _build, cache as cache_mod
+    from horovod_tpu_torch.ops import collective
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.trace import analyze as tanalyze
+
+    _build.build_all()
+    if not (lockorder.enabled() and races.enabled()
+            and program.program_check_enabled() and trace.enabled()):
+        raise AssertionError("the checkers-on leg runs without its checkers")
+    if not isinstance(collective.Runtime.__dict__.get("_ops"),
+                      races._TrackedField):
+        raise AssertionError("Runtime is not race-checked")
+    res, run, cfg = _observe_hook_run(hvd, fa)
+    rt = state._state.runtime
+    if not isinstance(rt._lock, lockorder.CheckedLock) or \
+            rt.cache is not None or cache_mod.cache_enabled():
+        raise AssertionError("checked locks, or the cache off under the "
+                             "program tracker: not so")
+    report = hvd.verify_program()
+    step = trace.current_step()
+    events = [e for e in trace.export_events()
+              if (e.get("args") or {}).get("step") == step]
+    decomposition = tanalyze.analyze(events)
+    prof = profile_step(lambda: run["step"](run["params"], run["data"]),
+                        out_dir, "observe_checkers")
+    for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                 "flash_bwd_dq_sm90_kernel"):
+        ran = sum(n for name, n in prof["flash_kernels"].items()
+                  if want in name)
+        if ran != cfg.n_layers:
+            raise AssertionError(f"the profiled checkers-on step ran {want} "
+                                 f"{ran} times: {prof['flash_kernels']}")
+    res.update(
+        verify_program={"ranks": report.ranks, "entries": report.entries,
+                        "digest": report.digest},
+        race_checks=races.check_count(),
+        lock_order_edges=sum(len(v) for v in
+                             lockorder.graph_snapshot().values()),
+        trace_step=step, trace_spans=len(events),
+        step_decomposition_us=decomposition["attribution_us"],
+        step_spans={name: sum(1 for e in events if e["name"] == name)
+                    for name in sorted({e["name"] for e in events})},
+        profiled_flash_kernels=prof["flash_kernels"])
+    del run
+    hvd.shutdown()
+    with open(result_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _served_trace(eng, cap, trace_reqs, tracer_on):
+    """bench.py's trace through ``eng`` with the tracer on or off: the
+    tokens, the iterations that ran work, the serving.iteration spans
+    and the decode-iteration times (``cap``, the engine's _Capture)."""
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.serving import harness
+
+    trace.set_enabled(tracer_on)
+    trace.clear()
+    cap.rows.clear()
+    cap.times["decode"].clear()
+    worked = [0]
+    step = eng.step
+
+    def counting(*a, **kw):
+        ran = step(*a, **kw)
+        worked[0] += bool(ran)
+        return ran
+
+    eng.step = counting
+    try:
+        run = harness.run_trace(eng, trace_reqs, True)
+    finally:
+        eng.step = step
+        trace.set_enabled(True)
+    spans = [e for e in trace.export_events()
+             if e.get("name") == "serving.iteration"]
+    return {"tokens": run["tokens"], "worked": worked[0],
+            "spans": len(spans), "iterations": run["iterations"],
+            "decode_ms_p50": _pct(cap.times["decode"], 0.5),
+            "seconds": run["seconds"]}
+
+
+def _observe_plans_and_oom(hvd, cfg, engine_of, out_dir, out):
+    """(c) and (d) of the observe phase, which time nothing, so they run
+    beside the checkers-on child: the KV pool against plan_serving and
+    the ledger, the prefix and draft what-ifs, the simulated and the real
+    out-of-memory through guard, the f32 training plan against the card
+    and one more step after the out-of-memory."""
+    import shutil
+
+    from horovod_tpu_torch.examples import distill_draft, transformer_lm
+    from horovod_tpu_torch.memory import ledger as mledger
+    from horovod_tpu_torch.memory import oom, planner
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.telemetry import flight
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    eng = engine_of()
+    eng.warm_start()
+    # (c) The KV pool: the plan, the engine and the ledger, exactly.
+    kv_plan = planner.plan_serving(
+        n_layers=12, n_heads=12, head_dim=64, max_slots=8,
+        pages_per_slot=64, page_size=16, dtype="bfloat16",
+        vocab_size=cfg.vocab_size)
+    pool = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+    led_kv = mledger.ledger.bytes_by_category().get("serving.kv_pages")
+    if not (kv_plan.framework["serving.kv_pages"] == pool == led_kv
+            == 302_579_712):
+        raise AssertionError(f"KV pool: plan "
+                             f"{kv_plan.framework['serving.kv_pages']}, "
+                             f"engine {pool}, ledger {led_kv}")
+    dcfg = distill_draft.draft_config(cfg)
+    dparams = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(1), dcfg, device="cuda"))
+    deng = engine_of(draft=(dparams, dcfg), prefix_pages=64)
+    what_if = planner.plan_serving(
+        n_layers=12, n_heads=12, head_dim=64, max_slots=8,
+        pages_per_slot=64, page_size=16, dtype="bfloat16",
+        prefix_pages=64, draft_layers=6, vocab_size=cfg.vocab_size)
+    cats = mledger.ledger.bytes_by_category()
+    out["kv_plan"] = {
+        "serving.kv_pages": {"plan": kv_plan.framework["serving.kv_pages"],
+                             "engine": pool, "ledger": led_kv},
+        "what_if_prefix_pages_64": what_if.framework["serving.prefix_pages"],
+        "engine_prefix_pages_64": deng.cache.prefix_pages
+        * deng.cache._page_resident_bytes,
+        "what_if_draft_layers_6": {
+            "serving.draft_kv": what_if.framework["serving.draft_kv"],
+            "serving.draft_params": what_if.framework[
+                "serving.draft_params"]},
+        "draft_engine": {
+            "config": {"d_model": dcfg.d_model, "n_heads": dcfg.n_heads,
+                       "n_layers": dcfg.n_layers, "d_ff": dcfg.d_ff},
+            "draft_kv": deng.draft_cache.k_pages.nbytes
+            + deng.draft_cache.v_pages.nbytes,
+            "ledger_draft_kv": cats.get("serving.draft_kv"),
+            "ledger_draft_params": cats.get("serving.draft_params")}}
+    del deng, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) A simulated OOM on a serving decode, then a real one.
+    fdir = os.path.join(out_dir, "observe_flight")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.environ["HVD_TPU_FLIGHT_DIR"] = fdir
+    try:
+        flight.recorder._last_dump.pop("oom", None)
+        eng.submit(list(range(1, 30)), max_new_tokens=8)
+        eng.step()  # the prefill and the first decode, within capacity
+        total = mledger.ledger.total()
+        os.environ[oom.CAPACITY_ENV] = str(total - 4096)
+        try:
+            eng.step()
+            raise AssertionError("no simulated OOM under the capacity")
+        except oom.ResourceExhaustedError as e:
+            sim_msg = str(e)
+        finally:
+            os.environ.pop(oom.CAPACITY_ENV, None)
+        eng.abort_all()
+        dumps = sorted(f for f in os.listdir(fdir) if "oom" in f)
+        with open(os.path.join(fdir, dumps[-1])) as f:
+            sim = json.load(f)["extra"]
+        top = [t["category"] for t in sim["top_categories"]]
+        if sim["executable"] != "serving/decode" or \
+                "serving.kv_pages" not in top:
+            raise AssertionError(f"the simulated OOM's dump: {sim}")
+        out["simulated_oom"] = {"message": sim_msg[:200],
+                                "executable": sim["executable"],
+                                "top_categories": sim["top_categories"],
+                                "ledger_total_bytes": total}
+        # A real out-of-memory inside guard: the same object re-raised.
+        known = (eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+                 + sum(x.untyped_storage().nbytes()
+                       for x in {t.untyped_storage().data_ptr(): t for t in
+                                 tree_leaves([eng.params,
+                                              eng._step_params])}.values()))
+        total_card = torch.cuda.mem_get_info()[1]
+        flight.recorder._last_dump.pop("oom", None)
+        inner = {}
+        try:
+            with oom.guard("oom_probe"):
+                try:
+                    torch.empty(total_card + (1 << 20), dtype=torch.uint8,
+                                device="cuda")
+                except torch.cuda.OutOfMemoryError as e:
+                    inner["exc"] = e
+                    raise
+            raise AssertionError("no out-of-memory for more than the card")
+        except torch.cuda.OutOfMemoryError as e:
+            if e is not inner.get("exc"):
+                raise AssertionError("guard did not re-raise the same "
+                                     "object")
+        allocated = torch.cuda.memory_allocated()
+        dumps = sorted(f for f in os.listdir(fdir) if "oom" in f)
+        with open(os.path.join(fdir, dumps[-1])) as f:
+            real = json.load(f)["extra"]
+        stats, live = real["device_memory_stats"], real["live_arrays"]
+        if real["executable"] != "oom_probe" or not stats or \
+                stats["bytes_limit"] != total_card or \
+                not known <= live["live_bytes"] <= allocated:
+            raise AssertionError(f"the real OOM's dump: {real['executable']}"
+                                 f" stats {stats}, live "
+                                 f"{live['live_bytes']}, known {known}, "
+                                 f"allocated {allocated}")
+        out["real_oom"] = {"error": real["error"][:160],
+                           "device_memory_stats": stats,
+                           "live_bytes": live["live_bytes"],
+                           "live_tensors": live["arrays"],
+                           "known_bytes": known,
+                           "memory_allocated": allocated,
+                           "top_live": live["top"][:4]}
+    finally:
+        os.environ.pop("HVD_TPU_FLIGHT_DIR", None)
+
+    # (c) The trainer's plan against the card: f32, AdamW.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    run = transformer_lm.train(cfg32, batch=8, seq=1024, steps=1,
+                               device="cuda", seed=0, hooks=True)
+    plan = planner.plan_transformer_lm(
+        vocab_size=32768, d_model=768, n_heads=12, n_layers=12, d_ff=3072,
+        max_seq_len=1024, batch_size=8, dtype="float32", optimizer="adam")
+    leaves = tree_leaves(run["params"])
+    p_bytes = sum(p.nbytes for p in leaves)
+    state = run["optimizer"].state
+    m_bytes = sum(state[p][k].nbytes for p in leaves
+                  for k in ("exp_avg", "exp_avg_sq"))
+    if plan.sections["params"] != p_bytes or p_bytes != 544_548_864 or \
+            plan.sections["optimizer_state"] != m_bytes:
+        raise AssertionError(f"plan params {plan.sections['params']} vs "
+                             f"{p_bytes}, optimizer "
+                             f"{plan.sections['optimizer_state']} vs "
+                             f"{m_bytes}")
+    mledger.ledger.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    run["step"](run["params"], run["data"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out["train_plan"] = {
+        "plan_sections": plan.sections, "plan_framework": plan.framework,
+        "plan_per_rank_bytes": plan.per_rank_bytes,
+        "params_bytes": p_bytes, "adamw_moment_bytes": m_bytes,
+        "allocated_before_step": before, "max_memory_allocated_step": peak,
+        "plan_over_peak": plan.per_rank_bytes / peak,
+        "logits_f32_bytes": 8 * 1024 * 32768 * 4,
+        "ledger_peak_by_category": mledger.ledger.peak_by_category(),
+        "ledger_step_watermark": mledger.ledger.step_watermark()}
+    # (d, end) The card is usable after the out-of-memory: one more step.
+    loss = float(run["step"](run["params"], run["data"]))
+    if not np.isfinite(loss):
+        raise AssertionError(f"the step after the OOM: loss {loss}")
+    out["step_after_oom_loss"] = loss
+    del run
+    hvd.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eng
+
+
+def phase_observe(fa, smi_line, out_dir):
+    """The analysis, trace and memory tooling (ROADMAP A.5.2) on the
+    card, five legs at GPT-2-small's full width.  (a) 3 hook-driven
+    AdamW steps in a child process under HVD_TPU_LOCK_CHECK,
+    HVD_TPU_RACE_CHECK, HVD_TPU_VERIFY_PROGRAM and the tracer, bitwise
+    the same 3 steps here with all of them off (losses, weights, AdamW's
+    moments); each flash kernel 12 times a step (and the sm90 forms in
+    the child's profiled step); no LockOrderError or DataRaceError;
+    verify_program's report; the step's trace decomposition; the hook
+    step with the tracer on and off in turns.  (b) bench.py's trace (40
+    requests) served with the tracer on, bitwise the tracer-off tokens,
+    one serving span per iteration that ran work; the decode iteration's
+    p50 with the tracer on and off in turns.  (c) plan_transformer_lm at
+    f32/adam against the port's own tensors (parameters and AdamW's
+    moments exactly), the plan's total against the allocator's peak over
+    one step, the ledger's categories; plan_serving against the engine's
+    KV pool and the ledger's serving.kv_pages exactly; the prefix and
+    draft what-ifs beside a draft engine's cache.  (d) a simulated OOM
+    through guard on a serving decode, a real torch.cuda.OutOfMemoryError
+    inside guard re-raised as the same object with the allocator's
+    figures and a live sweep in its dump, then one more training step.
+    (e) the lint gate over the package, as a subprocess.  The child and
+    the lint gate run while (c) and (d), which time nothing, run here;
+    the timed legs start after both have ended."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine, harness
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    gc.collect()  # engines of earlier phases leave the ledger
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {}
+    # (a, e) The checkers-on child and the lint gate, started now.
+    child_json = os.path.join(out_dir, "observe_child.json")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--observe-child",
+         child_json, "--out-dir", out_dir], env={**os.environ,
+                                                 **OBSERVE_ENV},
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.analysis", "--strict",
+         "horovod_tpu_torch"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        cfg = transformer_lm.bench_config()
+        params = tree_map(lambda x: x.detach(), tt.init_transformer(
+            torch.Generator().manual_seed(0), cfg, device="cuda"))
+
+        def engine_of(**kw):
+            return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                                   page_size=16, capacity=1024, **kw)
+
+        fa.reset_launches()
+        S.reset_launches()
+        eng = _observe_plans_and_oom(hvd, cfg, engine_of, out_dir, out)
+        _, child_err = child.communicate(timeout=300)
+        lint_out, lint_err = lint.communicate(timeout=300)
+    finally:
+        for proc in (child, lint):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the checkers-on leg failed (rc "
+                             f"{child.returncode}): {child_err[-3000:]}")
+    if lint.returncode != 0:
+        raise AssertionError(f"the lint gate: rc {lint.returncode}\n"
+                             f"{lint_out[-3000:]}{lint_err[-500:]}")
+    out["lint"] = lint_err.strip().splitlines()[-1]
+    with open(child_json) as f:
+        on = json.load(f)
+
+    # (a) The same 3 steps here, with every checker and the tracer off.
+    fa.reset_launches()
+    S.reset_launches()
+    off, run, cfg = _observe_hook_run(hvd, fa, tracer=False)
+    if trace.enabled():
+        raise AssertionError("the checkers-off leg ran with the tracer on")
+    trace.set_enabled(True)
+    for key in ("losses", "weights", "moments", "launches_per_step"):
+        if on[key] != off[key]:
+            raise AssertionError(f"checkers on and off differ in {key}: "
+                                 f"{on[key]} against {off[key]}")
+    n_sig = on["verify_program"]["entries"]
+    if on["verify_program"]["ranks"] != 1 or n_sig != 18:
+        raise AssertionError(f"verify_program: {on['verify_program']} "
+                             f"(18 tensors a step: 17 gradients, the loss)")
+    if on["race_checks"] <= 0:
+        raise AssertionError("the race checker verified nothing")
+    out["checkers"] = {k: on[k] for k in (
+        "losses", "verify_program", "race_checks", "lock_order_edges",
+        "trace_step", "trace_spans", "step_spans", "step_decomposition_us",
+        "profiled_flash_kernels")}
+    out["checkers"]["child_and_lint_seconds"] = child_s
+    out["checkers"]["bitwise_checkers_off"] = True
+    # The hook step, tracer on and off in turns (5 pairs, 3 steps each).
+    ms = {"on": [], "off": []}
+    for tracer_on in (True, False, False, True) * 2 + (True, False):
+        trace.set_enabled(tracer_on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run["step"](run["params"], run["data"])
+        torch.cuda.synchronize()
+        ms["on" if tracer_on else "off"].append(
+            (time.perf_counter() - t0) / 3e-3)
+    trace.set_enabled(True)
+    out["hook_step_ms_tracer_on"] = ms["on"]
+    out["hook_step_ms_tracer_off"] = ms["off"]
+    launches["hook"] = dict(fa.launches)
+    if any(n != cfg.n_layers * 33 for n in launches["hook"].values()):
+        raise AssertionError(f"33 hook steps: {launches['hook']}")
+    del run
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # (b) The served leg, on the engine (c) and (d) used.
+    trace_reqs = harness.serving_trace(40, cfg.vocab_size, seed=7)
+    for n in (4, 16):  # the trace's prefill buckets, off the clock
+        eng.generate(list(range(1, n + 1)), max_new_tokens=2)
+    cap = _Capture(eng)
+    runs = {"on": [], "off": []}
+    for tracer_on in (True, False, False, True) * 2 + (True, False):
+        r = _served_trace(eng, cap, trace_reqs, tracer_on)
+        runs["on" if tracer_on else "off"].append(r)
+    tokens = runs["on"][0]["tokens"]
+    for r in runs["on"] + runs["off"]:
+        if r["tokens"] != tokens:
+            raise AssertionError("the traced served tokens differ from the "
+                                 "untraced")
+    for r in runs["on"]:
+        if r["spans"] != r["worked"] or not r["worked"]:
+            raise AssertionError(f"{r['spans']} serving spans for "
+                                 f"{r['worked']} iterations")
+    if any(r["spans"] for r in runs["off"]):
+        raise AssertionError("serving spans with the tracer off")
+    out["served"] = {
+        "requests": len(trace_reqs),
+        "tokens": sum(len(t) for t in tokens),
+        "iterations_with_work": runs["on"][0]["worked"],
+        "serving_spans": runs["on"][0]["spans"],
+        "decode_ms_p50_tracer_on": [r["decode_ms_p50"] for r in runs["on"]],
+        "decode_ms_p50_tracer_off": [r["decode_ms_p50"]
+                                     for r in runs["off"]],
+        "trace_seconds_on": [r["seconds"] for r in runs["on"]],
+        "trace_seconds_off": [r["seconds"] for r in runs["off"]],
+        "bitwise_tracer_off": True}
+    launches["served"] = dict(S.launches)
+    if not all(launches["served"].get(name) for name in S.KERNELS):
+        raise AssertionError(f"the served leg: {launches['served']}")
+    del eng, cap, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log({"phase": "observe", "device": smi_line, **out})
     return {"launches": launches, **out}
 
 
@@ -5431,7 +5961,13 @@ def main() -> int:
                                                       "chip_smoke"),
                     help="where the profiled step's table and chrome "
                          "trace go")
+    ap.add_argument("--observe-child", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)  # the observe phase's child
     args = ap.parse_args()
+    if args.observe_child:
+        sys.path.insert(0, HERE)
+        os.makedirs(args.out_dir, exist_ok=True)
+        return observe_child(args.observe_child, args.out_dir)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -5487,6 +6023,8 @@ def main() -> int:
                   if "serving_mp" in phases else None)
     distill = (phase_distill(fa, smi, args.out_dir) if "distill" in phases
                else None)
+    observe = (phase_observe(fa, smi, args.out_dir) if "observe" in phases
+               else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -5526,7 +6064,9 @@ def main() -> int:
                 **({"serving": serving["flash_launches"][name]}
                    if serving else {}),
                 **({"distill": distill["launches"][name]}
-                   if distill else {})}})
+                   if distill else {}),
+                **({"observe": observe["launches"]["hook"][name]}
+                   if observe else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -5573,11 +6113,14 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "form": r["form"], "first_form_ms": r["first_form_ms"],
                 "library": library, "case": case,
-                **({"launches_by_path": {
+                "launches_by_path": {
                     "serving": serving["launches"][name],
-                    "follower": serving_mp["launches"][name],
-                    "played_axis": serving_mp["axis"]["played_launches"][
-                        name]}} if serving_mp else {})})
+                    **({"follower": serving_mp["launches"][name],
+                        "played_axis": serving_mp["axis"][
+                            "played_launches"][name]}
+                       if serving_mp else {}),
+                    **({"observe": observe["launches"]["served"][name]}
+                       if observe else {})}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -59,6 +59,13 @@ from . import telemetry  # noqa: E402  (hvd.telemetry.flight & registry)
 from .telemetry import cluster_metrics, metrics  # noqa: E402
 from . import serving  # noqa: E402  (hvd.serving.InferenceEngine & co)
 from .ops import fused  # noqa: E402  (hvd.fused: matmul_psum & co)
+from . import analysis  # noqa: E402  (hvd.analysis.verify_program & co)
+from .analysis.program import verify_program  # noqa: E402
+from . import trace  # noqa: E402  (hvd.trace spans & clock alignment)
+from .trace.merge import dump_fleet_trace  # noqa: E402
+from .trace.watch import StragglerWatch  # noqa: E402
+from . import memory  # noqa: E402  (hvd.memory: ledger/planner/oom)
+from .memory import MemoryWatch  # noqa: E402
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
@@ -69,7 +76,8 @@ Product = ReduceOp.PRODUCT
 
 __all__ = [
     "Adasum", "Average", "ChainedLoss", "Compression",
-    "DistributedOptimizer",
+    "DistributedOptimizer", "MemoryWatch", "StragglerWatch", "analysis",
+    "dump_fleet_trace", "memory", "trace", "verify_program",
     "HorovodError", "IndexedSlices", "Max", "Min", "NotInitializedError",
     "ProcessSet", "Product", "ReduceOp", "Sum", "add_process_set",
     "allgather",

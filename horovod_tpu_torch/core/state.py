@@ -45,6 +45,9 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
+from ..memory import oom as _mem_oom
 from ..ops import compression as _compression
 from ..ops import megakernel as _megakernel
 from ..ops.transport import check_env_fingerprint
@@ -62,6 +65,7 @@ class NotInitializedError(RuntimeError):
                          "horovod_tpu_torch.init().")
 
 
+@_races.race_checked
 @dataclass
 class _State:
     initialized: bool = False
@@ -78,7 +82,11 @@ class _State:
     tick_seconds: float = DEFAULT_CYCLE_TIME_MS / 1000.0
     control_group: Any = None  # gloo, more than one rank
     data_group: Any = None  # the negotiated collectives' data
+    # Registered and removed by callers' threads, read by the cycle's
+    # thread (reference core/state.py:108-114).
+    # guarded_by: lock
     process_sets: dict = field(default_factory=dict)
+    # guarded_by: lock
     next_process_set_id: int = 1
     runtime: Any = None  # ops.collective.Runtime
     # The node x network hierarchy (core/topology.py) and its groups,
@@ -87,6 +95,8 @@ class _State:
     node_group: Any = None
     cross_group: Any = None
     metrics_exporter: Any = None  # telemetry.exporter.MetricsExporter
+    lock: Any = field(
+        default_factory=lambda: _lockorder.make_rlock("GlobalState.lock"))
 
 
 _state = _State()
@@ -142,6 +152,8 @@ def init(device=None) -> None:
     _fused.validate_env()
     _overlap.validate_env()
     _pipeline.validate_env()
+    # hvd-mem: a mistyped HVD_TPU_MEM_CAPACITY fails init too.
+    _mem_oom.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False
@@ -187,7 +199,12 @@ def init(device=None) -> None:
             hierarchy=topo, node_group=node[slot],
             cross_group=cross[topo.ici_groups[slot].index(rank)])
     from ..ops import collective
+    from .. import trace as _trace
 
+    # hvd-trace: a fresh span buffer and (step, cycle, trace_id) context
+    # for this incarnation; rank 0 mints the trace id, the workers adopt
+    # it from the first broadcast (reference core/state.py:336-341).
+    _trace.reset_run(rank=rank)
     _state.runtime = collective.Runtime(_state)
     # Timeline: rank 0 only, the reference's env contract
     # (operations.cc:1201-1204).
@@ -201,11 +218,17 @@ def init(device=None) -> None:
 
 
 def _start_telemetry(rank: int) -> None:
-    """Reference core/state.py:343-369: the runtime collector, and the
-    exporter on ``HVD_TPU_METRICS_PORT``."""
+    """Reference core/state.py:343-369, 396-420: the runtime and memory
+    collectors, the exporter on ``HVD_TPU_METRICS_PORT``, and hvd-mem's
+    pre-flight."""
     from .. import telemetry as _telemetry
+    from ..memory import ledger as _mem_ledger
 
     _telemetry.install_runtime_collector()
+    # hvd-mem: ledger categories, watermarks and the device allocator's
+    # figures ride every cluster_metrics pull.
+    _mem_ledger.install_collector()
+    _preflight_init()
     port = os.environ.get("HVD_TPU_METRICS_PORT")
     if port and _state.metrics_exporter is None and (
             rank == 0 or os.environ.get("HVD_TPU_METRICS_ALL_RANKS") == "1"):
@@ -221,6 +244,23 @@ def _start_telemetry(rank: int) -> None:
                   f"HVD_TPU_METRICS_PORT={port!r}: {e}", file=sys.stderr)
 
 
+def _preflight_init() -> None:
+    """hvd-mem's init-time pre-flight (reference core/state.py:396-420).
+    The reference sizes the largest recorded executable; the port records
+    none (``memory/planner.py``), so the figure is what the ledger already
+    holds (a serving engine built before ``init``)."""
+    try:
+        from ..memory import ledger as _mem_ledger
+
+        held = _mem_ledger.ledger.total()
+        if held and _mem_oom.advertised_capacity() is not None:
+            _mem_oom.preflight_warn(
+                held, "hvd.init",
+                "framework-owned bytes the ledger holds (per-device)")
+    except Exception:  # noqa: BLE001 — pre-flight must not break init
+        pass
+
+
 def shutdown() -> None:
     """Agree on shutdown with every rank, stop the background thread
     (pending handles fail with the shut-down error), leave the groups
@@ -231,13 +271,15 @@ def shutdown() -> None:
         _state.metrics_exporter.close()
         _state.metrics_exporter = None
     _megakernel.flush("shutdown")
+    with _state.lock:
+        sets = list(_state.process_sets.values())
     if dist.is_initialized():
-        for ps in _state.process_sets.values():
+        for ps in sets:
             ps.close()
         if _state.owns_group:
             dist.destroy_process_group()
         else:
-            for group in [ps.group for ps in _state.process_sets.values()] \
+            for group in [ps.group for ps in sets] \
                     + [_state.control_group, _state.data_group,
                        _state.node_group, _state.cross_group]:
                 if group is not None:
@@ -327,5 +369,7 @@ def fusion_threshold_bytes() -> int:
 
 
 def process_sets() -> dict:
-    """The registered process sets by id (the global set is not in it)."""
-    return _state.process_sets
+    """The registered process sets by id (the global set is not in it); a
+    copy, so the cycle's thread never iterates a dict a caller mutates."""
+    with _state.lock:
+        return dict(_state.process_sets)

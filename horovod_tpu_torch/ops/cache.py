@@ -33,9 +33,10 @@ rank 0 turns it back into the stored request and submits that
 (downgrade).  ``join`` also disarms insertion until the JOIN release.
 
 The flight recorder keeps each flush (``cache_flush``) and downgrade
-(``cache_downgrade``), as in the reference.  Left out of the copy: the
-reference's race and lock-order instrumentation and its program-tracker
-gate (analysis, ROADMAP.md A.5.2; the gate reads here as off).
+(``cache_downgrade``), as in the reference.  The cache is off while the
+program tracker runs (``HVD_TPU_VERIFY_PROGRAM=1``, ``analysis/
+program.py``), and its lock and guarded fields carry the analysis
+checkers (reference :96, :240-270).
 
 Env contract (the reference's):
   HVD_TPU_RESPONSE_CACHE=0           disable (default on)
@@ -45,51 +46,23 @@ Env contract (the reference's):
 
 from __future__ import annotations
 
-import hashlib
 import os
 import sys
-import threading
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockorder as _lockorder
+from ..analysis import program as _program
+from ..analysis import races as _races
 from ..telemetry import flight as _flight
 from . import wire
 from .wire import Request, Response, ResponseType
 
 
-class SignatureEntry(NamedTuple):
-    """One collective call in a rank's program signature (copied from
-    horovod_tpu/analysis/program.py:51, which the cache's diagnostics
-    and cycle digests reuse)."""
-
-    seq: int                 # absolute position in this rank's program
-    op: str                  # request kind: allreduce/allgather/...
-    name: str                # wire tensor name
-    dtype: str               # wire dtype name
-    shape: Tuple[int, ...]   # this rank's payload shape
-    reduce_op: str           # SUM/AVERAGE/... ("" for non-reductions)
-    process_set_id: int      # 0 = the global set
-    source: str = ""         # issuing frontend ("", "tf", "torch", ...)
-
-    def describe(self) -> str:
-        src = f", source={self.source}" if self.source else ""
-        red = f", reduce_op={self.reduce_op}" if self.reduce_op else ""
-        return (f"{self.op}(name={self.name!r}, dtype={self.dtype}, "
-                f"shape={tuple(self.shape)}{red}, "
-                f"process_set={self.process_set_id}{src})")
-
-
-def entries_digest(entries: List[SignatureEntry],
-                   total: Optional[int] = None) -> str:
-    """sha256 over a list of signature entries (copied from
-    horovod_tpu/analysis/program.py:237-251): equal digests mean
-    identical programs."""
-    h = hashlib.sha256()
-    h.update(str(len(entries) if total is None else total).encode())
-    for e in entries:
-        # source is per-rank provenance, not program content.
-        h.update(repr(e[:7]).encode())
-    return h.hexdigest()
+# The signature records and their digest are the program verifier's
+# (reference ops/cache.py:96-150 reuses them the same way).
+SignatureEntry = _program.SignatureEntry
+entries_digest = _program.entries_digest
 
 
 # Retired epochs kept for stale-bit downgrade resolution.  Bits flow at
@@ -104,10 +77,13 @@ _MEMBERSHIP_MARKERS = ("process_set.register.", "process_set.remove.")
 
 
 def cache_enabled() -> bool:
-    """Env gate.  The reference also turns the cache off while its
-    program tracker runs (HVD_TPU_VERIFY_PROGRAM, A.5.2 analysis); the
-    port has no tracker, so that gate reads as off."""
-    return os.environ.get("HVD_TPU_RESPONSE_CACHE", "1") != "0"
+    """Env gate.  The cache is OFF while the in-negotiation program
+    tracker runs (HVD_TPU_VERIFY_PROGRAM=1): cache hits bypass
+    ``Coordinator.submit``, which would blind the tracker's positional
+    streams and mis-pair later entries."""
+    if os.environ.get("HVD_TPU_RESPONSE_CACHE", "1") == "0":
+        return False
+    return not _program.program_check_enabled()
 
 
 def cache_capacity() -> int:
@@ -249,6 +225,7 @@ class CacheStats:
     inserts: int = 0
 
 
+@_races.race_checked
 class ResponseCache:
     """One rank's replica of the negotiation response cache.
 
@@ -261,7 +238,7 @@ class ResponseCache:
         self.rank = rank
         self.capacity = capacity if capacity is not None \
             else cache_capacity()
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("ResponseCache._lock")
         self._entries: List[_Entry] = []  # guarded_by: _lock
         self._by_key: Dict[tuple, Tuple[int, int]] = {}  # guarded_by: _lock
         self._by_name: Dict[str, int] = {}  # guarded_by: _lock

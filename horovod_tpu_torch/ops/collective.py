@@ -96,7 +96,12 @@ import torch
 import torch.distributed as dist
 
 from .. import telemetry as _telemetry
+from .. import trace as _trace
+from ..analysis import lockorder as _lockorder
+from ..analysis import program as _program
+from ..analysis import races as _races
 from ..core import state as _state
+from ..trace import clock as _trace_clock
 from . import cache as _cache
 from . import compression as _compression
 from . import megakernel as _megakernel
@@ -310,23 +315,35 @@ class _QueuedOp:
     request: Optional[Request] = None  # for the cache's insertion
     cache_hit: bool = False  # sent as a cache hit, not as the request
     t_submit: float = 0.0  # perf_counter at enqueue
+    t_submit_mono: float = 0.0  # monotonic at enqueue, when tracing
 
 
+@_races.race_checked
 class Runtime:
     """The negotiated collectives of one ``init``: op queue, outbox,
-    handles, rank 0's coordinator and the background thread."""
+    handles, rank 0's coordinator and the background thread (the
+    reference's ``OpQueue`` :1246, its drain loop and the transports'
+    message flow; its lock names: ``OpQueue._lock`` and
+    ``collective._drain_lock``).
+
+    Besides the requests, the exchange carries the analysis and trace
+    traffic that the reference sends as frames of their own: each
+    worker's program signature (``verify_program``) and rank 0's verdict,
+    the trace pulls (``dump_fleet_trace``), the clock probes
+    (``trace/clock.py``) and the trace context, all on the thread that
+    runs the cycle."""
 
     def __init__(self, st) -> None:
         self.st = st
         self.rank, self.size = st.rank, st.size
         self.device = st.device
         self.handles = HandleManager()
-        self._lock = threading.Lock()
-        self._ops: Dict[str, _QueuedOp] = {}  # guarded by _lock
-        self._outbox: List[bytes] = []  # guarded by _lock
-        self._names: Dict[str, int] = {}  # guarded by _lock
+        self._lock = _lockorder.make_lock("OpQueue._lock")
+        self._ops: Dict[str, _QueuedOp] = {}  # guarded_by: _lock
+        self._outbox: List[bytes] = []  # guarded_by: _lock
+        self._names: Dict[str, int] = {}  # guarded_by: _lock
         # Held for a whole cycle; quiesce() holds it across submissions.
-        self.cycle_lock = threading.Lock()
+        self.cycle_lock = _lockorder.make_lock("collective._drain_lock")
         self._work = threading.Event()  # posted since the last cycle
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -335,7 +352,7 @@ class Runtime:
                         if st.size > 1 else None)
         self.cache = (_cache.ResponseCache(rank=st.rank)
                       if self._cache_agreed() else None)
-        self._hits: List[Tuple[int, int]] = []  # guarded by _lock
+        self._hits: List[Tuple[int, int]] = []  # guarded_by: _lock
         # Rank 0's Chrome trace (utils/timeline.py), or None.
         self.timeline = None
         self.coordinator = (Coordinator(st.size, st.fusion_threshold_bytes,
@@ -353,10 +370,33 @@ class Runtime:
         self.stats = self._zero_stats()
         # cluster_metrics: rank 0 asks for the ranks' snapshots in a
         # cycle's broadcast; each worker answers in its next batch.
-        self._metrics_ask = False  # rank 0, guarded by _lock
+        self._metrics_ask = False  # rank 0; guarded_by: _lock
         self._metrics_due = False  # workers: answer in the next batch
-        self._metrics_replies: Dict[int, dict] = {}  # rank 0, under _lock
+        self._metrics_replies: Dict[int, dict] = {}  # guarded_by: _lock
         self._metrics_done = threading.Event()
+        # verify_program: the workers' signatures (rank 0) and the
+        # verdict rank 0 broadcasts next; a worker's verdict.
+        self._sig_replies: Dict[int, bytes] = {}  # guarded_by: _lock
+        self._sig_all = threading.Event()
+        # guarded_by: _lock
+        self._sig_verdict: Optional[Tuple[bool, str]] = None
+        self._sig_sent = threading.Event()
+        self._sig_result: Optional[Tuple[bool, str]] = None
+        self._sig_done = threading.Event()
+        # dump_fleet_trace: rank 0's pull and the workers' span buffers.
+        self._trace_ask = False  # guarded_by: _lock
+        self._trace_due = False  # workers: answer in the next batch
+        self._trace_replies: Dict[int, list] = {}  # guarded_by: _lock
+        self._trace_done = threading.Event()
+        # Clock probes (trace/clock.py): rank 0's estimator set and probe
+        # cadence; a worker's last probe (t0, its receipt stamp).
+        self.clock = _trace_clock.ClockSync()
+        self._ping_interval = _trace.ping_interval()
+        self._last_ping = 0.0
+        self._probe_burst = 0  # guarded_by: _lock
+        self._pong: Optional[Tuple[float, float]] = None
+        # Monotonic stamp of the first post since the last cycle's batch.
+        self._first_post: Optional[float] = None  # guarded_by: _lock
 
     @staticmethod
     def _zero_stats() -> Dict[str, int]:
@@ -475,6 +515,7 @@ class Runtime:
             raise HorovodError(self.shutdown_message)
         ops, msgs, hits = [], [], []
         cache = self.cache
+        tracing = _trace.enabled()
         for spec in specs:
             x, ps = spec["tensor"], spec["ps"]
             home = x.device
@@ -511,7 +552,8 @@ class Runtime:
                 red_op=spec["red_op"], handle=h,
                 nbytes=max(_numel(x.shape), 1) * wire.dtype_size(dt),
                 ps=ps, out=out, ready=ready, request=req,
-                cache_hit=hit is not None, t_submit=time.perf_counter()))
+                cache_hit=hit is not None, t_submit=time.perf_counter(),
+                t_submit_mono=time.monotonic() if tracing else 0.0))
         with self._lock:
             taken = [o.name for o in ops if o.name in self._ops]
             if taken or len({o.name for o in ops}) < len(ops):
@@ -528,7 +570,14 @@ class Runtime:
             self._hits.extend(hits)
             self.stats["cache_hits"] += len(hits)
             self.stats["cache_misses"] += len(msgs)
+            if tracing and self._first_post is None:
+                self._first_post = time.monotonic()
         _M_SUBMITTED.inc(len(ops))
+        if tracing and self.rank == 0 and self.channel is not None:
+            # Rank 0's own arrival for the live skew (the reference's
+            # ControllerTransport.submit; the tracker keeps the first).
+            step, cycle, _tid = _trace.current_ctx()
+            _trace.note_batch_arrival(0, step, cycle)
         tl = self.timeline
         if tl is not None:
             for o in ops:
@@ -575,6 +624,124 @@ class Runtime:
             replies = dict(self._metrics_replies)
         return {0: local, **replies}
 
+    # -- verify_program's exchange (analysis/program.py) -------------------
+    def collect_signatures(self, payload: bytes,
+                           timeout: float) -> Dict[int, bytes]:
+        """Rank 0: every rank's packed signature by rank, ``payload`` as
+        rank 0's.  Each worker's arrives in a batch of its own
+        ``verify_program`` call; a rank missing after ``timeout`` seconds
+        fails the verification (every rank must take part)."""
+        self._work.set()
+        if not self._sig_all.wait(timeout):
+            with self._lock:
+                got = sorted(self._sig_replies)
+            raise HorovodError(
+                f"verify_program timed out after {timeout:.0f}s: ranks "
+                f"{sorted(set(range(1, self.size)) - set(got))} did not "
+                f"send their program signature (every rank must call "
+                f"verify_program).")
+        with self._lock:
+            replies, self._sig_replies = self._sig_replies, {}
+            self._sig_all.clear()
+        return {0: payload, **replies}
+
+    def broadcast_signature_result(self, error: Optional[str],
+                                   timeout: float) -> None:
+        """Rank 0: the verdict goes out in the next cycle's broadcast;
+        returns once it has."""
+        with self._lock:
+            self._sig_sent.clear()
+            self._sig_verdict = (error is not None, error or "")
+        self._work.set()
+        self._sig_sent.wait(timeout)
+
+    def exchange_signature(self, payload: bytes,
+                           timeout: float) -> Optional[str]:
+        """A worker: send the packed signature in the next batch and wait
+        for rank 0's verdict (None when the programs agree)."""
+        self._sig_done.clear()
+        self._post([_tp.encode_signature(payload)])
+        if not self._sig_done.wait(timeout):
+            raise HorovodError(
+                f"verify_program timed out after {timeout:.0f}s waiting "
+                f"for rank 0's verdict (every rank must call "
+                f"verify_program).")
+        bad, text = self._sig_result
+        return text if bad else None
+
+    # -- the fleet trace (trace/merge.py, trace/clock.py) -------------------
+    def collect_traces(self, local: list,
+                       timeout: float) -> Dict[int, list]:
+        """Rank 0: every rank's span buffer by rank, ``local`` as rank
+        0's (the ``collect_metrics`` pattern; a rank that has not
+        answered within ``timeout`` seconds is left out)."""
+        with self._lock:
+            self._trace_replies = {}
+            self._trace_done.clear()
+            self._trace_ask = True
+        self._work.set()
+        self._trace_done.wait(timeout)
+        with self._lock:
+            replies = dict(self._trace_replies)
+        return {0: local, **replies}
+
+    def measure_clock_offsets(self, timeout: float = 2.0,
+                              probes: int = 8) -> Dict[int, float]:
+        """Rank 0: ``probes`` clock probes in consecutive cycles, then
+        the workers' offsets (seconds, worker clock minus rank 0's)."""
+        if self.channel is None or self.rank != 0:
+            return {}
+        with self._lock:
+            self._probe_burst = probes
+        self._work.set()
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            counts = self.clock.sample_counts()
+            with self._lock:
+                left = self._probe_burst
+            if left == 0 and len(counts) == self.size - 1:
+                break
+            time.sleep(self.st.tick_seconds)
+        return self.clock.offsets()
+
+    def _note_pongs(self, pongs, t2: float) -> None:
+        """Rank 0: feed each worker's probe answer to the estimator, its
+        hold time between receipt and send taken out (trace/clock.py)."""
+        for r, (t0, t1, t1s) in pongs:
+            self.clock.on_pong(r, t0, t1, t2 - (t1s - t1))
+
+    def _note_arrivals(self, ctxs, t2: float) -> None:
+        """Rank 0: each worker's first post of the batch, on rank 0's
+        clock where its offset is known (else the batch's arrival)."""
+        offsets = self.clock.offsets()
+        for r, (step, cycle, _tid, t_post) in ctxs:
+            off = offsets.get(r)
+            _trace.note_batch_arrival(
+                r, step, cycle, t2 if off is None else t_post - off)
+
+    def _broadcast_prefixes(self, responses: List[Response]
+                            ) -> Tuple[bytes, bool]:
+        """Rank 0: the cycle's metrics pull, verdict, trace pull, probe
+        and context."""
+        with self._lock:
+            ask, self._metrics_ask = self._metrics_ask, False
+            verdict, self._sig_verdict = self._sig_verdict, None
+            pull, self._trace_ask = self._trace_ask, False
+            burst = self._probe_burst
+            if burst:
+                self._probe_burst = burst - 1
+        tracing = _trace.enabled()
+        now = time.monotonic()
+        ping = None
+        if tracing and (burst or (self._ping_interval > 0 and now
+                                  - self._last_ping >= self._ping_interval)):
+            self._last_ping = now
+            ping = now
+        ctx = _trace.pack_ctx() if tracing and responses else None
+        return (_tp.encode_prefixes(pull_metrics=ask, signature=verdict,
+                                    pull_trace=pull, ping=ping, ctx=ctx),
+                verdict is not None)
+
     # -- one cycle (background thread) -------------------------------------
     def _cycle(self) -> None:
         with self.cycle_lock:
@@ -584,9 +751,19 @@ class Runtime:
             with self._lock:
                 batch = b"".join(self._outbox) + _tp.encode_hits(self._hits)
                 self._outbox, self._hits = [], []
+                t_post, self._first_post = self._first_post, None
             if self._metrics_due:
                 self._metrics_due = False
                 batch += _tp.encode_metrics(_telemetry.metrics())
+            if self._trace_due:
+                self._trace_due = False
+                batch += _tp.encode_trace(_trace.export_events())
+            if self.rank != 0 and self.channel is not None:
+                if t_post is not None and _trace.enabled():
+                    batch += _tp.encode_trace_ctx(_trace.pack_ctx(), t_post)
+                if self._pong is not None:
+                    (t0, t1), self._pong = self._pong, None
+                    batch += _tp.encode_pong(t0, t1, time.monotonic())
             if self.channel is None:
                 batches = [batch]
             else:
@@ -594,8 +771,17 @@ class Runtime:
             responses: List[Response] = []
             cache = self.cache
             if self.rank == 0:
+                tick_t0 = time.monotonic()
                 responses, groups, epoch, compact, n_other, replay_ids = \
                     self._negotiate(batches)
+                if responses and _trace.enabled():
+                    # The fleet-wide cycle id advances before the
+                    # broadcast, whose context carries it (reference
+                    # ops/collective.py:2208-2217).
+                    _trace.next_cycle()
+                    _trace.span("negotiate.tick", "negotiate", tick_t0,
+                                time.monotonic(),
+                                args={"responses": len(responses)})
                 # Rank 0 reaches its own stream position before it
                 # publishes the stream.
                 if cache is not None:
@@ -604,20 +790,21 @@ class Runtime:
                             resp, replay=id(resp) in replay_ids)
             if self.channel is not None:
                 payload = b""
+                verdict_sent = False
                 if self.rank == 0 and responses:
                     # A cycle that is all replay goes as entry indices.
                     payload = (_tp.encode_replay(groups, epoch)
                                if compact and groups and n_other == 0
                                else _tp.encode_responses(responses))
                 if self.rank == 0:
-                    with self._lock:
-                        ask, self._metrics_ask = self._metrics_ask, False
-                    if ask:
-                        payload = _tp.encode_metrics_pull(payload)
+                    prefixes, verdict_sent = \
+                        self._broadcast_prefixes(responses)
+                    payload = prefixes + payload
                 payload = self.channel.broadcast(payload)
+                if verdict_sent:
+                    self._sig_sent.set()
                 if self.rank != 0:
-                    pull, payload = _tp.strip_metrics_pull(payload)
-                    self._metrics_due = self._metrics_due or pull
+                    payload = self._observe_prefixes(payload)
                 if self.rank != 0 and payload:
                     kind, body = _tp.decode_payload(payload)
                     responses = (cache.rebuild_groups(*body)
@@ -639,6 +826,26 @@ class Runtime:
                 if self._stopped.is_set():
                     break
                 self._execute(resp, tl)
+
+    def _observe_prefixes(self, payload: bytes) -> bytes:
+        """A worker: act on rank 0's broadcast prefixes (transport.py);
+        returns the payload after them."""
+        t1 = time.monotonic()
+        found, rest = _tp.strip_prefixes(payload)
+        if found.get(_tp.PAYLOAD_PULL_METRICS):
+            self._metrics_due = True
+        if found.get(_tp.PAYLOAD_PULL_TRACE):
+            self._trace_due = True
+        if _tp.PAYLOAD_SIGNATURE in found:
+            self._sig_result = found[_tp.PAYLOAD_SIGNATURE]
+            self._sig_done.set()
+        if _tp.PAYLOAD_PING in found:
+            self._pong = (found[_tp.PAYLOAD_PING], t1)
+        if _tp.PAYLOAD_CTX in found and _trace.enabled():
+            # Adopt rank 0's cycle id before executing, so this rank's
+            # spans land under the same fleet-wide cycle.
+            _trace.observe_ctx(*found[_tp.PAYLOAD_CTX])
+        return rest
 
     def _coordinator_for(self, psid: int):
         if psid == 0:
@@ -671,6 +878,8 @@ class Runtime:
         shutdown = False
         pending, self._unrouted = self._unrouted, []
         withdrawals = []
+        pongs, ctxs = [], []
+        t2 = time.monotonic()  # the batches' arrival (clock probes)
         cache = self.cache
         for r, b in enumerate(batches):
             for kind, body in _tp.decode_batch(b):
@@ -691,8 +900,25 @@ class Runtime:
                         self._metrics_replies[r] = body
                         if len(self._metrics_replies) == self.size - 1:
                             self._metrics_done.set()
+                elif kind == _tp.KIND_SIGNATURE:
+                    with self._lock:
+                        self._sig_replies[r] = body
+                        if len(self._sig_replies) == self.size - 1:
+                            self._sig_all.set()
+                elif kind == _tp.KIND_TRACE:
+                    with self._lock:
+                        self._trace_replies[r] = body
+                        if len(self._trace_replies) == self.size - 1:
+                            self._trace_done.set()
+                elif kind == _tp.KIND_PONG:
+                    pongs.append((r, body))
+                elif kind == _tp.KIND_TRACE_CTX:
+                    ctxs.append((r, body))
                 else:
                     shutdown = True
+        if pongs or ctxs:
+            self._note_pongs(pongs, t2)
+            self._note_arrivals(ctxs, t2)
         for req in pending:
             coord = self._coordinator_for(req.process_set_id)
             if coord is None:  # the set's registration is not done here yet
@@ -771,12 +997,14 @@ class Runtime:
     def _execute(self, resp: Response, tl=None) -> None:
         rt = resp.response_type
         if rt == ResponseType.ERROR:
+            mt0 = time.monotonic()
             err = HorovodError(resp.error_message)
             taken = self._take(resp.tensor_names)
             _M_ERRORS.inc(max(len(taken), 1))
             _telemetry.error_event(resp.error_message or "")
             for o in taken.values():
                 o.handle.finish(error=err)
+            self._trace_spans(resp, taken, mt0)
             return
         if rt == ResponseType.JOIN:
             self.join_result = resp.tensor_sizes[0] if resp.tensor_sizes \
@@ -804,6 +1032,7 @@ class Runtime:
         if resp.process_set_id and (ps is None or not ps.included()):
             return  # not a member: the set's members run it
         ops = self._take(resp.tensor_names)
+        mt0 = time.monotonic()
         if _telemetry.enabled():
             t0 = time.perf_counter()
             for o in ops.values():
@@ -848,6 +1077,29 @@ class Runtime:
                 tl.end(name, dtype=str(o.tensor.dtype))
             o.handle.finish(result=outs[name], event=event)
         _M_COMPLETED.inc(len(ops))
+        self._trace_spans(resp, ops, mt0)
+
+    @staticmethod
+    def _trace_spans(resp: Response, ops: Dict[str, _QueuedOp],
+                     mt0: float) -> None:
+        """hvd-trace (reference ops/collective.py:1427-1449): the
+        negotiate.wait span -- this rank's first submit up to execution
+        -- and the dispatch span of the response (pack, launch, unpack;
+        the launch span inside it, ops/megakernel.py, carves it into
+        legs).  ERROR responses trace too."""
+        if not ops or not _trace.enabled():
+            return
+        t_neg = min((o.t_submit_mono for o in ops.values()
+                     if o.t_submit_mono > 0.0), default=0.0)
+        if t_neg:
+            _trace.span("negotiate.wait", "negotiate", t_neg, mt0,
+                        args={"tensors": len(resp.tensor_names)})
+        _trace.span(
+            f"execute/{resp.response_type.name.lower()}", "dispatch",
+            mt0, time.monotonic(),
+            args={"tensors": len(resp.tensor_names),
+                  "first": resp.tensor_names[0]
+                  if resp.tensor_names else ""})
 
     def _run(self, resp: Response, ops: Dict[str, _QueuedOp], ps, tl=None):
         """Launch one data response; returns {name: result} for the ops
@@ -1158,6 +1410,21 @@ def _spec(tensor, op: RequestType, name: Optional[str], prefix: str,
 
 
 def _enqueue(specs: List[dict]) -> List[int]:
+    """Every collective funnels through here: each op's signature is
+    recorded first (``analysis/program.py``, reference :2395-2404), so
+    ``verify_program`` can prove cross-rank agreement ahead of the data
+    plane."""
+    if _program.recording_enabled():
+        for sp in specs:
+            op, ps = sp["op"], sp["ps"]
+            _program.record_collective(
+                op.name.lower(), sp["name"],
+                wire.dtype_name(wire.dtype_of(sp["tensor"].dtype)),
+                tuple(sp["tensor"].shape),
+                reduce_op=(wire.reduce_op_name(sp["red_op"])
+                           if op in (RequestType.ALLREDUCE,
+                                     RequestType.REDUCESCATTER) else ""),
+                process_set_id=0 if ps is None else ps.process_set_id)
     return _runtime().enqueue(specs)
 
 
@@ -1392,8 +1659,9 @@ def add_process_set(ranks):
     bad = [r for r in ranks if not 0 <= r < st.size]
     if bad:
         raise ValueError(f"process-set ranks {bad} outside [0, {st.size}).")
-    psid = st.next_process_set_id
-    st.next_process_set_id = psid + 1
+    with st.lock:
+        psid = st.next_process_set_id
+        st.next_process_set_id = psid + 1
     if st.size > 1:
         regs = allgather_object((psid, ranks),
                                 name=f"process_set.register.{psid}")
@@ -1411,7 +1679,8 @@ def add_process_set(ranks):
         ps.coordinator = Coordinator(
             ps.size(), st.fusion_threshold_bytes, timeline=rt.timeline,
             cache=rt.cache, ranks=ranks)
-    st.process_sets[psid] = ps
+    with st.lock:
+        st.process_sets[psid] = ps
     _flush_for_membership(rt, f"add_process_set({psid})")
     return ps
 
@@ -1443,7 +1712,8 @@ def remove_process_set(process_set) -> bool:
                 f"remove_process_set must be called by every process for "
                 f"the same set; this process removed {psid} but the job "
                 f"removed {regs}.")
-    ps = st.process_sets.pop(psid)
+    with st.lock:
+        ps = st.process_sets.pop(psid)
     ps.close()
     dist.destroy_process_group(ps.group)
     _flush_for_membership(_runtime(), f"remove_process_set({psid})")

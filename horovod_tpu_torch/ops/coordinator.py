@@ -35,12 +35,14 @@ from __future__ import annotations
 import ctypes
 import os
 import struct
-import threading
 import time
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..analysis import lockorder as _lockorder
+from ..analysis import program as _program
+from ..analysis import races as _races
 from ..native import lib as _native
 from ..telemetry import flight as _flight
 from . import cache as _cache
@@ -70,6 +72,7 @@ def _withdraw_message(name: str, rank: int) -> str:
             f"all ranks.")
 
 
+@_races.race_checked
 class PyCoordinator:
     """The coordinator of one process set (``size`` ranks, set-local
     numbering).  Lock-guarded, like the reference's single mutex
@@ -78,20 +81,20 @@ class PyCoordinator:
     def __init__(self, size: int, fusion_threshold: int):
         self.size = size
         self.fusion_threshold = fusion_threshold
-        self._lock = threading.Lock()
-        self.table: Dict[str, _PendingTensor] = {}
-        self.ready: List[str] = []
+        self._lock = _lockorder.make_lock("PyCoordinator._lock")
+        self.table: Dict[str, _PendingTensor] = {}  # guarded_by: _lock
+        self.ready: List[str] = []  # guarded_by: _lock
         # dtype and submit-time bytes per constructed response, for the
         # fusion loop.
-        self._resp_dtype: Dict[str, DataType] = {}
-        self._resp_nbytes: Dict[str, int] = {}
+        self._resp_dtype: Dict[str, DataType] = {}  # guarded_by: _lock
+        self._resp_nbytes: Dict[str, int] = {}  # guarded_by: _lock
         # ERROR responses queued by withdraw(); drained first.
-        self._withdrawn: List[Response] = []
+        self._withdrawn: List[Response] = []  # guarded_by: _lock
         # Ranks that called join(): ready for every tensor, zeros at
         # execution.  When all joined, a JOIN response carries the last.
-        self.joined: set = set()
-        self._last_joined: int = -1
-        self._join_release: List[Response] = []
+        self.joined: set = set()  # guarded_by: _lock
+        self._last_joined: int = -1  # guarded_by: _lock
+        self._join_release: List[Response] = []  # guarded_by: _lock
 
     def withdraw(self, name: str, rank: int) -> None:
         """A rank abandoned ``name`` (synchronize timeout): drop the
@@ -504,6 +507,7 @@ _DATA_RESPONSE_TYPES = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
                         ResponseType.ALLTOALL)
 
 
+@_races.race_checked
 class Coordinator:
     """A :class:`PyCoordinator` with the timeline's negotiation marks and
     the response cache's fast path above it (port of
@@ -522,8 +526,12 @@ class Coordinator:
     Submissions that are not cache hits and withdrawals go into the
     flight ring (reference :692, :725); the runtime's cycle turns
     :meth:`check_stalled`'s warnings into a ``stall_event`` (reference
-    :766).  The reference's program tracker is not in the port
-    (A.5.2)."""
+    :766).  With ``HVD_TPU_VERIFY_PROGRAM=1`` the program tracker
+    (``analysis/program.py``, reference :623-646) watches the request
+    streams: a rank-divergent program ORDER, which the name-keyed table
+    below can only stall on, becomes an ERROR response naming the first
+    divergent entry at the next poll (the cache is off then,
+    ``cache.cache_enabled``)."""
 
     def __init__(self, size: int, fusion_threshold: int, timeline=None,
                  cache=None, ranks=None):
@@ -539,15 +547,20 @@ class Coordinator:
         # wire and full requests of a process set share one table.
         self._ranks = tuple(ranks) if ranks is not None \
             else tuple(range(size))
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = _lockorder.make_lock("Coordinator._inflight")
         # name -> {global rank -> Request} of requests in negotiation,
         # kept for cache insertion once the response is broadcast.
-        self._inflight: Dict[str, Dict[int, Request]] = {}
+        self._inflight: Dict[str, Dict[int, Request]] = {}  # guarded_by: _inflight_lock
         # True when the impl has seen a submit or withdraw since the last
         # poll; in the steady state every request is a hit and polling an
         # untouched impl is pure overhead.  Set AFTER the impl call and
         # cleared BEFORE the poll (the reference's ordering contract).
         self._impl_dirty = True
+        self._tracker = (_program.ProgramTracker(size)
+                         if _program.program_check_enabled() else None)
+        self._tracker_lock = _lockorder.make_lock("Coordinator._tracker")
+        # guarded_by: _tracker_lock
+        self._program_errors: List[Response] = []
 
     @property
     def fusion_threshold(self) -> int:
@@ -564,6 +577,18 @@ class Coordinator:
             self.timeline.negotiate_rank_ready(req.tensor_name,
                                                req.request_rank,
                                                first=req.request_rank == 0)
+        if self._tracker is not None:
+            # JOIN disables the tracker (join legalizes rank-divergent
+            # programs); the cache is off while it runs, so every request
+            # reaches this feed.
+            diag = self._tracker.feed(req)
+            if diag is not None:
+                # Fail the divergent op on every rank at the next poll.
+                with self._tracker_lock:
+                    self._program_errors.append(Response(
+                        ResponseType.ERROR, [req.tensor_name],
+                        error_message=diag,
+                        process_set_id=req.process_set_id))
         if self.cache is not None:
             if req.request_type == RequestType.JOIN:
                 # Joined ranks complete tensors they never requested:
@@ -640,6 +665,13 @@ class Coordinator:
         _megakernel.flush(f"fusion threshold -> {v}")
 
     def poll_responses(self, sizes_bytes: Dict[str, int]) -> List[Response]:
+        with self._tracker_lock:
+            errors, self._program_errors = self._program_errors, []
+        if errors:
+            return errors + self._poll(sizes_bytes)
+        return self._poll(sizes_bytes)
+
+    def _poll(self, sizes_bytes: Dict[str, int]) -> List[Response]:
         if self.cache is not None and not self._impl_dirty:
             return []  # every request since the last poll was a hit
         self._impl_dirty = False

@@ -28,12 +28,15 @@ collectives):
   HVD_TPU_FUSE_CHUNKS=<n>      default 4: chunks per fused group, clamped
                                so every chunk keeps MIN_CHUNK_ROWS rows
 
-The reference's ``FusedProgram`` (AOT compiles, the compile manifest,
-the memory ledger's charges) serves XLA executables and has no
-counterpart, nor has its ``fused.groups_compiled`` (nothing is
-compiled).  Telemetry (reference :97-107, :363-395): ``fused.launches``
-counts chunked groups run, and :func:`measure_exposed_comm` feeds
-``fused.exposed_comm_seconds``.
+The reference's ``FusedProgram`` (AOT compiles, the compile manifest)
+serves XLA executables and has no counterpart, nor has its
+``fused.groups_compiled`` (nothing is compiled).  Its memory charge
+does (reference :330-361): a chunked group runs inside
+:func:`..memory.oom.guard` and charges the ledger's ``fused.launch``
+with :func:`..memory.planner.fused_group_bytes` (the output and one
+chunk's partial) while its chunks are joined.  Telemetry (reference
+:97-107, :363-395): ``fused.launches`` counts chunked groups run, and
+:func:`measure_exposed_comm` feeds ``fused.exposed_comm_seconds``.
 """
 
 from __future__ import annotations
@@ -137,10 +140,27 @@ def chunked_map(fn: Callable, x: torch.Tensor, *, axis: int = 0,
     # One split (its backward is one concatenation of the chunks'
     # gradients), not a slice a chunk (each slice's backward would zero a
     # whole-sized gradient and add it in).
+    from ..memory import ledger as _mem
+    from ..memory import oom as _oom
+    from ..memory import planner as _mem_planner
+
     parts = torch.split(x, [size for _, size in plan], dim=axis)
-    pending = [fn(part) for part in parts]
-    _M_LAUNCHES.inc()
-    return torch.cat([wait(p) for p in pending], dim=axis)
+    with _oom.guard("fused/chunked_map"):
+        pending = [fn(part) for part in parts]
+        _M_LAUNCHES.inc()
+        outs = [wait(p) for p in pending]
+        nbytes = 0
+        if _mem.enabled():
+            shape = list(outs[0].shape)
+            shape[axis] = sum(int(o.shape[axis]) for o in outs)
+            nbytes = _mem_planner.fused_group_bytes(
+                tuple(shape), len(outs), outs[0].dtype, chunk_axis=axis)
+            _mem.ledger.alloc("fused.launch", nbytes)
+        try:
+            return torch.cat(outs, dim=axis)
+        finally:
+            if nbytes:
+                _mem.ledger.free("fused.launch", nbytes)
 
 
 def observe_exposed(seconds: float) -> None:

@@ -22,6 +22,8 @@ import weakref
 from typing import Any, Dict, Optional
 
 from ..native import lib as _native
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
 
 
 class HorovodError(RuntimeError):
@@ -66,13 +68,14 @@ class Handle:
             or self.event.query()
 
 
+@_races.race_checked
 class HandleManager:
     """Allocates handles and retires them on ``release``.  Ids count from
     0, natively or in Python."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._handles: Dict[int, Handle] = {}  # guarded by _lock
+        self._lock = _lockorder.make_lock("HandleManager._lock")
+        self._handles: Dict[int, Handle] = {}  # guarded_by: _lock
         self._lib = _native.active()
         if self._lib is None:
             self._ids = itertools.count(0)

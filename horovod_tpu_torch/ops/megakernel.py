@@ -60,7 +60,7 @@ import json
 import math
 import os
 import sys
-import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -68,7 +68,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace as _trace
+from ..analysis import lockorder as _lockorder
 from ..core import topology as _topology
+from ..memory import ledger as _mem
+from ..memory import oom as _oom
+from ..memory import planner as _mem_planner
 from . import compression as _c
 from . import quant as _quant
 
@@ -148,12 +153,12 @@ class Comm:
 
 stats = MegakernelStats()
 
-_lock = threading.Lock()
+_lock = _lockorder.make_lock("megakernel._lock")
 # Error-feedback residuals, one flat buffer per bucket, keyed
 # ("g", process_set_id, name_1, ..., name_k); flushed with the plan.
-_residuals: Dict[Tuple, Any] = {}  # guarded by _lock
+_residuals: Dict[Tuple, Any] = {}  # guarded_by: _lock
 # Per-bucket launch counters: the stochastic rounding's tick.
-_ticks: Dict[Tuple, int] = {}  # guarded by _lock
+_ticks: Dict[Tuple, int] = {}  # guarded_by: _lock
 
 
 def reset_stats() -> None:
@@ -179,6 +184,7 @@ def flush(reason: str) -> None:
         _residuals.clear()
         _ticks.clear()
         stats.flushes += 1
+    _sync_residual_ledger()
     if nr:
         print(f"[hvd-megakernel] state flushed ({reason}): {nr} residual "
               f"tensors dropped", file=sys.stderr)
@@ -228,12 +234,29 @@ def store_residuals(keys: Sequence[Tuple], arrays: Sequence) -> None:
     with _lock:
         for key, arr in zip(keys, arrays):
             _residuals[key] = arr
+    _sync_residual_ledger()
 
 
 def drop_residuals(keys: Sequence[Tuple]) -> None:
     with _lock:
         for key in keys:
             _residuals.pop(key, None)
+    _sync_residual_ledger()
+
+
+def _sync_residual_ledger() -> None:
+    """hvd-mem (reference :344-369): mirror the EF residual store's byte
+    total into the ledger's ``megakernel.residuals`` (an absolute size,
+    not deltas).  Not gated on telemetry: a flush while telemetry is off
+    must still clear the figure."""
+    with _lock:
+        arrays = list(_residuals.values())
+    total = 0
+    for v in arrays:
+        nb = getattr(v, "nbytes", None)
+        if nb:
+            total += int(nb)
+    _mem.ledger.set("megakernel.residuals", total)
 
 
 def residual_count() -> int:
@@ -530,6 +553,52 @@ def launch(spec: GroupSpec, v: torch.Tensor, comm: Comm,
     """Reduce one bucket's flat buffer ``v`` [T] (the concatenation of
     ``names``' tensors, owned by the executor) over ``comm``; returns the
     [T] result in ``v``'s dtype, divided for Average."""
+    # hvd-mem (reference :1135-1216): the launch's footprint (inputs +
+    # outputs, the planner's byte model) is charged to the ledger for the
+    # dispatch's lifetime; the simulated capacity is checked first, and
+    # an out-of-memory dumps the flight ring naming this launch.
+    mem_on = _mem.enabled()
+    trace_on = _trace.enabled()
+    cap = _oom.simulated_capacity()
+    fusion_b = (_mem_planner.fusion_group_bytes(
+        spec.shapes, spec.dtype, spec.size, VARIANT)
+        if (mem_on or trace_on or cap is not None) else 0)
+    if cap is not None:
+        _oom.check_simulated(
+            lambda: _launch_name(spec),
+            _mem_planner.fusion_group_device_bytes(spec.shapes,
+                                                   spec.dtype))
+    trace_t0 = time.monotonic() if trace_on else 0.0
+    if mem_on:
+        _mem.ledger.alloc("megakernel.fusion", fusion_b)
+    try:
+        red = _launch(spec, v, comm, names)
+    except Exception as e:  # noqa: BLE001 — re-raised: forensics only
+        if _oom.is_resource_exhausted(e):
+            _oom.oom_event(_launch_name(spec), e, fusion_b or None)
+        raise
+    finally:
+        if mem_on:
+            _mem.ledger.free("megakernel.fusion", fusion_b)
+    if trace_on:
+        # hvd-trace launch span: the collective itself, with the wire
+        # bytes that split a hierarchical launch into its legs.
+        logical_b, wire_b = wire_accounting(spec)
+        _trace.span(f"megakernel/{spec.op}", "collective", trace_t0,
+                    time.monotonic(),
+                    args={"groups": len(spec.shapes),
+                          "hier": spec.hier is not None,
+                          "wire_bytes": wire_b, "mem_bytes": fusion_b})
+    return red
+
+
+def _launch_name(spec: GroupSpec) -> str:
+    """Executable name for OOM forensics (reference :1116-1119)."""
+    return f"megakernel/{spec.op}/{VARIANT}x{len(spec.shapes)}"
+
+
+def _launch(spec: GroupSpec, v: torch.Tensor, comm: Comm,
+            names: Sequence[str]) -> torch.Tensor:
     dtype = v.dtype
     T = v.shape[0]
     fmt = spec.quant

@@ -26,7 +26,15 @@ cache replica (:mod:`.cache`), in place of the reference's TCP
 ``FRAME_REQUEST_BATCH`` bit-vectors (horovod_tpu/ops/transport.py:
 101-110,163); ``KIND_METRICS`` + ``<I`` length + this rank's metrics
 snapshot as JSON, its answer to rank 0's pull (the reference's
-``FRAME_METRICS``).
+``FRAME_METRICS``); ``KIND_SIGNATURE`` + ``<I`` length + this rank's
+packed collective-program signature (``analysis/program.py``
+``pack_program``; the reference's ``FRAME_SIGNATURE``); ``KIND_TRACE`` +
+``<I`` length + this rank's span buffer as JSON, its answer to rank 0's
+trace pull (the reference's ``FRAME_TRACE``); ``KIND_PONG`` + ``<ddd``
+(rank 0's probe stamp, this rank's receipt and send stamps, the
+reference's ``FRAME_PONG``); ``KIND_TRACE_CTX`` + the 16-byte trace
+context (``trace.CTX_STRUCT``) + ``<d`` the monotonic stamp of this
+rank's first post of the batch (the reference's request-batch trailer).
 
 Rank 0's broadcast is one kind byte and a body: ``PAYLOAD_RESPONSES`` +
 :func:`wire.pack_response_list`, or, for a cycle that is all cache
@@ -34,7 +42,13 @@ replay, ``PAYLOAD_REPLAY`` + ``<II`` (epoch, groups) + per fused
 response ``<I`` count + that many ``<I`` entry indices, which the
 workers rebuild from their replica.  A broadcast that asks the workers
 for their metrics snapshots (``telemetry.cluster_metrics``) is
-``PAYLOAD_PULL_METRICS`` followed by the cycle's payload, if any.
+``PAYLOAD_PULL_METRICS`` followed by the cycle's payload, if any.  The
+other prefixes rank 0 may put in front, each once, in any order:
+``PAYLOAD_SIGNATURE`` + ``<BI`` (1 for a divergence, length) + the
+verdict text (``verify_program``'s answer); ``PAYLOAD_PULL_TRACE`` (a
+trace pull); ``PAYLOAD_PING`` + ``<d`` rank 0's send stamp (a clock
+probe, the reference's ``FRAME_PING``); ``PAYLOAD_CTX`` + the 16-byte
+trace context of the cycle (the reference's broadcast trailer).
 """
 
 from __future__ import annotations
@@ -52,7 +66,11 @@ from .wire import Request, Response
 
 KIND_REQUEST, KIND_WITHDRAW, KIND_SHUTDOWN, KIND_HITS = 0, 1, 2, 3
 KIND_METRICS = 4
+KIND_SIGNATURE, KIND_TRACE, KIND_PONG, KIND_TRACE_CTX = 16, 17, 18, 19
 PAYLOAD_RESPONSES, PAYLOAD_REPLAY, PAYLOAD_PULL_METRICS = 0, 1, 2
+PAYLOAD_SIGNATURE, PAYLOAD_PULL_TRACE, PAYLOAD_PING, PAYLOAD_CTX = \
+    3, 4, 5, 6
+_CTX = struct.Struct("<IIQd")  # trace.CTX_STRUCT + the first post's stamp
 
 
 def encode_request(req: Request) -> bytes:
@@ -89,21 +107,82 @@ def encode_metrics(snapshot: dict) -> bytes:
     return struct.pack("<BI", KIND_METRICS, len(body)) + body
 
 
-def encode_metrics_pull(payload: bytes) -> bytes:
-    """Rank 0's broadcast ``payload`` with the metrics pull in front."""
-    return struct.pack("<B", PAYLOAD_PULL_METRICS) + payload
+def _encode_blob(kind: int, body: bytes) -> bytes:
+    return struct.pack("<BI", kind, len(body)) + body
 
 
-def strip_metrics_pull(payload: bytes) -> Tuple[bool, bytes]:
-    """``(whether the broadcast asks for metrics, the rest)``."""
-    if payload and payload[0] == PAYLOAD_PULL_METRICS:
-        return True, payload[1:]
-    return False, payload
+def encode_signature(packed: bytes) -> bytes:
+    return _encode_blob(KIND_SIGNATURE, packed)
+
+
+def encode_trace(events: list) -> bytes:
+    return _encode_blob(KIND_TRACE, json.dumps(events).encode("utf-8"))
+
+
+def encode_pong(t0: float, t1: float, t1s: float) -> bytes:
+    return struct.pack("<Bddd", KIND_PONG, t0, t1, t1s)
+
+
+def encode_trace_ctx(ctx: bytes, t_post: float) -> bytes:
+    """``ctx`` is ``trace.pack_ctx()``'s 16 bytes."""
+    return struct.pack("<B", KIND_TRACE_CTX) + ctx + struct.pack("<d",
+                                                                 t_post)
+
+
+def encode_prefixes(pull_metrics: bool = False,
+                    signature: Optional[Tuple[bool, str]] = None,
+                    pull_trace: bool = False,
+                    ping: Optional[float] = None,
+                    ctx: Optional[bytes] = None) -> bytes:
+    """Rank 0's broadcast prefixes (put them in front of the payload)."""
+    out = []
+    if pull_metrics:
+        out.append(struct.pack("<B", PAYLOAD_PULL_METRICS))
+    if signature is not None:
+        text = signature[1].encode("utf-8")
+        out.append(struct.pack("<BBI", PAYLOAD_SIGNATURE, int(signature[0]),
+                               len(text)) + text)
+    if pull_trace:
+        out.append(struct.pack("<B", PAYLOAD_PULL_TRACE))
+    if ping is not None:
+        out.append(struct.pack("<Bd", PAYLOAD_PING, ping))
+    if ctx is not None:
+        out.append(struct.pack("<B", PAYLOAD_CTX) + ctx)
+    return b"".join(out)
+
+
+def strip_prefixes(payload: bytes) -> Tuple[dict, bytes]:
+    """``({prefix kind: body}, the rest)`` of a broadcast: the metrics and
+    trace pulls map to True, the signature verdict to ``(diverged,
+    text)``, the probe to rank 0's stamp, the context to its tuple."""
+    found: dict = {}
+    off = 0
+    while off < len(payload):
+        kind = payload[off]
+        if kind in (PAYLOAD_PULL_METRICS, PAYLOAD_PULL_TRACE):
+            found[kind] = True
+            off += 1
+        elif kind == PAYLOAD_SIGNATURE:
+            bad, n = struct.unpack_from("<BI", payload, off + 1)
+            text = bytes(payload[off + 6:off + 6 + n]).decode("utf-8")
+            found[kind] = (bool(bad), text)
+            off += 6 + n
+        elif kind == PAYLOAD_PING:
+            (found[kind],) = struct.unpack_from("<d", payload, off + 1)
+            off += 9
+        elif kind == PAYLOAD_CTX:
+            found[kind] = struct.unpack_from("<IIQ", payload, off + 1)
+            off += 17
+        else:
+            break
+    return found, payload[off:]
 
 
 def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
     """``[(kind, body)]``: a Request, a (process set, name) pair, None, an
-    (epoch, [entry index]) pair, or a metrics snapshot."""
+    (epoch, [entry index]) pair, a metrics snapshot, a packed signature,
+    a span list, a ``(t0, t1, t1s)`` probe answer, or a ``(step, cycle,
+    trace_id, t_post)`` context."""
     out: List[Tuple[int, object]] = []
     off = 0
     while off < len(buf):
@@ -126,11 +205,22 @@ def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
             out.append((kind, (epoch, list(struct.unpack_from(
                 f"<{count}I", buf, off)))))
             off += 4 * count
-        elif kind == KIND_METRICS:
+        elif kind in (KIND_METRICS, KIND_TRACE):
             (n,) = struct.unpack_from("<I", buf, off)
             off += 4
             out.append((kind, json.loads(bytes(buf[off:off + n]))))
             off += n
+        elif kind == KIND_SIGNATURE:
+            (n,) = struct.unpack_from("<I", buf, off)
+            off += 4
+            out.append((kind, bytes(buf[off:off + n])))
+            off += n
+        elif kind == KIND_PONG:
+            out.append((kind, struct.unpack_from("<ddd", buf, off)))
+            off += 24
+        elif kind == KIND_TRACE_CTX:
+            out.append((kind, _CTX.unpack_from(buf, off)))
+            off += _CTX.size
         else:
             raise ValueError(f"control batch: unknown message kind {kind} "
                              f"at byte {off - 1}")

@@ -32,12 +32,16 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Iterable, Optional
 
 import torch
 
 from .. import telemetry as _telemetry
+from .. import trace as _trace
+from ..analysis import threads as _analysis_threads
 from ..core import state as _state
+from ..memory import ledger as _mem
 from ..utils.tree import tree_leaves, tree_map
 
 _END = object()  # queue sentinel (identity-compared)
@@ -47,11 +51,12 @@ class _Staged:
     """One staged device batch and the event its copies recorded.  A
     class, not a tuple: user batches may themselves be tuples."""
 
-    __slots__ = ("batch", "event")
+    __slots__ = ("batch", "event", "nbytes")
 
     def __init__(self, batch, event) -> None:
         self.batch = batch
         self.event = event
+        self.nbytes = 0  # charged to the ledger's input.prefetch
 
 
 def _local_rows(x):
@@ -104,6 +109,7 @@ class PrefetchIterator:
         return _Staged(staged, event)
 
     def _stage_loop(self) -> None:  # thread: stager
+        _analysis_threads.set_role("stager")
         it = iter(self._source)
         try:
             stream = None
@@ -118,7 +124,14 @@ class PrefetchIterator:
                 except StopIteration:
                     self._put(_END)
                     return
-                if not self._put(self._stage(host_batch, stream)):
+                staged = self._stage(host_batch, stream)
+                # hvd-mem: a staged batch is framework-held device memory
+                # until the consumer takes it (reference :155-163).
+                if _mem.enabled():
+                    staged.nbytes = _mem.tree_nbytes(staged.batch)
+                    _mem.ledger.alloc("input.prefetch", staged.nbytes)
+                if not self._put(staged):
+                    _mem.ledger.free("input.prefetch", staged.nbytes)
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
             _telemetry.prefetch_error_event(f"{type(e).__name__}: {e}")
@@ -144,22 +157,34 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        while True:
-            if self._stop.is_set():
-                raise StopIteration
-            try:
-                # Timed gets, so that a close() from another thread (which
-                # enqueues nothing) wakes a consumer blocked here.
-                item = self._q.get(timeout=0.05)
-                break
-            except queue.Empty:
-                continue
+        if self._stop.is_set():
+            raise StopIteration
+        try:
+            item = self._q.get_nowait()
+        except queue.Empty:
+            # The stall the prefetch could not hide; the hvd-trace host
+            # span is the analyzer's "input-bound" signal (reference
+            # :206-220).
+            mt0 = time.monotonic() if _trace.enabled() else 0.0
+            while True:
+                if self._stop.is_set():
+                    raise StopIteration
+                try:
+                    # Timed gets, so that a close() from another thread
+                    # (which enqueues nothing) wakes a consumer here.
+                    item = self._q.get(timeout=0.05)
+                    break
+                except queue.Empty:
+                    continue
+            if _trace.enabled():
+                _trace.span("prefetch.wait", "host", mt0, time.monotonic())
         if item is _END:
             self._stop.set()
             raise StopIteration
         if isinstance(item, BaseException):
             self._stop.set()
             raise item  # the exception object carries the loader's frames
+        _mem.ledger.free("input.prefetch", item.nbytes)
         if item.event is not None:
             consumer = torch.cuda.current_stream(self._device)
             consumer.wait_event(item.event)
@@ -182,7 +207,11 @@ class PrefetchIterator:
     def _drain(self) -> None:
         try:
             while True:
-                self._q.get_nowait()
+                item = self._q.get_nowait()
+                if isinstance(item, _Staged):
+                    # Deferred: __del__ reaches here from the garbage
+                    # collector, perhaps inside the ledger's own lock.
+                    _mem.ledger.free_deferred("input.prefetch", item.nbytes)
         except queue.Empty:
             pass
 

@@ -84,9 +84,17 @@ OOM guard and donation sanitizer), ``_to_mesh``'s ``device_put``
 (placed carries move by send and receive), and ``donate`` (accepted,
 without effect: PyTorch updates in place).  The reference's four
 ``pipeline.*`` series (:130-145) are in the telemetry registry, and
-``step.stats()`` keeps the step's own values of the same names.  Waiting
-for ROADMAP.md A.5.2: the memory pre-flight (``_preflight`` :626) and the
-``pipeline.activations`` memory-ledger charges.
+``step.stats()`` keeps the step's own values of the same names.  Memory
+(reference :458-472, :626-669, :910-931, :1053): every stage-boundary
+carry a rank holds is charged to the ledger's ``pipeline.activations``
+while it lives, each stage program (forward, and backward's recompute
+and gradient) runs inside :func:`..memory.oom.guard`, each step closes
+the ledger's step window, and the first step pre-flights the schedule's
+peak carries against the advertised capacity.  The reference sizes a
+carry by ``jax.eval_shape`` before any dispatch; PyTorch has no
+shape-only evaluation of the stage functions (the flash kernels launch
+by ``ctypes``), so the port sizes it by the first carry the first step
+makes, and warns before the schedule reaches its peak.
 
 Env contract (validated at ``init``, and part of the env fingerprint
 ``init`` compares across ranks: the schedule decides the order in which
@@ -115,6 +123,8 @@ import torch.distributed as dist
 
 from .. import telemetry as _telemetry
 from ..core import state as _state
+from ..memory import ledger as _mem
+from ..memory import oom as _oom
 from ..core import topology as T
 from ..ops import collective as C
 from ..ops.compression import NoneCompressor
@@ -520,6 +530,7 @@ class _PipelineStep:
         self._bucket_plan = None
         self._ctxs: list = []
         self._carry_meta: dict = {}  # placed: stage -> (spec, shapes)
+        self._preflighted = False
         self._stats = {"pipeline.microbatches": 0,
                        "pipeline.bubble_seconds": {"count": 0, "sum": 0.0,
                                                    "last": 0.0},
@@ -639,6 +650,26 @@ class _PipelineStep:
             specs.append(seg)
         self._bucket_plan = _overlap._build_plan(specs, thr)
 
+    def _preflight(self, params, carry_bytes: int) -> None:
+        """hvd-mem pre-flight (reference :626-669): the schedule's peak
+        carries times one carry, plus this rank's stage parameters and
+        their gradient accumulators, against the advertised capacity.
+        Once, at the first carry of the first step; best-effort."""
+        self._preflighted = True
+        if _oom.advertised_capacity() is None:
+            return
+        try:
+            pbytes = sum(_mem.tree_nbytes(params[k]) for k in self._mine)
+            predicted = self._plan.peak_activations * carry_bytes \
+                + 2 * pbytes
+            _oom.preflight_warn(
+                predicted, "make_pipeline_train_step",
+                f"{self._plan.peak_activations} peak carries x "
+                f"{carry_bytes} B + stage params + accumulators "
+                f"({self._plan.schedule}, m={self._m})")
+        except Exception:  # noqa: BLE001 — pre-flight must never break
+            pass           # a step
+
     # -- execution ----------------------------------------------------------
     def __call__(self, params, opt_state, batch):
         params = self._chain._check_params(params)
@@ -695,6 +726,7 @@ class _PipelineStep:
         handles: List[Optional[int]] = [] if placed else \
             [None] * self._bucket_plan.n_leaves
         live = {"n": 0, "peak": 0, "b": 0, "peak_b": 0}
+        mem_on = _mem.enabled()
 
         def hold(key, carry):
             carries[key] = carry
@@ -703,10 +735,17 @@ class _PipelineStep:
             live["b"] += nb
             live["peak"] = max(live["peak"], live["n"])
             live["peak_b"] = max(live["peak_b"], live["b"])
+            if mem_on:
+                _mem.ledger.alloc("pipeline.activations", nb)
+            if not self._preflighted:
+                self._preflight(params, nb)
 
         def release(key):
             live["n"] -= 1
-            live["b"] -= carry_nb.pop(key)
+            nb = carry_nb.pop(key)
+            live["b"] -= nb
+            if mem_on:
+                _mem.ledger.free("pipeline.activations", nb)
             return carries.pop(key)
 
         def carry_in(s, i):
@@ -733,7 +772,7 @@ class _PipelineStep:
         def forward(s, i):
             mb = mbs_of[self._replica[s]][i]
             carry = carry_in(s, i) if s else None
-            with torch.no_grad():
+            with torch.no_grad(), _oom.guard(f"pipeline/stage{s}/forward"):
                 out = stages[s](params[s], carry, mb)
             if s == S - 1:
                 losses[i] = out
@@ -741,6 +780,10 @@ class _PipelineStep:
                 give_carry(s, i, out)
 
         def backward(s, i):
+            with _oom.guard(f"pipeline/stage{s}/backward"):
+                stage_backward(s, i)
+
+        def stage_backward(s, i):
             mb = mbs_of[self._replica[s]][i]
             model = self._model_axis(s)
             with torch.enable_grad():
@@ -827,6 +870,8 @@ class _PipelineStep:
         _M_MICROBATCHES.inc(m)
         _M_INFLIGHT.set(live["peak"])
         _M_INFLIGHT_BYTES.set(live["peak_b"])
+        if mem_on:
+            _mem.ledger.note_step()
         if placed:
             return params, opt_state, self._placed_loss(losses)
         self._apply_unplaced(params, opt_state, reduced)

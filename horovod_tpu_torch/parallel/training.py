@@ -35,7 +35,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import trace as _trace
 from ..core import state as _state
+from ..memory import ledger as _mem
+from ..memory import oom as _oom
 from ..ops import collective as C
 from . import axis_ops
 from ..utils.tree import tree_leaves, tree_map
@@ -103,10 +106,55 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
         return C.allreduce(loss.detach(), average=True, name="train.loss")
 
     if schedule == "off":
-        return step
-    return _overlap.make_overlapped_step(
+        return _traced(step)
+    return _traced(_overlap.make_overlapped_step(
         loss_fn, optimizer, stream=schedule == "stream",
-        fallback_builder=lambda: step)
+        fallback_builder=lambda: step))
+
+
+class _TracedStep:
+    """Per-step bookkeeping wrapper (reference parallel/training.py:
+    189-234): advance the hvd-trace step id, so every span carries the
+    step that owns it; close the memory ledger's step window; and, on the
+    first call, warn when the working set this step implies (params +
+    gradients + two optimizer slots + the batch) exceeds the advertised
+    capacity (memory/oom.py).  Arithmetic is untouched; attributes pass
+    through to the wrapped step (``stats()`` and the rest)."""
+
+    def __init__(self, step_fn):
+        self._step_fn = step_fn
+        self._preflighted = False
+
+    def _preflight(self, args) -> None:
+        self._preflighted = True
+        if _oom.advertised_capacity() is None or not args:
+            return
+        try:
+            params_b = _mem.tree_nbytes(args[0])
+            batch_b = _mem.tree_nbytes(args[-1]) if len(args) > 1 else 0
+            _oom.preflight_warn(
+                4 * params_b + batch_b, "make_train_step",
+                f"params {params_b} B x (1 grad + 2 opt slots) + "
+                f"batch {batch_b} B")
+        except Exception:  # noqa: BLE001 — sizing is observability
+            pass
+
+    def __call__(self, *args, **kw):
+        if _trace.trace_enabled_env():
+            _trace.on_step()
+        if not self._preflighted:
+            self._preflight(args)
+        out = self._step_fn(*args, **kw)
+        if _mem.enabled():
+            _mem.ledger.note_step()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._step_fn, name)
+
+
+def _traced(step_fn):
+    return _TracedStep(step_fn)
 
 
 def make_train_step_with_state(loss_fn: Callable[..., Any], optimizer,
@@ -135,7 +183,7 @@ def make_train_step_with_state(loss_fn: Callable[..., Any], optimizer,
         return new_state, C.allreduce(loss.detach(), average=True,
                                       name="train.loss")
 
-    return step
+    return _traced(step)
 
 
 def make_eval_step(metric_fn: Callable[..., Any]):

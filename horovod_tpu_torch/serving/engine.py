@@ -51,30 +51,42 @@ row-parallel closers sum over the axis in rank order
 data plane, rank 0 schedules and the others follow.  The draft's cache
 and weights are sharded on the same axis.
 
-Waiting for later work (ROADMAP.md A.5.2 and later): the elastic
-``ServingState``, the memory planner's what-ifs, tuning actuation (the
-reference's ``set_spec_tokens``), the trace span and the lock-order and
-thread-role hooks (a plain ``threading.Lock`` here).
+The analysis, trace and memory hooks (reference :225-262, :418-438,
+:859-866, :901-996, :1354-1360): the drain lock is the lock-order
+checker's named lock and ``abort_all`` asserts the ``serve-loop`` role;
+every program dispatch (prefill, draft prefill, decode, draft propose,
+verify) runs inside :func:`..memory.oom.guard`; each iteration that ran
+work is a ``serving.iteration`` trace span and each finished request a
+``serving.request`` span; the weights are charged to the memory ledger
+(``serving.params``, ``serving.draft_params``) and ``warm_start`` runs
+the pre-flight.  Waiting for later work (ROADMAP.md A.5.3, A.5.5): the
+elastic ``ServingState`` and tuning actuation (the reference's
+``set_spec_tokens``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from .. import trace as _trace
+from ..analysis import lockorder as _lockorder
+from ..analysis import threads as _athreads
 from ..core.topology import MODEL_AXIS
+from ..memory import ledger as _mem
+from ..memory import oom as _oom
 from ..models import transformer as _transformer
 from ..telemetry import flight as _flight
 from ..utils.convert import serving_shard
 from ..utils.serialization import DTYPE_NAMES
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 from .kv_cache import PagedKVCache
 from .scheduler import ContinuousBatchingScheduler, FinishReason, Request
 
@@ -120,6 +132,20 @@ def _model_dict(cfg) -> dict:
         "num_experts": cfg.num_experts,
         "dtype": DTYPE_NAMES[cfg.dtype],
     }
+
+
+def _resident_bytes(*trees) -> int:
+    """Bytes of the tensors in ``trees``, each storage counted once (the
+    serving tree shares all but its fused QKV weight with the params)."""
+    seen, total = set(), 0
+    for tree in trees:
+        for x in tree_leaves(tree):
+            if isinstance(x, torch.Tensor):
+                st = x.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+    return total
 
 
 def _on(device, params):
@@ -244,7 +270,8 @@ class InferenceEngine:
                 prefix_cache=prefix_cache,
                 fingerprint=json.dumps(_model_dict(draft_cfg),
                                        sort_keys=True),
-                gauges=False, mesh=mesh)
+                gauges=False, mesh=mesh,
+                ledger_category="serving.draft_kv")
             self._draft_params = _transformer.serving_params(
                 _on(self.device, self._shard(draft_params, draft_cfg)))
         self._buckets = [b for b in (2 ** i for i in range(1, 31))
@@ -264,7 +291,22 @@ class InferenceEngine:
         # recovery and a drain from another thread run concurrently, and
         # the "_drained" check-then-act must be atomic with the
         # scheduler drain it guards.  Taken BEFORE the scheduler's lock.
-        self._drain_lock = threading.Lock()
+        self._drain_lock = _lockorder.make_lock(
+            "serving.InferenceEngine._drain_lock")
+        # hvd-mem: the engine's resident weights (the target's as
+        # ``serving.params``, a draft's as the reference's
+        # ``serving.draft_params``), keyed and released by gc.
+        self._ledger_key = id(self)
+        charges = [("serving.params",
+                    _resident_bytes(self.params, self._step_params))]
+        if self._draft_params is not None:
+            charges.append(("serving.draft_params",
+                            _resident_bytes(self._draft_params)))
+        for category, nbytes in charges:
+            if _mem.enabled():
+                _mem.ledger.alloc(category, nbytes, key=self._ledger_key)
+            weakref.finalize(self, _mem.ledger.free_deferred, category,
+                             key=self._ledger_key)
 
     def _shard(self, params, cfg):
         """This rank's serving parameters: its shard on a model axis of
@@ -330,6 +372,21 @@ class InferenceEngine:
                 device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # hvd-mem pre-flight (reference :418-438): the KV pools and the
+        # resident weights against the advertised capacity.
+        try:
+            per_device = (self.cache.k_pages.nbytes
+                          + self.cache.v_pages.nbytes
+                          + _resident_bytes(self.params, self._step_params))
+            if self.draft_cache is not None:
+                per_device += (self.draft_cache.k_pages.nbytes
+                               + self.draft_cache.v_pages.nbytes
+                               + _resident_bytes(self._draft_params))
+            _oom.preflight_warn(per_device, "serving.warm_start",
+                                "KV pools + resident weights "
+                                "(per-device bytes)")
+        except Exception:  # noqa: BLE001 — sizing is observability
+            pass
         _M_WARM.inc()
         self._ready = True
         return 0
@@ -511,6 +568,7 @@ class InferenceEngine:
         the admission plan, then the post-prefill state, then the sampled
         tokens, so :meth:`follow` on the other ranks mirrors the cache
         and runs the same programs in the same order."""
+        mt0 = time.monotonic() if _trace.enabled() else 0.0
         mp = self._multiprocess()
         admitted = self._admit(now) if admit else []
         if mp:
@@ -559,6 +617,14 @@ class InferenceEngine:
                 self._speculative_iteration(active)
             else:
                 self._decode_iteration(active)
+        if (admitted or active) and _trace.enabled():
+            # hvd-trace: one serving span per iteration that ran work,
+            # so the host-bound decode loop decomposes in the fleet
+            # trace next to training cycles.
+            _trace.span("serving.iteration", "serving", mt0,
+                        time.monotonic(),
+                        args={"admitted": len(admitted),
+                              "active": len(active), "spec": spec})
         return bool(admitted or active)
 
     def _admit(self, now: Optional[int]) -> List[Tuple[int, Request]]:
@@ -619,6 +685,15 @@ class InferenceEngine:
             req.t_done = time.perf_counter()
             if free:
                 self._free_slot(slot)  # idempotent vs the drain
+            if _trace.enabled():
+                # hvd-trace serving span (reference :859-866): the whole
+                # request lifetime, from the engine's wall stamps.
+                mnow = time.monotonic()
+                _trace.span("serving.request", "serving",
+                            mnow - (req.t_done - req.t_submit), mnow,
+                            args={"rid": req.rid,
+                                  "tokens": len(req.generated),
+                                  "reason": reason})
         else:
             self._last_token[slot] = token
         return reason
@@ -649,8 +724,10 @@ class InferenceEngine:
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :len(suffix)] = suffix
         program = self._prefill_exec(bucket, draft=draft)
-        last = program(self._tokens(cache.table_row(slot)), n_shared,
-                       len(suffix), self._tokens(tokens))
+        with _oom.guard(f"serving/{'draft_' if draft else ''}prefill/"
+                        f"{bucket}"):
+            last = program(self._tokens(cache.table_row(slot)), n_shared,
+                           len(suffix), self._tokens(tokens))
         cache.publish_prefix(slot, prompt)
         if not draft:
             _M_PREFILL_TOKENS.inc(bucket)
@@ -664,7 +741,9 @@ class InferenceEngine:
         tokens = np.zeros((self.max_slots,), np.int64)
         for slot, _ in active:
             tokens[slot] = self._last_token[slot]
-        logits = self._decode_exec()(table, lengths, self._tokens(tokens))
+        with _oom.guard("serving/decode"):
+            logits = self._decode_exec()(table, lengths,
+                                         self._tokens(tokens))
         logits_np = logits.cpu().numpy()
         fed, evicted = {}, []
         for slot, req in active:
@@ -698,15 +777,20 @@ class InferenceEngine:
             prev[s] = self._prev_token[s]
             pending[s] = self._last_token[s]
         dtable, dlengths = self.draft_cache.device_tables()
-        props = self._propose_exec()(dtable, dlengths, self._tokens(prev),
-                                     self._tokens(pending)).cpu().numpy()
+        with _oom.guard(f"serving/draft_propose/{self.spec_tokens}"):
+            props = self._propose_exec()(dtable, dlengths,
+                                         self._tokens(prev),
+                                         self._tokens(pending))
+        props = props.cpu().numpy()
         W = self.spec_tokens + 1
         blocks = np.zeros((B, W), np.int64)
         for s in slots:
             blocks[s, 0] = pending[s]
             blocks[s, 1:] = props[s]
         table, lengths = self.cache.device_tables()
-        logits = self._verify_exec()(table, lengths, self._tokens(blocks))
+        with _oom.guard(f"serving/verify/{W}"):
+            logits = self._verify_exec()(table, lengths,
+                                         self._tokens(blocks))
         return props, logits.cpu().numpy()
 
     def _speculative_iteration(self, active) -> None:
@@ -833,7 +917,8 @@ class InferenceEngine:
             tokens = np.zeros((self.max_slots,), np.int64)
             for slot in decode:
                 tokens[slot] = self._last_token[slot]
-            self._decode_exec()(table, lengths, self._tokens(tokens))
+            with _oom.guard("serving/decode"):
+                self._decode_exec()(table, lengths, self._tokens(tokens))
         fed = self._bcast(None)
         if fed.get("abort"):
             # Rank 0's iteration died before it broadcast the tokens (and
@@ -967,6 +1052,10 @@ class InferenceEngine:
         recovery: the broadcast's failure is swallowed.  The broadcast
         is outside the lock (a wedged control plane would otherwise hold
         the drain family too)."""
+        # The class threading contract, machine-checked: a stamped
+        # runtime thread of another role entering here raises
+        # ThreadRoleError (unstamped callers pass; reference :1354-1360).
+        _athreads.require("serve-loop", "InferenceEngine.abort_all")
         if self._multiprocess():
             try:
                 self._bcast({"abort": True})

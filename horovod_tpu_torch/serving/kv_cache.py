@@ -40,15 +40,16 @@ list and the prefix index stay whole and identical on every rank: rank
 0 decides, the followers repeat its decisions
 (:meth:`..engine.InferenceEngine.follow`).
 
-Waiting for later work: the memory ledger and planner, the live
-retune of the index's size (the reference's ``set_prefix_target``, with
-tuning actuation), the lock-order and race-checker hooks (ROADMAP.md
-A.5.2; a plain ``threading.Lock`` here).
+The lock is the lock-order checker's named lock and the guarded fields
+carry the race checker; the page tensors are charged to the memory
+ledger (reference :101-206).  Waiting for later work (ROADMAP.md A.5.5):
+the live retune of the index's size (the reference's
+``set_prefix_target``, with tuning actuation).
 """
 
 from __future__ import annotations
 
-import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Sequence, Tuple
 
@@ -56,7 +57,10 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
 from ..core.topology import MODEL_AXIS
+from ..memory import ledger as _mem
 from ..routing.affinity import chain_hashes as _chain_hash_scheme
 
 # Free-page headroom beside serving.batch_occupancy: a router dispatches
@@ -94,6 +98,7 @@ _M_PREFIX_HITS_DRAFT = _telemetry.counter(
     "pages copy-free (the target's hits stay in serving.prefix_hits)")
 
 
+@_races.race_checked
 class PagedKVCache:
     """The paged store for one :class:`~.engine.InferenceEngine`.
 
@@ -110,7 +115,8 @@ class PagedKVCache:
                  dtype=torch.float32, device="cuda",
                  prefix_cache: bool = False, prefix_pages: int = 0,
                  fingerprint: str = "", gauges: bool = True,
-                 mesh=None) -> None:
+                 mesh=None,
+                 ledger_category: str = "serving.kv_pages") -> None:
         if pages_per_slot < 1 or page_size < 1:
             raise ValueError("pages_per_slot and page_size must be >= 1")
         if prefix_pages < 0:
@@ -145,7 +151,7 @@ class PagedKVCache:
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("serving.PagedKVCache._lock")
         self._free: List[int] = list(range(1, self.n_pages))
         # guarded_by: _lock
         self._table = np.zeros((max_slots, pages_per_slot), np.int32)
@@ -164,6 +170,28 @@ class PagedKVCache:
         if self._gauges:
             _M_KV_TOTAL.set(self.total_pages)
         self._set_page_gauges_locked()
+        # hvd-mem (reference :180-206): the page tensors are THE serving
+        # framework buffer; their bytes (this rank's heads) are charged
+        # for the store's lifetime, keyed and released by gc.  Dedicated
+        # prefix pages are their own category, by the per-page model
+        # memory/planner.prefix_pages_bytes predicts with.  The frees are
+        # deferred: a finalizer may run inside the ledger's own lock.
+        self._ledger_category = ledger_category
+        self._ledger_key = id(self)
+        resident = self.k_pages.nbytes + self.v_pages.nbytes
+        self._page_resident_bytes = resident // self.n_pages
+        prefix_resident = self._page_resident_bytes * self.prefix_pages
+        if _mem.enabled():
+            _mem.ledger.alloc(ledger_category, resident - prefix_resident,
+                              key=self._ledger_key)
+            if prefix_resident:
+                _mem.ledger.alloc("serving.prefix_pages", prefix_resident,
+                                  key=self._ledger_key)
+        weakref.finalize(self, _mem.ledger.free_deferred, ledger_category,
+                         key=self._ledger_key)
+        if prefix_resident:
+            weakref.finalize(self, _mem.ledger.free_deferred,
+                             "serving.prefix_pages", key=self._ledger_key)
 
     # -- sharding ----------------------------------------------------------
     def page_sharding(self):

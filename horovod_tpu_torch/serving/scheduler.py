@@ -17,9 +17,9 @@ head-of-queue request that does not fit stops admission for the
 iteration (``serving.admission_deferred``).
 
 Telemetry: ``serving.queue_depth`` / ``serving.batch_occupancy`` gauges,
-``serving.requests`` / ``serving.completed`` counters.  The lock-order
-and race-checker hooks wait for ROADMAP.md A.5.2 (a plain
-``threading.Lock`` here).
+``serving.requests`` / ``serving.completed`` counters.  The lock is the
+lock-order checker's named lock and the guarded fields carry the race
+checker (reference :114-131).
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
 from .. import telemetry as _telemetry
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
 
 _M_REQUESTS = _telemetry.counter(
     "serving.requests", "requests submitted to the serving scheduler")
@@ -101,6 +103,7 @@ class Request:
         return list(self.prefix) + list(self.generated)
 
 
+@_races.race_checked
 class ContinuousBatchingScheduler:
     """Queue + slots; all methods thread-safe (the HTTP front door
     submits from handler threads while the engine loop admits/feeds).
@@ -112,7 +115,8 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.max_slots = max_slots
         self.capacity = capacity  # max prompt+generated per sequence
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock(
+            "serving.ContinuousBatchingScheduler._lock")
         self._queue: List[Request] = []       # guarded_by: _lock
         self._slots: List[Optional[Request]] = [None] * max_slots
         # guarded_by: _lock

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import telemetry as _telemetry
+from ..analysis import threads as _athreads
 from ..core import state as _state
 from ..telemetry import exporter as _exporter
 from .engine import InferenceEngine
@@ -193,6 +194,7 @@ class LMServer:
                     and st.runtime.peer_shutdown)
 
     def _loop(self) -> None:  # thread: serve-loop
+        _athreads.set_role("serve-loop")
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         degraded = False

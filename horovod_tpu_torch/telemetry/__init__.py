@@ -21,8 +21,9 @@ flight recorder and the HTTP exporter (port of horovod_tpu/telemetry,
 :func:`error_event` and :func:`exception_event` keep the reference's
 signatures: each is flight-recorded and dumped as there, and also printed
 to stderr and kept in a bounded list of recent events
-(:func:`recent_events`).  Waiting for ROADMAP.md A.5.2: the analysis
-checkers' gauges (the reference's ``_collect_analysis``).
+(:func:`recent_events`).  The ``analysis`` collector publishes the
+run-time checkers' counts (reference :96-118, without the donation
+sanitizer's, which has no counterpart).
 """
 
 from __future__ import annotations
@@ -96,6 +97,26 @@ def _flight_metrics_tail() -> Dict[str, object]:
 
 
 flight.set_metrics_provider(_flight_metrics_tail)
+
+
+def _collect_analysis(reg: MetricsRegistry) -> None:
+    """Pull the hvd-analyze run-time checkers' counts.  Pull-side by
+    design: the checkers run under arbitrary runtime locks (the race
+    check fires inside registry methods holding ``MetricsRegistry._lock``),
+    so they keep plain ints and this collector, which runs at snapshot
+    time outside the registry lock, publishes them as gauges."""
+    from ..analysis import races as _races
+    from ..analysis import threads as _threads
+
+    reg.gauge("analysis.race_checks",
+              "lockset verifications by the data-race detector").set(
+        _races.check_count())
+    reg.gauge("analysis.thread_role_asserts",
+              "dynamic thread-role contract verifications").set(
+        _threads.assert_count())
+
+
+_default.register_collector("analysis", _collect_analysis)
 
 
 def registry() -> MetricsRegistry:

@@ -12,8 +12,10 @@ a free port (``exporter.port``).
 
 ``hvd.init()`` starts one when ``HVD_TPU_METRICS_PORT`` is set
 (``core/state.py``); a client gone at the reply is flight-recorded.
-Waiting for ROADMAP.md A.5.2 and later: the chaos site
-``serving.disconnect``, the lock-order locks and the thread roles.
+The route registry's lock is the lock-order checker's named lock, its
+guarded fields carry the race checker, and the serving thread is
+stamped ``exporter`` (reference :121-137, :300-301).  Waiting for
+ROADMAP.md A.5.4: the chaos site ``serving.disconnect``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
 from . import flight as _flight
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
+from ..analysis import threads as _athreads
 from .registry import MetricsRegistry
 
 _PROM_HELP_TYPES = {"counter": "counter", "gauge": "gauge",
@@ -97,6 +102,7 @@ def prometheus_text(snapshot: dict) -> str:
     return "\n".join(lines) + "\n"
 
 
+@_races.race_checked
 class RouteRegistry:
     """Path → handler table shared by every exporter instance.
 
@@ -107,7 +113,7 @@ class RouteRegistry:
     ``/generate``) never wedges registration or other routes."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("exporter.RouteRegistry._lock")
         # (method, path) -> (handler, pass_client)
         self._routes: Dict[Tuple[str, str],
                            Tuple[RouteHandler, bool]] = {}
@@ -268,8 +274,14 @@ class MetricsExporter:
         self._server = ThreadingHTTPServer((host, port), _Handler)
         self._server.daemon_threads = True
         self.port = self._server.server_address[1]
+        server = self._server
+
+        def _serve() -> None:  # thread: exporter
+            _athreads.set_role("exporter")
+            server.serve_forever()
+
         self._thread = threading.Thread(
-            target=self._server.serve_forever,
+            target=_serve,
             name="hvd-metrics-exporter", daemon=True)
         self._thread.start()
 

@@ -10,9 +10,8 @@ count); ``HVD_TPU_METRICS=0`` (or ``set_enabled(False)``) makes every
 :func:`aggregate` merges per-rank snapshots (``telemetry.
 cluster_metrics``).
 
-Waiting for ROADMAP.md A.5.2: the lock-order graph's named locks (plain
-``threading.Lock`` here) and the race detector's ``race_checked``
-descriptors.
+The locks are the lock-order checker's named locks and the registry's
+guarded fields carry the race checker (reference :103, :228-244).
 """
 
 from __future__ import annotations
@@ -21,6 +20,9 @@ import math
 import os
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
+
+from ..analysis import lockorder as _lockorder
+from ..analysis import races as _races
 
 
 
@@ -75,7 +77,7 @@ class _Striped:
 
     def __init__(self) -> None:
         self._tl = threading.local()
-        self._cells_lock = threading.Lock()
+        self._cells_lock = _lockorder.make_lock("telemetry._cells_lock")
         self._cells: List[list] = []  # guarded_by: _cells_lock
 
     def _cell(self, template: list) -> list:
@@ -200,6 +202,7 @@ class Histogram(_Striped):
         }
 
 
+@_races.race_checked
 class MetricsRegistry:
     """Name-keyed metric table + snapshot-time collectors.
 
@@ -213,7 +216,7 @@ class MetricsRegistry:
         # hot path pays a single list-index check.
         self._enabled_ref = [metrics_enabled() if enabled is None
                              else bool(enabled)]
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("MetricsRegistry._lock")
         self._metrics: Dict[str, object] = {}  # guarded_by: _lock
         self._collectors: Dict[str, Callable] = {}  # guarded_by: _lock
 

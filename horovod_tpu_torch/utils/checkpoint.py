@@ -45,10 +45,12 @@ names: ``checkpoint.write_seconds`` (count, sum, last),
 ``checkpoint.shards_written``, ``checkpoint.manifest_commits``,
 ``checkpoint.broadcast_skipped``.  A retried write is flight-recorded
 (``ckpt_retry``) and a failed one is a ``checkpoint_error_event``
-(reference :165, :238).  Waiting for A.5.2 and later: the chaos site
-``ckpt.oserror``, the ``checkpoint.write`` trace span, the lock-order
-locks (plain ``threading.Lock`` here) and thread roles, the memory
-ledger's ``checkpoint.snapshots``.  The serving
+(reference :165, :238).  The writer's locks are the lock-order
+checker's named locks, its thread is stamped ``writer``, each write is a
+``checkpoint.write`` trace span and each queued host snapshot is charged
+to the memory ledger's ``checkpoint.snapshots`` until it is written
+(reference :185-251).  Waiting for A.5.4: the chaos site
+``ckpt.oserror``.  The serving
 checkpoints (:func:`save_serving_checkpoint`) write the
 reference's two files byte for byte; the elastic ``commit()`` waits for
 A.5.3.
@@ -70,6 +72,10 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from .. import trace as _trace
+from ..analysis import lockorder as _lockorder
+from ..analysis import threads as _athreads
+from ..memory import ledger as _mem
 from ..core import state as _state
 from ..telemetry import flight as _flight
 from . import serialization
@@ -208,13 +214,22 @@ class _Writer:
     def __init__(self) -> None:
         self._q: queue.Queue = queue.Queue()
         self._pending = 0
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("checkpoint._Writer._lock")
         self._thread = threading.Thread(
             target=self._run, name="hvd-ckpt-writer", daemon=True)
         self._thread.start()
 
     def submit(self, handle: CheckpointWrite, host_tree: Any,
                step: Optional[int]) -> None:
+        # hvd-mem: the host snapshot is framework-held memory until the
+        # background write publishes it -- charged per handle, released in
+        # the writer's finally (reference :191-199).
+        if _mem.enabled():
+            handle._mem_bytes = _mem.tree_nbytes(host_tree)
+            if handle._mem_bytes:
+                _mem.ledger.alloc("checkpoint.snapshots",
+                                  handle._mem_bytes)
+
         def publish() -> None:
             _write_bytes(handle.path, serialization.to_pieces(host_tree))
             if step is not None:
@@ -234,10 +249,12 @@ class _Writer:
         with self._lock:
             return self._pending
 
-    def _run(self) -> None:
+    def _run(self) -> None:  # thread: writer
+        _athreads.set_role("writer")
         while True:
             handle, publish = self._q.get()
             t0 = time.perf_counter()
+            mt0 = time.monotonic() if _trace.enabled() else 0.0
             try:
                 publish()
             except BaseException as e:  # noqa: BLE001 — carried to wait()
@@ -252,6 +269,16 @@ class _Writer:
                     hist["count"] += 1
                     hist["sum"] += seconds
                     hist["last"] = seconds
+                if _trace.enabled():
+                    # hvd-trace: a write that stole the cycle shows up in
+                    # the fleet trace as a checkpoint-leg span.
+                    _trace.span("checkpoint.write", "checkpoint", mt0,
+                                time.monotonic(),
+                                args={"path": os.path.basename(
+                                    handle.path)})
+                nb = getattr(handle, "_mem_bytes", 0)
+                if nb:
+                    _mem.ledger.free("checkpoint.snapshots", nb)
                 with self._lock:
                     self._pending -= 1
                     _set_pending(self._pending)
@@ -274,7 +301,7 @@ def _set_pending(n: int) -> None:
 
 
 _writer: Optional[_Writer] = None
-_writer_lock = threading.Lock()
+_writer_lock = _lockorder.make_lock("checkpoint._writer_lock")
 
 
 def _get_writer() -> _Writer:
@@ -642,7 +669,7 @@ MANIFEST_POINTER = "MANIFEST"
 SHARDED_FORMAT = "hvd-sharded-checkpoint-v1"
 
 _save_seq: dict = {}
-_save_seq_lock = threading.Lock()
+_save_seq_lock = _lockorder.make_lock("checkpoint._save_seq_lock")
 
 
 def _manifest_timeout() -> float:

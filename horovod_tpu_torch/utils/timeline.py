@@ -37,17 +37,19 @@ events are formatted and flushed by its C++ writer, ``native/timeline.cc``
 It has no counter phase, so the ``response_cache`` counter becomes an
 instant on a ``response_cache`` row with the same args, as in the
 reference.  Opening and closing a timeline go into the flight ring
-(reference :86, :221).  Left out of the port: the reference's
-trace-context hooks (A.5.2).
+(reference :86, :221).  The trace layer (``trace/__init__.py``) installs a
+context provider (reference :51-58, :126-128): begin and instant events
+carry the propagated ``(step, cycle)`` in their args, so rank 0's
+timeline joins against fleet-trace spans on the same keys.
 """
 
 from __future__ import annotations
 
 import json
-import threading
 import time
 from typing import Optional
 
+from ..analysis import lockorder as _lockorder
 from ..native import lib as _native
 from ..telemetry import flight as _flight
 
@@ -62,11 +64,24 @@ _PH_INSTANT = "i"
 # Their codes in native/timeline.cc's hvd_timeline_event.
 _NATIVE_PH = {_PH_BEGIN: 0, _PH_END: 1, _PH_INSTANT: 2, _PH_METADATA: 3}
 
+# hvd-trace context mirror: when set (trace/__init__.py), begin and
+# instant events' args carry the propagated (step, cycle).  A late-bound
+# module global, so this module stays importable without the trace layer.
+_context_provider = None
+
+
+def set_context_provider(fn) -> None:
+    """Install (or clear, with None) the callable whose dict is merged
+    into every begin and instant event's args (hvd-trace's
+    ``current_args``)."""
+    global _context_provider
+    _context_provider = fn
+
 
 class Timeline:
     def __init__(self, path: str):
         self._path = path
-        self._lock = threading.Lock()
+        self._lock = _lockorder.make_lock("Timeline._lock")
         self._tensor_pids = {}
         self._next_pid = 1
         self._start = time.monotonic()
@@ -117,7 +132,13 @@ class Timeline:
                args: Optional[dict] = None) -> None:
         # Writers run on the cycle's thread and on callers' threads while
         # stop_timeline() may close the file: the whole event holds the
-        # lock, and an event after close is a silent no-op.
+        # lock, and an event after close is a silent no-op.  Begin and
+        # instant events carry the trace context; explicit args win.
+        if _context_provider is not None and ph in (_PH_BEGIN,
+                                                    _PH_INSTANT):
+            ctx = _context_provider()
+            if ctx:
+                args = {**ctx, **(args or {})}
         with self._lock:
             if self._native is not None:
                 self._lib.hvd_timeline_event(

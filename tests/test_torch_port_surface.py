@@ -2,7 +2,8 @@
 ``import horovod_tpu as hvd`` (ROADMAP.md C.5), except the names listed
 below with their reasons: those that need no counterpart in a PyTorch
 port (ROADMAP.md §A "No counterpart needed") and those of modules still
-queued (§A.5.2 and later)."""
+queued (§A.5.3 and later).  Differences inside a bound name are listed
+too, each with its reason (``DIFFERENCES``)."""
 
 import pytest
 
@@ -23,18 +24,20 @@ NO_COUNTERPART = {
 }
 
 QUEUED = {
-    "analysis": "A.5.2 analysis/",
-    "verify_program": "A.5.2 analysis/program",
-    "trace": "A.5.2 trace/",
-    "dump_fleet_trace": "A.5.2 trace/merge",
-    "StragglerWatch": "A.5.2 trace/watch",
-    "memory": "A.5.2 memory/",
-    "MemoryWatch": "A.5.2 memory/",
     "elastic": "A.5.3 elastic.py",
     "chaos": "A.5.4 chaos/",
 }
 
 PUBLIC = sorted(n for n in dir(ref_hvd) if not n.startswith("_"))
+
+# Bound names whose port differs from the reference's, with the reason.
+DIFFERENCES = {
+    "analysis.analyze_sources": (
+        "no post-donation-read pass: the reference's analysis/donation.py "
+        "has no counterpart (torch has no buffer donation, ROADMAP.md §A "
+        "'No counterpart needed'), so the port runs lint, thread-role and "
+        "stale-waiver only"),
+}
 
 
 @pytest.mark.parametrize("name", [n for n in PUBLIC
@@ -69,3 +72,25 @@ def test_bound_modules_are_the_ports():
         "horovod_tpu_torch.serving.engine"
     assert port_hvd.fused.__name__ == "horovod_tpu_torch.ops.fused"
     assert port_hvd.metrics is port_hvd.telemetry.metrics
+
+
+@pytest.mark.parametrize("name", ["analysis", "verify_program", "trace",
+                                  "dump_fleet_trace", "StragglerWatch",
+                                  "memory", "MemoryWatch"])
+def test_the_a52_names_are_bound_and_exported(name):
+    assert hasattr(port_hvd, name) and name in port_hvd.__all__
+
+
+def test_analyze_sources_lacks_only_the_donation_pass():
+    """DIFFERENCES["analysis.analyze_sources"]: the reference's CLI runs a
+    post-donation-read pass the port has no counterpart for; every other
+    pass is the same."""
+    import horovod_tpu.analysis as ref_analysis
+
+    assert "analysis.analyze_sources" in DIFFERENCES
+    assert hasattr(ref_analysis, "donation")
+    assert not hasattr(port_hvd.analysis, "donation")
+    assert not hasattr(port_hvd.analysis, "guard_dispatch")
+    src = {"m.py": "def f(x):\n    return x\n"}
+    assert port_hvd.analysis.analyze_sources(src) == []
+    assert ref_analysis.analyze_sources(src) == []

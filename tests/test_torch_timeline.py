@@ -76,7 +76,10 @@ def test_timeline_events_match_the_reference(tmp_path, monkeypatch, seed):
     # copies; the port's C++ writer is held to it in test_torch_native.py.
     monkeypatch.setattr(jtl._native, "NATIVE", False)
     monkeypatch.setenv("HVD_TPU_DISABLE_NATIVE", "1")
+    # Both packages' trace-context mirrors are off: each would stamp its
+    # own trace's (step, cycle) into the args.
     monkeypatch.setattr(jtl, "_context_provider", None)
+    monkeypatch.setattr(ttl, "_context_provider", None)
     ref = jtl.Timeline(str(tmp_path / "ref.json"))
     port = ttl.Timeline(str(tmp_path / "port.json"))
     for method, args in _calls(seed):
