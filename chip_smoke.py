@@ -341,7 +341,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
              engine's known bytes and memory_allocated; then one more
              training step.  (e) python -m horovod_tpu_torch.analysis
              --strict over the package, as a subprocess, exits 0.
-17. word2vec - skip-gram word2vec with sparse embedding gradients
+17. elastic - elastic training and serving (ROADMAP A.5.3) and the chaos
+             sites that need no TCP channel (A.5.4, first half).
+             (a) GPT-2-small (bf16, batch 8, seq 1024, AdamW) through
+             Trainer, TrainerState and @elastic.run, as a child of
+             python -m horovod_tpu_torch.run --elastic -np 1 (this file
+             with --elastic-child), 8 steps with a commit every 2:
+             uninterrupted; killed hard (os._exit) before step 5 once
+             its step-4 commit is durable, relaunched once by the
+             launcher, resumed from step 4; a HorovodError after step 5
+             rolled back, reset and retried in process; killed again
+             under HVD_TPU_FAULTS=ckpt.oserror:count=2@7.  Each run's
+             final parameters and AdamW state bitwise the
+             uninterrupted run's; each flash kernel 12 times a step in
+             each incarnation.  (b) bench.py's trace (seed 7, 40
+             requests) drained by ServingState.drain_commit at
+             iteration 20; a fresh process syncs the commit on a fresh
+             engine and finishes it; an LMServer drained mid-flight by
+             POST /drain (its handlers answer 503), the payload POSTed
+             to /resume of a fresh server in that process; every
+             completion bitwise the uninterrupted rollout, the serving
+             kernels launched in both incarnations.  (c) python -m
+             horovod_tpu_torch.chaos --matrix: the local scenarios on
+             the card, the np=2 coord_* fleets on the CPU.  Prints a
+             commit's host-snapshot ms and bytes, its publish time and
+             MB/s, death to relaunch, relaunch to the first resumed step
+             (process start and init, restore and sync, the step), the
+             retry's rollback and sync, drain_commit ms and blob bytes,
+             the serving sync ms and the resumed requests' TTFT.
+18. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -351,7 +379,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-18. resnet - ResNet data parallelism, which runs no kernel of the port's
+19. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -380,6 +408,7 @@ import itertools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -391,8 +420,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
-          "serving", "serving_mp", "distill", "observe", "word2vec",
-          "resnet")
+          "serving", "serving_mp", "distill", "observe", "elastic",
+          "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -5206,7 +5235,7 @@ def _digest_tensors(tensors) -> str:
     for t in tensors:
         t = t.detach().contiguous()
         h.update(str((tuple(t.shape), str(t.dtype))).encode())
-        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+        h.update(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -5682,6 +5711,679 @@ def phase_observe(fa, smi_line, out_dir):
     return {"launches": launches, **out}
 
 
+# elastic phase: elastic training and serving (ROADMAP A.5.3) and the
+# chaos sites the port hosts (A.5.4, first half).
+
+ELASTIC_STEPS = 8          # GPT-2-small steps of the elastic training leg
+ELASTIC_COMMIT_EVERY = 2   # a commit after every second step
+ELASTIC_DIE_AT = 5         # the first incarnation dies before this step
+ELASTIC_SERVE_DRAIN_AT = 20  # trace iterations before the drain_commit
+ELASTIC_HTTP_DRAIN_AT = 6  # decode iterations before POST /drain
+ELASTIC_HTTP_REQUESTS = 8
+ELASTIC_FAULTS = "ckpt.oserror:count=2@7"
+
+
+def _process_start_time() -> float:
+    """This process's start on the wall clock: its start tick after boot
+    (/proc, 10 ms resolution) against the boot clock now."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    since_start = (time.clock_gettime(time.CLOCK_BOOTTIME)
+                   - ticks / os.sysconf("SC_CLK_TCK"))
+    return time.time() - since_start
+
+
+def _trainer_digests(trainer) -> dict:
+    """sha256 of the trainer's parameters and of AdamW's state (moments
+    and step counts, parameters in order, keys sorted)."""
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    opt = trainer.optimizer.state_dict()["state"]
+    return {"params": _digest_tensors(tree_leaves(trainer.params)),
+            "adamw": _digest_tensors([st[k] for _, st in sorted(opt.items())
+                                   for k in sorted(st)
+                                   if isinstance(st[k], torch.Tensor)])}
+
+
+def elastic_train_child(mode, result_path, die_at) -> int:
+    """One incarnation of the elastic training leg, run by the elastic
+    launcher (``python -m horovod_tpu_torch.run --elastic -np 1 ...
+    chip_smoke.py --elastic-child MODE``): GPT-2-small (bf16, batch 8, seq
+    1024, AdamW) through ``Trainer`` and ``TrainerState`` under
+    ``@elastic.run``, ELASTIC_STEPS steps, a commit every
+    ELASTIC_COMMIT_EVERY.  ``die_at``: the first incarnation waits for
+    its last commit to be durable, then dies hard (``os._exit``) before
+    that step.  ``mode`` "retry": one ``HorovodError`` after step 5, in
+    process.  Appends one JSON line per incarnation to ``result_path``."""
+    t_proc = _process_start_time()
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.frontends.loop import Trainer
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops.collective import HorovodError
+    from horovod_tpu_torch.utils import checkpoint as ck
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device="cuda")
+    cfg = transformer_lm.bench_config()
+    batch, seq = 8, 1024
+    trainer = Trainer(
+        tt.make_loss_fn(cfg), tt.init_transformer(
+            torch.Generator().manual_seed(0), cfg, device="cuda"),
+        optimizer_fn=torch.optim.AdamW, lr=3e-4,
+        optimizer_kwargs={"weight_decay": 1e-4, "foreach": True})
+    state = elastic.TrainerState(trainer, step=0)
+    edir = os.environ["HVD_TPU_ELASTIC_DIR"]
+    marker = os.path.join(edir, "chip_smoke_died")
+    rec = {"mode": mode, "pid": os.getpid(), "t_process_start": t_proc}
+    torch.cuda.synchronize()
+    rec["t_init_done"] = time.time()
+    stamps = {}
+
+    def batches(epoch, _step):
+        # The data of a step is made from the step, as in the reference.
+        return tt.synthetic_lm_batch(torch.Generator().manual_seed(
+            1000 + epoch), batch, seq, cfg.vocab_size)
+
+    def reset():
+        stamps["t_rolled_back"] = time.time()
+
+    state.register_reset_callbacks([reset])
+
+    @elastic.run
+    def train(state):
+        torch.cuda.synchronize()
+        stamps.setdefault("t_entered", time.time())
+        if "t_rolled_back" in stamps and "t_reentered" not in stamps:
+            stamps["t_reentered"] = time.time()
+        rec.setdefault("start_step", state.step)
+        fa.reset_launches()
+        steps_run = 0
+        while state.step < ELASTIC_STEPS:
+            i = state.step
+            if die_at is not None and i == die_at and \
+                    not os.path.exists(marker):
+                t0 = time.time()
+                assert state.wait_committed(120.0)
+                rec["wait_committed_s"] = time.time() - t0
+                rec["write_seconds"] = dict(
+                    ck.stats()["checkpoint.write_seconds"])
+                rec["retries"] = ck.stats()["checkpoint.retries"]
+                rec["flash_launches"] = dict(fa.launches)
+                rec["steps_run"] = steps_run
+                open(marker, "w").close()
+                rec["t_death"] = time.time()
+                with open(result_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                os._exit(1)  # a hard failure: no handshake
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(batches, epochs=i + 1, steps_per_epoch=1,
+                        initial_epoch=i, prefetch=0)
+            torch.cuda.synchronize()
+            rec.setdefault("step_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            steps_run += 1
+            state.step += 1
+            if mode == "retry" and state.step == 6 and \
+                    "t_raised" not in stamps:
+                stamps["t_raised"] = time.time()
+                raise HorovodError("injected transient failure at step 5")
+            if state.step % ELASTIC_COMMIT_EVERY == 0:
+                t0 = time.perf_counter()
+                state.commit()
+                rec.setdefault("commit_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        rec["flash_launches"] = dict(fa.launches)
+        rec["steps_run"] = steps_run
+        return trainer
+
+    t_call = time.time()
+    train(state)
+    assert state.wait_committed(120.0)
+    rec.update(stamps)
+    rec["t_call"] = t_call
+    rec["sync_ms"] = (stamps["t_entered"] - t_call) * 1e3
+    rec["snapshot_bytes"] = sum(
+        x.numel() * x.element_size() for x in tree_leaves(state._snapshot)
+        if isinstance(x, torch.Tensor))
+    rec["write_seconds"] = dict(ck.stats()["checkpoint.write_seconds"])
+    rec["retries"] = ck.stats()["checkpoint.retries"]
+    rec["file_bytes"] = os.path.getsize(os.path.join(edir, elastic._STATE_FILE))
+    rec["digests"] = _trainer_digests(trainer)
+    rec["final_step"] = state.step
+    rec["losses"] = [h["loss"] for h in trainer.history]
+    with open(result_path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    hvd.shutdown()
+    return 0
+
+
+def _elastic_launch(args, edir, result, env=None):
+    """Start ``chip_smoke.py --elastic-child ...`` under ``python -m
+    horovod_tpu_torch.run --elastic -np 1``: the launcher, the thread
+    that stamps each of its output lines with the wall time it arrived,
+    and those lines (:func:`_elastic_finish` waits for it)."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "--elastic",
+           "-np", "1", "--max-restarts", "2", "--elastic-dir", edir,
+           os.path.abspath(__file__), "--elastic-child", *args,
+           "--elastic-result", result]
+    proc = subprocess.Popen(cmd, cwd=HERE, env={**os.environ, **(env or {})},
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.time(), line.rstrip("\n")))
+
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    return proc, t, lines
+
+
+def _elastic_finish(run, result, what, timeout=300):
+    """Wait for a launch; returns its stamped lines and the child's JSON
+    records, one per incarnation."""
+    proc, t, lines = run
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:  # the launcher and its workers
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    t.join(10.0)
+    if rc != 0:
+        tail = "\n".join(line for _, line in lines[-40:])
+        raise AssertionError(f"elastic {what}: the launcher exited {rc}\n"
+                             f"{tail}")
+    with open(result) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return lines, recs
+
+
+def elastic_serve_child(result_path, payload_path) -> int:
+    """The relaunched serving incarnation: a fresh GPT-2-small engine
+    (the same seed-0 weights) syncs the ServingState commit and finishes
+    the drained trace; a fresh LMServer takes the HTTP leg's /drain
+    payload through POST /resume.  Writes one JSON object."""
+    t_proc = _process_start_time()
+    import urllib.request
+
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.serving.server import LMServer
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = transformer_lm.bench_config()
+    params = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(0), cfg, device="cuda"))
+
+    def engine_of():
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024)
+
+    out = {"t_process_start": t_proc}
+    eng = engine_of()
+    eng.warm_start()
+    S.reset_launches()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = elastic.ServingState(eng)
+    state.sync()
+    out["sync_ms"] = (time.perf_counter() - t0) * 1e3
+    pend = eng.scheduler.pending()
+    eng.run_until_idle()
+    out["state"] = [{"prompt": r.prompt[:len(r.prompt) - len(r.prefix)],
+                     "tokens": r.result(0),
+                     "ttft_ms": (r.t_first_token - r.t_submit) * 1e3}
+                    for r in pend]
+    out["serving_launches"] = dict(S.launches)
+
+    with open(payload_path) as f:
+        payload = json.load(f)
+    eng2 = engine_of()
+    resumed = []
+    real_import = eng2.import_requests
+
+    def spy(exported):
+        resumed.extend(real_import(exported))
+        return resumed
+
+    eng2.import_requests = spy
+    S.reset_launches()
+    with LMServer(eng2, port=0).start() as srv:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/resume",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            body = json.loads(resp.read())
+        out["resume_ms"] = (time.perf_counter() - t0) * 1e3
+        out["resume_reply"] = body
+        out["http"] = [{"prompt": r.prompt[:len(r.prompt) - len(r.prefix)],
+                        "tokens": r.result(120.0),
+                        "ttft_ms": (r.t_first_token - r.t_submit) * 1e3}
+                       for r in resumed]
+    out["http_serving_launches"] = dict(S.launches)
+    out["flash_launches"] = dict(fa.launches)
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _elastic_serving(cfg, params, out_dir, edir):
+    """The serving legs' first incarnation, here: bench.py's trace
+    uninterrupted (the rollout every completion is held to); the same
+    trace drained by ServingState.drain_commit at a fixed iteration and
+    committed; an LMServer drained by POST /drain mid-flight.  Returns
+    what the relaunched child needs and the figures."""
+    import urllib.error
+    import urllib.request
+
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine, harness
+    from horovod_tpu_torch.serving.scheduler import FinishReason
+    from horovod_tpu_torch.serving.server import LMServer
+
+    def engine_of():
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024)
+
+    trace = harness.serving_trace(40, cfg.vocab_size, seed=7)
+    if len({tuple(t["prompt"]) for t in trace}) != len(trace):
+        raise AssertionError("the trace's prompts are not distinct")
+    eng = engine_of()
+    eng.warm_start()
+    run = harness.run_trace(eng, trace, True)
+    want = {tuple(t["prompt"]): toks for t, toks in zip(trace, run["tokens"])}
+    del eng
+
+    # ServingState: drain and commit at a fixed iteration.
+    eng = engine_of()
+    eng.warm_start()
+    S.reset_launches()
+    reqs = [eng.submit(t["prompt"], max_new_tokens=t["max_new"],
+                       arrival=t["arrival"]) for t in trace]
+    state = elastic.ServingState(eng)
+    for it in range(ELASTIC_SERVE_DRAIN_AT):
+        eng.step(now=it, admit=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exported = state.drain_commit()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    blob_bytes = int(state.requests_blob.numel())
+    t0 = time.perf_counter()
+    if not state.wait_committed(60.0):
+        raise AssertionError("the ServingState commit never landed")
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    done_before = {tuple(r.prompt): r.result(0) for r in reqs
+                   if r.finish_reason != FinishReason.DRAINED}
+    launches_before = dict(S.launches)
+    mid_flight = sum(1 for x in exported if x["generated_prefix"])
+    del eng
+
+    # LMServer: POST /drain mid-flight, in-flight handlers answer 503.
+    eng = engine_of()
+    heavy = sorted(trace, key=lambda t: -t["max_new"])[:ELASTIC_HTTP_REQUESTS]
+    replies, drained = {}, {}
+    with LMServer(eng, port=0).start() as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        orig = eng._decode_iteration
+        count = [0]
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                base + path, data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return json.loads(resp.read())
+
+        def iteration(active):
+            count[0] += 1
+            if count[0] == ELASTIC_HTTP_DRAIN_AT:
+                t0 = time.perf_counter()
+                drained.update(post("/drain", {}))
+                drained["_ms"] = (time.perf_counter() - t0) * 1e3
+            return orig(active)
+
+        eng._decode_iteration = iteration
+
+        def client(t):
+            try:
+                replies[tuple(t["prompt"])] = ("ok", post(
+                    "/generate", {"tokens": t["prompt"],
+                                  "max_tokens": t["max_new"]})["tokens"])
+            except urllib.error.HTTPError as e:
+                replies[tuple(t["prompt"])] = (e.code, json.loads(e.read()))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in heavy]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(180.0)
+        ready_after = eng.ready
+    http_drain_ms = drained.pop("_ms")
+    if ready_after or not drained.get("requests"):
+        raise AssertionError(f"POST /drain: ready={ready_after}, "
+                             f"{len(drained.get('requests', []))} requests")
+    if any(code not in ("ok", 503) for code, _ in replies.values()) or \
+            not any(code == 503 for code, _ in replies.values()):
+        raise AssertionError(f"the /generate replies around the drain: "
+                             f"{ {k[:3]: v[0] for k, v in replies.items()} }")
+    payload_path = os.path.join(out_dir, "elastic_drain_payload.json")
+    with open(payload_path, "w") as f:
+        json.dump(drained, f)
+    return {"want": want, "done_before": done_before,
+            "http_done_before": {k: v[1] for k, v in replies.items()
+                                 if v[0] == "ok"},
+            "heavy": [tuple(t["prompt"]) for t in heavy],
+            "payload_path": payload_path,
+            "figures": {"drain_commit_ms": drain_ms,
+                        "blob_bytes": blob_bytes,
+                        "commit_publish_ms": publish_ms,
+                        "exported": len(exported),
+                        "exported_mid_flight": mid_flight,
+                        "finished_before_drain": len(done_before),
+                        "http_drain_ms": http_drain_ms,
+                        "http_exported": len(drained["requests"]),
+                        "http_503": sum(1 for c, _ in replies.values()
+                                        if c == 503)},
+            "launches_before": launches_before}
+
+
+def _elastic_serving_legs(root):
+    """(b): the serving legs' first incarnation here, then the relaunched
+    incarnation as a child (``--elastic-child serve``).  Returns the
+    first's results, the child's and the child's wall seconds."""
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    cfg = transformer_lm.bench_config()
+    params = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(0), cfg, device="cuda"))
+    sv_dir = os.path.join(root, "serving")
+    os.makedirs(sv_dir)
+    os.environ["HVD_TPU_ELASTIC_DIR"] = sv_dir
+    try:
+        served = _elastic_serving(cfg, params, root, sv_dir)
+    finally:
+        os.environ.pop("HVD_TPU_ELASTIC_DIR", None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv_result = os.path.join(root, "serve_child.json")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--elastic-child",
+         "serve", "--elastic-result", sv_result, "--elastic-payload",
+         served["payload_path"]], cwd=HERE,
+        env={**os.environ, "HVD_TPU_ELASTIC_DIR": sv_dir},
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the serving relaunch failed: "
+                             f"{child.stderr[-3000:]}")
+    with open(sv_result) as f:
+        relaunched = json.load(f)
+    return served, relaunched, seconds
+
+
+def phase_elastic(fa, smi_line, out_dir):
+    """Elastic training and serving (ROADMAP A.5.3) and the chaos matrix
+    (A.5.4, first half) on the card.  (a) GPT-2-small (bf16, batch 8, seq
+    1024, AdamW) through Trainer, TrainerState and @elastic.run as a
+    child of ``python -m horovod_tpu_torch.run --elastic -np 1``, 8 steps,
+    a commit every 2: uninterrupted; killed hard before step 5 once its
+    step-4 commit is durable, relaunched once, resumed from step 4; one
+    HorovodError after step 5 retried in process; and killed again under
+    HVD_TPU_FAULTS=ckpt.oserror:count=2@7 (the commits land after their
+    retries).  Every run's final parameters and AdamW state bitwise the
+    uninterrupted run's; each flash kernel 12 times a step in each
+    incarnation (bf16 at head_dim 64: the sm90 forms).  (b) bench.py's
+    trace served, drained by ServingState.drain_commit at iteration 20,
+    committed; a fresh process syncs it on a fresh engine and finishes;
+    an LMServer drained mid-flight by POST /drain (503s), the payload
+    POSTed to /resume of a fresh server in that process.  Every
+    completion bitwise the uninterrupted rollout; the serving kernels
+    launch in both incarnations.  (c) python -m horovod_tpu_torch.chaos
+    --matrix: the local scenarios on cuda, the coord_* fleets on the CPU
+    (one card).  Prints the commit, relaunch, retry and serving figures.
+    Returns the flash and serving launches of the path."""
+    import shutil
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        return _elastic_paths(fa, smi_line, out_dir, root, t_phase)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _elastic_paths(fa, smi_line, out_dir, root, t_phase):
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.ops import serving as S
+
+    started = []
+
+    def leg(name, args, env=None):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        result = os.path.join(root, f"{name}.jsonl")
+        run = _elastic_launch(args, d, result, env)
+        started.append(run[0])
+        return run, result
+
+    try:
+        return _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg,
+                             started, transformer_lm, S)
+    finally:
+        # A failed leg must not leave a launcher, its workers or the
+        # matrix's children running: each is a process group of its own.
+        for proc in started:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
+                  transformer_lm, S):
+    # Together: (a)'s uninterrupted run, in-process retry and flaky-disk
+    # kill, and (c)'s matrix start now, and (b) runs here meanwhile; the
+    # timed kill and relaunch runs alone after them.
+    plain, plain_r = leg("plain", ["train"])
+    retry, retry_r = leg("retry", ["retry"])
+    flaky, flaky_r = leg("flaky", ["train", "--elastic-die-at",
+                                   str(ELASTIC_DIE_AT)],
+                         {"HVD_TPU_FAULTS": ELASTIC_FAULTS})
+    # (c) The chaos matrix: local scenarios on the card, the coord_*
+    # fleets (2 ranks, one card) on the CPU.
+    matrix_out = os.path.join(out_dir, "chaos_matrix.txt")
+    t0_matrix = time.perf_counter()
+    with open(matrix_out, "w") as f:
+        mx = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.chaos", "--matrix",
+             "--device", "cuda", "--jobs", "8"], cwd=HERE, stdout=f,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    started.append(mx)
+    served, relaunched, t_serve_child = _elastic_serving_legs(root)
+    mx.wait(timeout=600)
+    matrix_s = time.perf_counter() - t0_matrix
+    plain_lines, (straight,) = _elastic_finish(plain, plain_r, "plain")
+    retry_lines, (retried,) = _elastic_finish(retry, retry_r, "retry")
+    flaky_lines, flaky_recs = _elastic_finish(flaky, flaky_r, "flaky")
+    killed, killed_r = leg("killed", ["train", "--elastic-die-at",
+                                      str(ELASTIC_DIE_AT)])
+    killed_lines, killed_recs = _elastic_finish(killed, killed_r, "killed")
+    cfg = transformer_lm.bench_config()
+
+    # The training legs: bitwise, launches, resume points, retries.
+    def check_killed(lines, recs, what):
+        first, second = recs
+        relaunch = [t for t, line in lines
+                    if line.startswith("[elastic] job failed")]
+        if len(relaunch) != 1 or len(recs) != 2:
+            raise AssertionError(f"{what}: {len(relaunch)} relaunches, "
+                                 f"{len(recs)} incarnations")
+        if (first["start_step"], first["steps_run"]) != (0, ELASTIC_DIE_AT) \
+                or (second["start_step"], second["steps_run"]) != (
+                    4, ELASTIC_STEPS - 4):
+            raise AssertionError(f"{what}: incarnations ran "
+                                 f"{first['start_step']}+{first['steps_run']}"
+                                 f" and {second['start_step']}+"
+                                 f"{second['steps_run']} steps")
+        for rec in recs:
+            want = {k: cfg.n_layers * rec["steps_run"] for k in fa.KERNELS}
+            if rec["flash_launches"] != want:
+                raise AssertionError(f"{what}: flash launches "
+                                     f"{rec['flash_launches']}, want {want}")
+        return relaunch[0]
+
+    t_relaunch = check_killed(killed_lines, killed_recs, "killed")
+    check_killed(flaky_lines, flaky_recs, "ckpt.oserror")
+    for what, rec in (("killed", killed_recs[1]), ("retry", retried),
+                      ("ckpt.oserror", flaky_recs[1])):
+        if rec["digests"] != straight["digests"] or \
+                rec["final_step"] != ELASTIC_STEPS:
+            raise AssertionError(f"{what}: the final state is not bitwise "
+                                 f"the uninterrupted run's: {rec['digests']} "
+                                 f"vs {straight['digests']}")
+    if straight["flash_launches"] != {
+            k: cfg.n_layers * ELASTIC_STEPS for k in fa.KERNELS}:
+        raise AssertionError(f"uninterrupted flash launches "
+                             f"{straight['flash_launches']}")
+    losses = straight["losses"]
+    # Each step draws its own random tokens: the losses need only be
+    # finite; the runs are held to each other bit for bit.
+    if len(losses) != ELASTIC_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"the elastic leg's losses: {losses}")
+    if retried.get("start_step") != 0 or "t_reentered" not in retried:
+        raise AssertionError(f"the in-process retry never rolled back: "
+                             f"{retried}")
+    flaky_text = "\n".join(line for _, line in flaky_lines)
+    if flaky_recs[0]["retries"] < 2 or "hvd-chaos: ckpt.oserror" not in \
+            flaky_text or "retrying" not in flaky_text:
+        raise AssertionError(f"ckpt.oserror: retries "
+                             f"{flaky_recs[0]['retries']}")
+
+    # The serving legs: every completion bitwise the uninterrupted one.
+    want = served["want"]
+    got = dict(served["done_before"])
+    for r in relaunched["state"]:
+        got[tuple(r["prompt"])] = r["tokens"]
+    if got != want:
+        bad = [k[:4] for k in want if got.get(k) != want[k]]
+        raise AssertionError(f"ServingState: {len(bad)} completions differ "
+                             f"from the uninterrupted rollout: {bad[:5]}")
+    http_got = {k: v for k, v in served["http_done_before"].items()}
+    for r in relaunched["http"]:
+        http_got[tuple(r["prompt"])] = r["tokens"]
+    if http_got != {k: want[k] for k in served["heavy"]}:
+        raise AssertionError("the /drain and /resume completions differ "
+                             "from the uninterrupted rollout")
+    for name in S.KERNELS:
+        if not served["launches_before"].get(name) or \
+                not relaunched["serving_launches"].get(name) or \
+                not relaunched["http_serving_launches"].get(name):
+            raise AssertionError(
+                f"{name} did not launch in both incarnations: "
+                f"{served['launches_before']} "
+                f"{relaunched['serving_launches']} "
+                f"{relaunched['http_serving_launches']}")
+    if any(relaunched["flash_launches"].values()):
+        raise AssertionError("the serving relaunch launched flash kernels")
+
+    # The matrix: every scenario as it expects.
+    with open(matrix_out) as f:
+        text = f.read()
+    report = json.loads(text[text.index("\n{") + 1:])
+    if mx.returncode != 0 or report["failed"]:
+        raise AssertionError(f"the chaos matrix: rc {mx.returncode}, "
+                             f"{report['failed']} failed\n{text[-3000:]}")
+    devices = {r["scenario"]: r["device"] for r in report["scenarios"]}
+    if any(devices[n] != ("cpu" if n.startswith("coord_") else "cuda")
+           for n in devices):
+        raise AssertionError(f"the matrix's devices: {devices}")
+
+    # Figures.
+    first, second = killed_recs
+    commit_ms = first["commit_ms"] + second.get("commit_ms", [])
+    ws = second["write_seconds"]
+    figures = {
+        "commit_host_snapshot_ms": commit_ms,
+        "commit_snapshot_bytes": straight["snapshot_bytes"],
+        "commit_file_bytes": straight["file_bytes"],
+        "commit_publish_s_mean": ws["sum"] / ws["count"],
+        "commit_publish_MB_per_s": straight["file_bytes"]
+        / (ws["sum"] / ws["count"]) / 1e6,
+        "wait_committed_before_death_s": first["wait_committed_s"],
+        "death_to_relaunch_s": t_relaunch - first["t_death"],
+        "relaunch_to_process_start_s": second["t_process_start"]
+        - t_relaunch,
+        "relaunch_to_init_done_s": second["t_init_done"] - t_relaunch,
+        "restore_and_sync_ms": second["sync_ms"],
+        "first_resumed_step_ms": second["step_ms"][0],
+        "relaunch_to_first_resumed_step_s": second["t_entered"]
+        - t_relaunch + second["step_ms"][0] / 1e3,
+        "step_ms_uninterrupted": straight["step_ms"],
+        "retry_rollback_ms": (retried["t_rolled_back"]
+                              - retried["t_raised"]) * 1e3,
+        "retry_sync_ms": (retried["t_reentered"]
+                          - retried["t_rolled_back"]) * 1e3,
+        "ckpt_oserror_retries": flaky_recs[0]["retries"],
+        **served["figures"],
+        "serving_relaunch_sync_ms": relaunched["sync_ms"],
+        "resumed_ttft_ms_p50": _pct([r["ttft_ms"]
+                                     for r in relaunched["state"]], 0.5),
+        "resumed_ttft_ms_max": max(r["ttft_ms"]
+                                   for r in relaunched["state"]),
+        "http_resume_ms": relaunched["resume_ms"],
+        "http_resumed_ttft_ms_p50": _pct([r["ttft_ms"]
+                                          for r in relaunched["http"]], 0.5),
+        "serving_relaunch_s": t_serve_child,
+        "matrix_seconds": matrix_s}
+    log(smi_line)
+    log({"phase": "elastic", "device": smi_line, **figures,
+         "bitwise": {"killed": True, "retry": True, "ckpt_oserror": True,
+                     "serving_state": True, "http": True},
+         "losses": losses,
+         "flash_launches_per_step": {
+             k: [rec["flash_launches"][k] / rec["steps_run"]
+                 for rec in killed_recs] for k in fa.KERNELS},
+         "serving_launches": {"first": served["launches_before"],
+                              "relaunched": relaunched["serving_launches"],
+                              "http_relaunched":
+                                  relaunched["http_serving_launches"]},
+         "matrix": [{k: r.get(k) for k in ("scenario", "status", "device",
+                                          "seconds", "fired", "note")}
+                    for r in report["scenarios"]],
+         "seconds": time.perf_counter() - t_phase})
+    return {"flash": {k: killed_recs[0]["flash_launches"][k]
+                      + killed_recs[1]["flash_launches"][k]
+                      for k in fa.KERNELS},
+            "serving": {k: served["launches_before"][k]
+                        + relaunched["serving_launches"][k]
+                        + relaunched["http_serving_launches"][k]
+                        for k in S.KERNELS}}
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -5963,11 +6665,28 @@ def main() -> int:
                          "trace go")
     ap.add_argument("--observe-child", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)  # the observe phase's child
+    # The elastic phase's children: a training incarnation under the
+    # elastic launcher ("train", "retry"), the serving relaunch ("serve").
+    ap.add_argument("--elastic-child", default=None,
+                    choices=("train", "retry", "serve"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-result", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-die-at", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-payload", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.observe_child:
         sys.path.insert(0, HERE)
         os.makedirs(args.out_dir, exist_ok=True)
         return observe_child(args.observe_child, args.out_dir)
+    if args.elastic_child:
+        sys.path.insert(0, HERE)
+        if args.elastic_child == "serve":
+            return elastic_serve_child(args.elastic_result,
+                                       args.elastic_payload)
+        return elastic_train_child(args.elastic_child, args.elastic_result,
+                                   args.elastic_die_at)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -6025,6 +6744,8 @@ def main() -> int:
                else None)
     observe = (phase_observe(fa, smi, args.out_dir) if "observe" in phases
                else None)
+    elastic = (phase_elastic(fa, smi, args.out_dir) if "elastic" in phases
+               else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -6066,7 +6787,9 @@ def main() -> int:
                 **({"distill": distill["launches"][name]}
                    if distill else {}),
                 **({"observe": observe["launches"]["hook"][name]}
-                   if observe else {})}})
+                   if observe else {}),
+                **({"elastic": elastic["flash"][name]}
+                   if elastic else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -6120,7 +6843,9 @@ def main() -> int:
                             "played_launches"][name]}
                        if serving_mp else {}),
                     **({"observe": observe["launches"]["served"][name]}
-                       if observe else {})}})
+                       if observe else {}),
+                    **({"elastic": elastic["serving"][name]}
+                       if elastic else {})}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

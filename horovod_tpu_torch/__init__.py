@@ -66,6 +66,8 @@ from .trace.merge import dump_fleet_trace  # noqa: E402
 from .trace.watch import StragglerWatch  # noqa: E402
 from . import memory  # noqa: E402  (hvd.memory: ledger/planner/oom)
 from .memory import MemoryWatch  # noqa: E402
+from . import elastic  # noqa: E402  (hvd.elastic.State / @hvd.elastic.run)
+from . import chaos  # noqa: E402  (hvd.chaos: fault injection)
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
@@ -77,6 +79,7 @@ Product = ReduceOp.PRODUCT
 __all__ = [
     "Adasum", "Average", "ChainedLoss", "Compression",
     "DistributedOptimizer", "MemoryWatch", "StragglerWatch", "analysis",
+    "chaos", "elastic",
     "dump_fleet_trace", "memory", "trace", "verify_program",
     "HorovodError", "IndexedSlices", "Max", "Min", "NotInitializedError",
     "ProcessSet", "Product", "ReduceOp", "Sum", "add_process_set",

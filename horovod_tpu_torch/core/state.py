@@ -20,8 +20,9 @@ rank), an eager data group of the device's backend, so that negotiated
 collectives never share a communicator with the monolithic step's, rank
 0's coordinator, the background thread (cycle ``HOROVOD_CYCLE_TIME`` ms,
 default 5) and the process-set table.  Before any collective it
-validates the compression, topology, fusion, overlap and pipeline
-knobs; the host exchange carries each rank's
+validates the compression, topology, fusion, overlap, pipeline,
+memory and fault-injection (``HVD_TPU_FAULTS``) knobs; the host
+exchange carries each rank's
 :func:`..ops.compression.env_fingerprint`, and rank 0 warns about a
 rank that differs.  When the job is
 hierarchical (:mod:`.topology`) every rank creates the node and
@@ -154,6 +155,10 @@ def init(device=None) -> None:
     _pipeline.validate_env()
     # hvd-mem: a mistyped HVD_TPU_MEM_CAPACITY fails init too.
     _mem_oom.validate_env()
+    # hvd-chaos: so does a mistyped HVD_TPU_FAULTS, with the valid sites.
+    from .. import chaos as _chaos
+
+    _chaos.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False

@@ -95,6 +95,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import chaos as _chaos
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..analysis import lockorder as _lockorder
@@ -471,6 +472,10 @@ class Runtime:
                 self._work.wait()
             if self._stopped.wait(self.st.tick_seconds):
                 break
+            # hvd-chaos coord.tick_delay: a starved background thread;
+            # results must not change (reference :1310-1314).
+            if _chaos.active():
+                _chaos.sleep_site("coord.tick_delay")
             self.run_cycle()
 
     def run_cycle(self) -> None:
@@ -957,6 +962,13 @@ class Runtime:
         negotiated = errors
         for coord in coords:
             negotiated += coord.poll_responses(meta)
+        # hvd-chaos coord.reorder: permute only this cycle's freshly
+        # negotiated responses, never across the flush marker or the
+        # replays, whose order keeps the cache replicas aligned
+        # (reference :2155-2166).  Every rank executes the broadcast
+        # order, so the results stay bitwise.
+        if _chaos.active():
+            negotiated = _chaos.maybe_reorder("coord.reorder", negotiated)
         now = time.monotonic()
         stall_s = stall_warning_seconds()
         if now - self._last_stall_check > stall_s:
@@ -1284,7 +1296,14 @@ class Runtime:
         response that fails it on every rank (``HOROVOD_TPU_WITHDRAW_GRACE``,
         default 10 s, before it fails here alone)."""
         timeout = float(os.environ.get("HOROVOD_TPU_SYNC_TIMEOUT", "300"))
-        if self._cycle_until(h.done, timeout) or self._stopped.is_set():
+        if self._cycle_until(h.done, timeout):
+            return
+        if self._stopped.is_set():
+            # The runtime stops before it fails the queued ops (a failed
+            # exchange, a SHUTDOWN response): an op it has not reached
+            # yet fails here, with the same message.
+            if not h.done.is_set():
+                h.finish(error=HorovodError(self.shutdown_message))
             return
         if self.channel is None:
             h.finish(error=HorovodError(

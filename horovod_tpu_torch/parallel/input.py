@@ -37,6 +37,7 @@ from typing import Any, Iterable, Optional
 
 import torch
 
+from .. import chaos as _chaos
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..analysis import threads as _analysis_threads
@@ -124,6 +125,12 @@ class PrefetchIterator:
                 except StopIteration:
                     self._put(_END)
                     return
+                # hvd-chaos input.stall: a loader or filesystem hiccup on
+                # the stager thread.  The consumer sees added latency; the
+                # batches' order and values never change (reference
+                # :150-155).
+                if _chaos.active():
+                    _chaos.sleep_site("input.stall")
                 staged = self._stage(host_batch, stream)
                 # hvd-mem: a staged batch is framework-held device memory
                 # until the consumer takes it (reference :155-163).

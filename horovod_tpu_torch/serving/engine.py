@@ -59,8 +59,10 @@ verify) runs inside :func:`..memory.oom.guard`; each iteration that ran
 work is a ``serving.iteration`` trace span and each finished request a
 ``serving.request`` span; the weights are charged to the memory ledger
 (``serving.params``, ``serving.draft_params``) and ``warm_start`` runs
-the pre-flight.  Waiting for later work (ROADMAP.md A.5.3, A.5.5): the
-elastic ``ServingState`` and tuning actuation (the reference's
+the pre-flight.  ``drain``, ``export_prefix_index``, ``seed_prefixes``
+and ``import_requests`` are what ``elastic.ServingState`` and the
+server's ``/drain`` and ``/resume`` move a fleet's work with.  Waiting
+for later work (ROADMAP.md A.5.5): tuning actuation (the reference's
 ``set_spec_tokens``).
 """
 

@@ -311,8 +311,8 @@ class ContinuousBatchingScheduler:
         submission racing the drain is either in ``pending`` or was
         rejected; it cannot be silently dropped.  The elastic relaunch
         path requeues ``pending`` plus continuations of ``drained``
-        (the reference's ``elastic.ServingState``, ROADMAP.md A.5.3); the
-        error-recovery path fails both (``InferenceEngine.abort_all``)."""
+        (``elastic.ServingState``); the error-recovery path fails both
+        (``InferenceEngine.abort_all``)."""
         with self._lock:
             self._drained = True
             pending = list(self._queue)

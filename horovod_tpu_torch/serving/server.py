@@ -14,7 +14,11 @@ sequence and answers with the tokens, TTFT and the request's rate; 503
 while draining, 504 on timeout, 499 when its client disconnected (the
 slot is released through the abort path), 500 when the serve loop's
 recovery failed it.  ``GET /prefixes`` gives the live prefix index as
-token chains.  Handlers run on the exporter's per-request threads and
+token chains.  ``POST /drain`` drains the engine for a scale-down or a
+relaunch (the in-flight handlers answer 503) and answers with the export
+(queued requests, in-flight continuations, the prefix index) while
+``/healthz`` turns NOT_READY; ``POST /resume`` installs such an export
+and reopens admission (``elastic.serving_install_payload``).  Handlers run on the exporter's per-request threads and
 only submit and wait; the engine loop runs on the server's own thread.
 """
 
@@ -37,10 +41,18 @@ from .scheduler import FinishReason
 
 HEALTH_KEY = "serving"
 GENERATE_PATH = "/generate"
+# Scale-down and boot/scale-up of one replica (elastic.py's payload).
+DRAIN_PATH = "/drain"
+RESUME_PATH = "/resume"
 # The live prefix index, for a router or autoscaler warming a newcomer.
-# (The reference's /drain and /resume call its elastic module and wait
-# for it, ROADMAP.md A.5.3.)
 PREFIXES_PATH = "/prefixes"
+
+# How often a blocked /generate handler looks at its client connection.
+# The reference waits 0.2 s between looks; on the card a short request
+# finishes within that, so its client would never be looked at (the
+# chaos matrix's serving.disconnect scenarios then never fire).  A look
+# is one zero-timeout select.
+CLIENT_POLL_SECONDS = 0.01
 
 # finish_reason -> (HTTP status, message) for requests that did not
 # complete normally.  500: the serve loop's error recovery failed it.
@@ -149,6 +161,10 @@ class LMServer:
         # (hvd-chaos hardening; exporter.ClientProbe).
         routes.register(GENERATE_PATH, self._handle_generate,
                         methods=("POST",), pass_client=True)
+        routes.register(DRAIN_PATH, self._handle_drain,
+                        methods=("POST",))
+        routes.register(RESUME_PATH, self._handle_resume,
+                        methods=("POST",))
         routes.register(PREFIXES_PATH, self._handle_prefixes,
                         methods=("GET",))
         if self._port is not None and self._shared_exporter() is None:
@@ -170,6 +186,8 @@ class LMServer:
         routes = (self._routes if self._routes is not None
                   else _exporter.routes())
         routes.unregister(GENERATE_PATH)
+        routes.unregister(DRAIN_PATH)
+        routes.unregister(RESUME_PATH)
         routes.unregister(PREFIXES_PATH)
         routes.unregister_health(HEALTH_KEY)
         if self._own_exporter is not None:
@@ -304,7 +322,8 @@ class LMServer:
                     {"error": "generation timed out", "rid": req.rid}
                 ).encode(), "application/json")
             try:
-                out = req.result(timeout=min(0.2, remaining))
+                out = req.result(timeout=min(CLIENT_POLL_SECONDS,
+                                             remaining))
                 break
             except TimeoutError:
                 if client is not None and client.disconnected():
@@ -344,6 +363,52 @@ class LMServer:
             resp["text"] = text
         return (200, (json.dumps(resp) + "\n").encode(),
                 "application/json")
+
+    def _handle_drain(self, query: str,
+                      body: bytes) -> Tuple[int, bytes, str]:
+        """Scale-down: drain the engine (in-flight handlers answer 503
+        with their partials), export the queued work, the continuations
+        and the prefix index for the caller to hand on, and turn
+        ``/healthz`` NOT_READY so the fleet stops routing here
+        (reference :368-382)."""
+        from .. import elastic as _elastic
+
+        exported = self.engine.drain()
+        payload = _elastic.serving_export_payload(self.engine, exported)
+        self.engine.mark_unready()
+        self._wake.set()  # the loop sees the emptied scheduler
+        return (200, (json.dumps(payload) + "\n").encode(),
+                "application/json")
+
+    def _handle_resume(self, query: str,
+                       body: bytes) -> Tuple[int, bytes, str]:
+        """Boot or scale-up: install a drained export (the requests
+        resubmit, the prefix chains ghost-seed the cache) and reopen
+        admission; a replica drained NOT_READY warm-starts back to ready
+        (reference :384-412).  A payload of prefixes alone seeds them
+        without the wholesale drain, so a live replica's work survives
+        the gift."""
+        from .. import elastic as _elastic
+
+        try:
+            payload = json.loads(body.decode() or "{}")
+        except ValueError:
+            return (400, b'{"error": "invalid JSON"}\n',
+                    "application/json")
+        if not self.engine.ready:
+            self.engine.warm_start()
+        if isinstance(payload, dict) and not payload.get("requests"):
+            if payload.get("prefixes"):
+                self.engine.seed_prefixes(payload["prefixes"])
+            installed = []
+        else:
+            installed = _elastic.serving_install_payload(self.engine,
+                                                         payload)
+        self._wake.set()
+        return (200, (json.dumps(
+            {"installed": len(installed),
+             "ready": self.engine.ready}) + "\n").encode(),
+            "application/json")
 
     def _handle_prefixes(self, query: str,
                          body: bytes) -> Tuple[int, bytes, str]:

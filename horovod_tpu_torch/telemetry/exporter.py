@@ -14,8 +14,8 @@ a free port (``exporter.port``).
 (``core/state.py``); a client gone at the reply is flight-recorded.
 The route registry's lock is the lock-order checker's named lock, its
 guarded fields carry the race checker, and the serving thread is
-stamped ``exporter`` (reference :121-137, :300-301).  Waiting for
-ROADMAP.md A.5.4: the chaos site ``serving.disconnect``.
+stamped ``exporter`` (reference :121-137, :300-301).  The hvd-chaos
+site ``serving.disconnect`` answers in :class:`ClientProbe`.
 """
 
 from __future__ import annotations
@@ -56,13 +56,17 @@ class ClientProbe:
     data that is NOT EOF — a pipelined request — reads as still
     connected).  The hvd-chaos ``serving.disconnect`` site injects a
     positive answer here, which is exactly where a real disconnect is
-    observed (the reference's chaos site ``serving.disconnect`` waits
-    for ROADMAP.md A.5.4)."""
+    observed (reference :60-89)."""
 
     def __init__(self, sock: Optional[_socket.socket]) -> None:
         self._sock = sock
 
     def disconnected(self) -> bool:
+        from .. import chaos as _chaos
+
+        if _chaos.active() and _chaos.fire("serving.disconnect") \
+                is not None:
+            return True
         if self._sock is None:
             return False
         try:

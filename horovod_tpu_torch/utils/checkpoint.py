@@ -49,11 +49,11 @@ names: ``checkpoint.write_seconds`` (count, sum, last),
 checker's named locks, its thread is stamped ``writer``, each write is a
 ``checkpoint.write`` trace span and each queued host snapshot is charged
 to the memory ledger's ``checkpoint.snapshots`` until it is written
-(reference :185-251).  Waiting for A.5.4: the chaos site
-``ckpt.oserror``.  The serving
-checkpoints (:func:`save_serving_checkpoint`) write the
-reference's two files byte for byte; the elastic ``commit()`` waits for
-A.5.3.
+(reference :185-251).  The hvd-chaos site ``ckpt.oserror`` fires in
+the tmp-file write (:func:`_write_bytes_once`).  The serving
+checkpoints (:func:`save_serving_checkpoint`) write the reference's two
+files byte for byte; the elastic ``commit()`` (``elastic.py``) publishes
+through :func:`write_tree_async`.
 """
 
 from __future__ import annotations
@@ -71,6 +71,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..analysis import lockorder as _lockorder
@@ -168,11 +169,18 @@ def _pieces(data) -> tuple:
 def _write_bytes_once(path: str, data) -> None:
     """One atomic publish attempt: full write to a private tmp, then
     rename.  A crash at any point leaves either the previous file or the
-    new one, never a torn read.  (The reference's chaos site
-    ``ckpt.oserror`` fires here, before the rename; it waits for A.5.4.)"""
+    new one, never a torn read.  The hvd-chaos ``ckpt.oserror`` site
+    injects its transient OSError here, inside the retried region and
+    before the rename, so an injected fault never publishes partial bytes
+    either (reference :127-150)."""
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     try:
         with open(tmp, "wb") as f:
+            fault = _chaos.fire("ckpt.oserror") if _chaos.active() \
+                else None
+            if fault is not None:
+                raise OSError(28, "hvd-chaos: ckpt.oserror (injected "
+                              "transient ENOSPC)", tmp)
             f.writelines(_pieces(data))
         os.replace(tmp, path)
     except BaseException:

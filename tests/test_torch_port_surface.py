@@ -2,7 +2,7 @@
 ``import horovod_tpu as hvd`` (ROADMAP.md C.5), except the names listed
 below with their reasons: those that need no counterpart in a PyTorch
 port (ROADMAP.md §A "No counterpart needed") and those of modules still
-queued (§A.5.3 and later).  Differences inside a bound name are listed
+queued (none since §A.5.3).  Differences inside a bound name are listed
 too, each with its reason (``DIFFERENCES``)."""
 
 import pytest
@@ -23,10 +23,7 @@ NO_COUNTERPART = {
     "process_count": "one process is one rank: hvd.size()",
 }
 
-QUEUED = {
-    "elastic": "A.5.3 elastic.py",
-    "chaos": "A.5.4 chaos/",
-}
+QUEUED = {}
 
 PUBLIC = sorted(n for n in dir(ref_hvd) if not n.startswith("_"))
 
@@ -79,6 +76,18 @@ def test_bound_modules_are_the_ports():
                                   "memory", "MemoryWatch"])
 def test_the_a52_names_are_bound_and_exported(name):
     assert hasattr(port_hvd, name) and name in port_hvd.__all__
+
+
+@pytest.mark.parametrize("name", ["elastic", "chaos"])
+def test_the_a53_names_are_bound_and_exported(name):
+    assert hasattr(port_hvd, name) and name in port_hvd.__all__
+
+
+def test_bound_elastic_and_chaos_are_the_ports():
+    assert port_hvd.elastic.__name__ == "horovod_tpu_torch.elastic"
+    assert port_hvd.chaos.__name__ == "horovod_tpu_torch.chaos"
+    assert port_hvd.elastic.EX_TEMPFAIL == 75
+    assert port_hvd.chaos.VALID_SITES == ref_hvd.chaos.VALID_SITES
 
 
 def test_analyze_sources_lacks_only_the_donation_pass():

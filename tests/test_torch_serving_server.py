@@ -381,7 +381,8 @@ def test_lmserver_concurrent_http_requests():
 def test_lmserver_close_unregisters_and_stops_the_loop():
     routes = exporter.RouteRegistry()
     srv = LMServer(make_engine(), port=0, routes=routes).start()
-    assert set(routes.paths()) == {"/generate", "/prefixes"}
+    assert set(routes.paths()) == {"/generate", "/drain", "/resume",
+                                   "/prefixes"}
     thread = srv._thread
     srv.close()
     assert not thread.is_alive() and routes.paths() == ()
