@@ -341,8 +341,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              engine's known bytes and memory_allocated; then one more
              training step.  (e) python -m horovod_tpu_torch.analysis
              --strict over the package, as a subprocess, exits 0.
-17. elastic - elastic training and serving (ROADMAP A.5.3) and the chaos
-             sites that need no TCP channel (A.5.4, first half).
+17. elastic - elastic training and serving (ROADMAP A.5.3).
              (a) GPT-2-small (bf16, batch 8, seq 1024, AdamW) through
              Trainer, TrainerState and @elastic.run, as a child of
              python -m horovod_tpu_torch.run --elastic -np 1 (this file
@@ -361,15 +360,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
              POST /drain (its handlers answer 503), the payload POSTed
              to /resume of a fresh server in that process; every
              completion bitwise the uninterrupted rollout, the serving
-             kernels launched in both incarnations.  (c) python -m
-             horovod_tpu_torch.chaos --matrix: the local scenarios on
-             the card, the np=2 coord_* fleets on the CPU.  Prints a
-             commit's host-snapshot ms and bytes, its publish time and
-             MB/s, death to relaunch, relaunch to the first resumed step
+             kernels launched in both incarnations.  Prints a commit's
+             host-snapshot ms and bytes, its publish time and MB/s,
+             death to relaunch, relaunch to the first resumed step
              (process start and init, restore and sync, the step), the
              retry's rollback and sync, drain_commit ms and blob bytes,
              the serving sync ms and the resumed requests' TTFT.
-18. word2vec - skip-gram word2vec with sparse embedding gradients
+18. control - the TCP control channel (ROADMAP A.5 item 4 with A.2 item
+             8), host code whose multi-rank legs run as CPU ranks on the
+             card's machine (one card is one NCCL rank, and one rank
+             has no exchange); the channel launches no kernel.  (a)
+             python -m
+             horovod_tpu_torch.chaos --matrix, every scenario: the local
+             ones on the card, the cp fleets (the ten TCP scenarios
+             among them) on the CPU, each one's verdict and seconds.
+             (b) GPT-2-small at full width in f32 (vocab 32768, d 768,
+             12 heads, 12 layers, d_ff 3072; cut: batch 1 of 128 tokens
+             a rank, the ranks on the CPU, one thread each, 6 AdamW
+             steps) through the hook-driven DistributedOptimizer under
+             python -m horovod_tpu_torch.run -np 2 (this file with
+             --control-child), with no fault and under
+             HVD_TPU_FAULTS=transport.reset:count=1:after=<n>:rank=1@41,
+             n (the frames rank 1 sent by the end of step 3 of the
+             fault-free run) landing the reset after step 2 (checked):
+             both ranks' parameters and
+             AdamW state bitwise (sha256), "session resumed" shown and
+             rank 1's transport.reconnects 1.  (c) the same at -np 3
+             (HOROVOD_FUSION_THRESHOLD=0, so each tensor is summed alone
+             and the sums' order is fixed), flat, under HVD_TPU_TREE=on
+             HVD_TPU_TREE_FANOUT=1, and the tree under a reset of the
+             leaf (rank 2): the tree runs bitwise the flat run, rank 0
+             gathering expected_root_frames(3, 1) frames a cycle (2
+             flat).  (d) tools/control_ab.py on this tree, one round
+             beside (b) and (c)'s faulted runs: the median negotiated 4
+             B allreduce at np 2 and np 3, a hard kill to its grace
+             diagnosis (HVD_TPU_RECONNECT_GRACE=1.5), a reset to
+             "session resumed" (the A/B against another checkout in
+             turns is the tool's --trees A,B).  Every process of (a)-(d)
+             zeroes the kernel launch counters before its work and
+             reports them; the kernels line's "control" count is their
+             sum (the matrix's serving scenarios on the card launch
+             serving_gemm and cache_attention; the CPU ranks none).
+19. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -379,7 +411,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-19. resnet - ResNet data parallelism, which runs no kernel of the port's
+20. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -421,7 +453,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
           "serving", "serving_mp", "distill", "observe", "elastic",
-          "word2vec", "resnet")
+          "control", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -6143,8 +6175,7 @@ def _elastic_serving_legs(root):
 
 
 def phase_elastic(fa, smi_line, out_dir):
-    """Elastic training and serving (ROADMAP A.5.3) and the chaos matrix
-    (A.5.4, first half) on the card.  (a) GPT-2-small (bf16, batch 8, seq
+    """Elastic training and serving (ROADMAP A.5.3) on the card.  (a) GPT-2-small (bf16, batch 8, seq
     1024, AdamW) through Trainer, TrainerState and @elastic.run as a
     child of ``python -m horovod_tpu_torch.run --elastic -np 1``, 8 steps,
     a commit every 2: uninterrupted; killed hard before step 5 once its
@@ -6159,9 +6190,8 @@ def phase_elastic(fa, smi_line, out_dir):
     an LMServer drained mid-flight by POST /drain (503s), the payload
     POSTed to /resume of a fresh server in that process.  Every
     completion bitwise the uninterrupted rollout; the serving kernels
-    launch in both incarnations.  (c) python -m horovod_tpu_torch.chaos
-    --matrix: the local scenarios on cuda, the coord_* fleets on the CPU
-    (one card).  Prints the commit, relaunch, retry and serving figures.
+    launch in both incarnations.  (The chaos matrix runs in the control
+    phase.)  Prints the commit, relaunch, retry and serving figures.
     Returns the flash and serving launches of the path."""
     import shutil
 
@@ -6206,26 +6236,14 @@ def _elastic_paths(fa, smi_line, out_dir, root, t_phase):
 def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
                   transformer_lm, S):
     # Together: (a)'s uninterrupted run, in-process retry and flaky-disk
-    # kill, and (c)'s matrix start now, and (b) runs here meanwhile; the
-    # timed kill and relaunch runs alone after them.
+    # kill start now, and (b) runs here meanwhile; the timed kill and
+    # relaunch runs alone after them.
     plain, plain_r = leg("plain", ["train"])
     retry, retry_r = leg("retry", ["retry"])
     flaky, flaky_r = leg("flaky", ["train", "--elastic-die-at",
                                    str(ELASTIC_DIE_AT)],
                          {"HVD_TPU_FAULTS": ELASTIC_FAULTS})
-    # (c) The chaos matrix: local scenarios on the card, the coord_*
-    # fleets (2 ranks, one card) on the CPU.
-    matrix_out = os.path.join(out_dir, "chaos_matrix.txt")
-    t0_matrix = time.perf_counter()
-    with open(matrix_out, "w") as f:
-        mx = subprocess.Popen(
-            [sys.executable, "-m", "horovod_tpu_torch.chaos", "--matrix",
-             "--device", "cuda", "--jobs", "8"], cwd=HERE, stdout=f,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    started.append(mx)
     served, relaunched, t_serve_child = _elastic_serving_legs(root)
-    mx.wait(timeout=600)
-    matrix_s = time.perf_counter() - t0_matrix
     plain_lines, (straight,) = _elastic_finish(plain, plain_r, "plain")
     retry_lines, (retried,) = _elastic_finish(retry, retry_r, "retry")
     flaky_lines, flaky_recs = _elastic_finish(flaky, flaky_r, "flaky")
@@ -6310,18 +6328,6 @@ def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
     if any(relaunched["flash_launches"].values()):
         raise AssertionError("the serving relaunch launched flash kernels")
 
-    # The matrix: every scenario as it expects.
-    with open(matrix_out) as f:
-        text = f.read()
-    report = json.loads(text[text.index("\n{") + 1:])
-    if mx.returncode != 0 or report["failed"]:
-        raise AssertionError(f"the chaos matrix: rc {mx.returncode}, "
-                             f"{report['failed']} failed\n{text[-3000:]}")
-    devices = {r["scenario"]: r["device"] for r in report["scenarios"]}
-    if any(devices[n] != ("cpu" if n.startswith("coord_") else "cuda")
-           for n in devices):
-        raise AssertionError(f"the matrix's devices: {devices}")
-
     # Figures.
     first, second = killed_recs
     commit_ms = first["commit_ms"] + second.get("commit_ms", [])
@@ -6357,8 +6363,7 @@ def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
         "http_resume_ms": relaunched["resume_ms"],
         "http_resumed_ttft_ms_p50": _pct([r["ttft_ms"]
                                           for r in relaunched["http"]], 0.5),
-        "serving_relaunch_s": t_serve_child,
-        "matrix_seconds": matrix_s}
+        "serving_relaunch_s": t_serve_child}
     log(smi_line)
     log({"phase": "elastic", "device": smi_line, **figures,
          "bitwise": {"killed": True, "retry": True, "ckpt_oserror": True,
@@ -6371,9 +6376,6 @@ def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
                               "relaunched": relaunched["serving_launches"],
                               "http_relaunched":
                                   relaunched["http_serving_launches"]},
-         "matrix": [{k: r.get(k) for k in ("scenario", "status", "device",
-                                          "seconds", "fired", "note")}
-                    for r in report["scenarios"]],
          "seconds": time.perf_counter() - t_phase})
     return {"flash": {k: killed_recs[0]["flash_launches"][k]
                       + killed_recs[1]["flash_launches"][k]
@@ -6382,6 +6384,328 @@ def _elastic_legs(fa, smi_line, out_dir, root, t_phase, leg, started,
                         + relaunched["serving_launches"][k]
                         + relaunched["http_serving_launches"][k]
                         for k in S.KERNELS}}
+
+
+# -- control: the TCP control channel (ROADMAP A.5 item 4 with A.2 item 8)
+
+CONTROL_STEPS = 6        # GPT-2-small AdamW steps a run (legs b and c)
+CONTROL_SEQ = 128        # tokens a rank a step (batch 1 a rank)
+CONTROL_SEED = 41        # the reset specs' seed
+CONTROL_RESET_AFTER = 2  # the reset lands after this many steps
+
+
+def control_config():
+    """GPT-2-small at full width (vocab 32768, d 768, 12 heads, 12
+    layers, d_ff 3072) in f32: the control legs train it on CPU ranks."""
+    from horovod_tpu_torch.examples import transformer_lm
+
+    return dataclasses.replace(transformer_lm.bench_config(CONTROL_SEQ),
+                               dtype=torch.float32)
+
+
+def _sum_counts(counts):
+    total = {}
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def control_child(result_path) -> int:
+    """One rank of the control phase's GPT-2-small runs (``python -m
+    horovod_tpu_torch.run -np N chip_smoke.py --control-child PATH``): on
+    the CPU, one thread, seed-0 weights broadcast from rank 0, batch 1 of
+    CONTROL_SEQ tokens a rank (seeded by the rank), the hook-driven
+    ``DistributedOptimizer`` over AdamW, CONTROL_STEPS steps.  Writes
+    PATH.rank<r>.json: losses, the frames sent and reconnects after each
+    step, the kernel launches of the steps (counters zeroed just before
+    them), sha256 of the parameters and of AdamW's state, the channel's
+    class and, on rank 0, the frames it gathered a cycle."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.chaos import matrix as _matrix
+    from horovod_tpu_torch.core import state as st
+    from horovod_tpu_torch.frontends import torch as hvd_torch
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_named_leaves
+
+    cfg = control_config()
+    hvd.init(device="cpu")
+    rank = hvd.rank()
+    params = tt.init_transformer(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    hvd.broadcast_parameters(params, root_rank=0)
+    adamw = torch.optim.AdamW(tree_leaves(params), lr=3e-4,
+                              weight_decay=1e-4)
+    opt = hvd_torch.DistributedOptimizer(
+        adamw, named_parameters=tree_named_leaves(params))
+    step = hvd.make_train_step(tt.make_loss_fn(cfg), opt)
+    data = tt.synthetic_lm_batch(torch.Generator().manual_seed(1 + rank), 1,
+                                 CONTROL_SEQ, cfg.vocab_size)
+
+    def metric(name):
+        return telemetry.metrics().get(name, {}).get("value", 0)
+
+    rec = {"rank": rank, "size": hvd.size(), "losses": [],
+           "frames_sent": [], "reconnects": [], "step_s": []}
+    _matrix.reset_launches()
+    for _ in range(CONTROL_STEPS):
+        t0 = time.perf_counter()
+        rec["losses"].append(float(step(params, data)))
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["frames_sent"].append(metric("transport.frames_sent"))
+        rec["reconnects"].append(metric("transport.reconnects"))
+    rec["launches"] = _matrix.launch_counts()
+    state = adamw.state_dict()["state"]
+    rec["params"] = _digest_tensors(tree_leaves(params))
+    rec["adamw"] = _digest_tensors([v[k] for _, v in sorted(state.items())
+                                    for k in sorted(v)
+                                    if isinstance(v[k], torch.Tensor)])
+    channel = st._state.channel
+    rec["channel"] = type(channel).__name__
+    if rank == 0:
+        rec["frame_counts"] = {str(k): v
+                               for k, v in channel.frame_counts.items()}
+    hvd.shutdown()
+    with open(f"{result_path}.rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _control_launch(np_, result, env):
+    """Start ``np_`` control children under the launcher."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(np_),
+           os.path.abspath(__file__), "--control-child", result]
+    full = {k: v for k, v in os.environ.items() if k != "HVD_TPU_FAULTS"}
+    full.update(OMP_NUM_THREADS="1", **env)
+    return subprocess.Popen(cmd, cwd=HERE, env=full, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _control_finish(proc, result, np_, what, timeout=900):
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"control {what}: the launcher exited "
+                             f"{proc.returncode}\n{out[-4000:]}")
+    recs = []
+    for r in range(np_):
+        with open(f"{result}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    return out, recs
+
+
+def _reset_after(recs, rank):
+    """The frames ``rank`` had sent by the end of step CONTROL_RESET_AFTER
+    + 1 of the fault-free run ``recs``: a reset after that many lands
+    after step CONTROL_RESET_AFTER of a run that sends up to 1.5 times as
+    many frames a step (a rank sends one frame a cycle, and the idle
+    cycles of the background thread make the count follow the time), and
+    before the last step of one that sends half as many."""
+    return recs[rank]["frames_sent"][CONTROL_RESET_AFTER]
+
+
+def phase_control(smi_line, out_dir):
+    """The TCP control channel (ROADMAP A.5 item 4 with A.2 item 8): its
+    multi-rank legs run as CPU ranks on the card's machine (one card is
+    one NCCL rank, and one rank has no exchange).  (a) python -m
+    horovod_tpu_torch.chaos --matrix: the local scenarios on the card,
+    every cp fleet (the ten TCP scenarios with them) on the CPU.  (b)
+    GPT-2-small (control_config) through the hook-driven
+    DistributedOptimizer under python -m horovod_tpu_torch.run -np 2,
+    CONTROL_STEPS AdamW steps, with no fault and under a transport.reset
+    of rank 1 after step CONTROL_RESET_AFTER: bitwise, one resume.  (c)
+    the same at -np 3, flat, under HVD_TPU_TREE=on HVD_TPU_TREE_FANOUT=1,
+    and the tree under a reset of the leaf (rank 2): bitwise the flat
+    run, rank 0 gathering expected_root_frames(3, 1) frames a cycle.  (d)
+    tools/control_ab.py on this tree, beside the faulted runs: the 4 B
+    negotiated allreduce's median at np 2 and 3, a hard kill to its
+    diagnosis, a reset to its resume.  Returns the phase's figures."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "control")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    started = []
+    try:
+        return _control_legs(smi_line, out_dir, root, t_phase, started)
+    finally:
+        for proc in started:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def _control_legs(smi_line, out_dir, root, t_phase, started):
+    from horovod_tpu_torch.ops import tree as _tree
+
+    # (a) The whole chaos matrix.
+    matrix_out = os.path.join(out_dir, "chaos_matrix.txt")
+    t0 = time.perf_counter()
+    with open(matrix_out, "w") as f:
+        mx = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.chaos", "--matrix",
+             "--device", "cuda", "--jobs", "8"], cwd=HERE, stdout=f,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    started.append(mx)
+    mx.wait(timeout=600)
+    matrix_s = time.perf_counter() - t0
+    with open(matrix_out) as f:
+        text = f.read()
+    report = json.loads(text[text.index("\n{") + 1:])
+    if mx.returncode != 0 or report["failed"]:
+        raise AssertionError(f"the chaos matrix: rc {mx.returncode}, "
+                             f"{report['failed']} failed\n{text[-3000:]}")
+    from horovod_tpu_torch.chaos import matrix as _matrix
+
+    unreported = {r["scenario"]: r["unreported"]
+                  for r in report["scenarios"] if r["unreported"]}
+    if unreported:
+        raise AssertionError(f"the matrix: processes that printed no "
+                             f"launch counts: {unreported}")
+    kinds = {s.name: s.kind for s in _matrix.SCENARIOS}
+    devices = {r["scenario"]: r["device"] for r in report["scenarios"]}
+    if set(devices) != set(kinds) or any(
+            devices[n] != ("cpu" if kinds[n] == "cp" else "cuda")
+            for n in devices):
+        raise AssertionError(f"the matrix's devices: {devices}")
+
+    # (b) and (c): the fault-free runs together, then the faulted ones,
+    # each reset placed by the fault-free run's frame counts
+    # (_reset_after) and checked to land after step CONTROL_RESET_AFTER.
+    def launch(name, np_, env):
+        result = os.path.join(root, name)
+        proc = _control_launch(np_, result, env)
+        started.append(proc)
+        return proc, result, np_, name
+
+    flat3 = {"HOROVOD_FUSION_THRESHOLD": "0", "HVD_TPU_TREE": "off"}
+    tree3 = {"HOROVOD_FUSION_THRESHOLD": "0", "HVD_TPU_TREE": "on",
+             "HVD_TPU_TREE_FANOUT": "1"}
+    t0 = time.perf_counter()
+    first = [launch("np2", 2, {}), launch("flat3", 3, flat3),
+             launch("tree3", 3, tree3)]
+    (_, np2), (_, f3), (_, t3) = [_control_finish(*run) for run in first]
+    clean_s = time.perf_counter() - t0
+    n2, n3 = _reset_after(np2, 1), _reset_after(t3, 2)
+    spec2 = f"transport.reset:count=1:after={n2}:rank=1@{CONTROL_SEED}"
+    spec3 = f"transport.reset:count=1:after={n3}:rank=2@{CONTROL_SEED}"
+    t0 = time.perf_counter()
+    second = [launch("np2_reset", 2, {"HVD_TPU_FAULTS": spec2}),
+              launch("tree3_reset", 3, {**tree3, "HVD_TPU_FAULTS": spec3})]
+    # (d) Host timings of this tree (tools/control_ab.py, one round) on
+    # the cores the faulted runs leave; the A/B against another checkout
+    # in turns is that tool's --trees A,B on a quiet machine.
+    ab = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "control_ab.py"),
+         "--trees", HERE, "--rounds", "1"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    started.append(ab)
+    (out2, np2r), (out3, t3r) = [_control_finish(*run) for run in second]
+    faulted_s = time.perf_counter() - t0
+    ab_out, ab_err = ab.communicate(timeout=600)
+    ab_s = time.perf_counter() - t0
+    if ab.returncode != 0:
+        raise AssertionError(f"control_ab: rc {ab.returncode}\n"
+                             f"{ab_out[-2000:]}{ab_err[-3000:]}")
+    ab_last = json.loads(ab_out.strip().splitlines()[-1])
+    timings = ab_last["medians"][HERE]
+
+    def same(a, b, what):
+        for ra, rb in zip(a, b):
+            if (ra["params"], ra["adamw"]) != (rb["params"], rb["adamw"]):
+                raise AssertionError(
+                    f"control {what}: rank {ra['rank']}'s parameters or "
+                    f"AdamW state are not bitwise: {ra['params'][:12]}/"
+                    f"{ra['adamw'][:12]} vs {rb['params'][:12]}/"
+                    f"{rb['adamw'][:12]}")
+
+    def resumed_once(recs, out, rank, what):
+        rc = recs[rank]["reconnects"]
+        if "session resumed" not in out or rc[-1] != 1 \
+                or rc[CONTROL_RESET_AFTER - 1] != 0:
+            raise AssertionError(
+                f"control {what}: rank {rank}'s transport.reconnects a "
+                f"step {rc} (one reconnect after step "
+                f"{CONTROL_RESET_AFTER} wanted)\n{out[-3000:]}")
+
+    same(np2, np2r, "np 2 under transport.reset")
+    resumed_once(np2r, out2, 1, "np 2")
+    same(f3, t3, "np 3 tree against flat")
+    same(f3, t3r, "np 3 tree under transport.reset against flat")
+    resumed_once(t3r, out3, 2, "np 3 tree")
+    for recs in (np2, np2r, f3, t3, t3r):
+        for rec in recs:
+            if not all(np.isfinite(rec["losses"])):
+                raise AssertionError(f"control: losses {rec['losses']}")
+    if np2[0]["losses"][0] <= np2[0]["losses"][-1]:
+        raise AssertionError(f"control: the loss did not fall: "
+                             f"{np2[0]['losses']}")
+    want_root = _tree.expected_root_frames(3, 1)
+    root_frames = {}
+    for name, recs in (("flat3", f3), ("tree3", t3), ("tree3_reset", t3r)):
+        fc = recs[0]["frame_counts"]
+        root_frames[name] = {"most_common": int(max(fc, key=fc.get)),
+                             "cycles_by_frames": fc}
+    if root_frames["tree3"]["most_common"] != want_root or \
+            root_frames["tree3_reset"]["most_common"] != want_root or \
+            root_frames["flat3"]["most_common"] != 2:
+        raise AssertionError(f"control: rank 0's frames a cycle "
+                             f"{root_frames}, want {want_root} under the "
+                             f"tree and 2 flat")
+    if [r["channel"] for r in t3] != ["ControllerTransport",
+                                      "TreeWorkerTransport",
+                                      "TreeWorkerTransport"]:
+        raise AssertionError(f"control: the tree run's channels "
+                             f"{[r['channel'] for r in t3]}")
+
+    # The phase's kernel launches, each process's counters zeroed just
+    # before its work: the matrix's local scenarios run on the card (the
+    # serving ones launch serving_gemm and cache_attention), its cp
+    # fleets, the GPT-2-small ranks and control_ab's ranks on the CPU.
+    launches = {
+        "matrix": _sum_counts(r["launches"] for r in report["scenarios"]),
+        "matrix_by_scenario": {
+            r["scenario"]: {k: n for k, n in r["launches"].items() if n}
+            for r in report["scenarios"]},
+        "gpt2_ranks": _sum_counts(rec["launches"] for recs in (
+            np2, np2r, f3, t3, t3r) for rec in recs),
+        "control_ab": ab_last["launches"][HERE]}
+    launches["total"] = _sum_counts(
+        [launches["matrix"], launches["gpt2_ranks"], launches["control_ab"]])
+    figures = {
+        "matrix": [{k: r.get(k) for k in ("scenario", "status", "device",
+                                          "seconds", "fired", "note")}
+                   for r in report["scenarios"]],
+        "launches": launches,
+        "matrix_seconds": matrix_s,
+        "reset_after_frames": {"np2_rank1": n2, "tree3_rank2": n3},
+        "reconnects": {"np2_rank1": np2r[1]["reconnects"],
+                       "tree3_rank2": t3r[2]["reconnects"]},
+        "losses_np2": np2[0]["losses"], "losses_np3": f3[0]["losses"],
+        "step_s_np2": np2[0]["step_s"], "step_s_np3_flat": f3[0]["step_s"],
+        "step_s_np3_tree": t3[0]["step_s"],
+        "root_frames_a_cycle": root_frames,
+        "expected_root_frames_3_1": want_root,
+        "latency_np2_ms": timings["latency_np2_ms"],
+        "latency_np3_ms": timings["latency_np3_ms"],
+        "kill_to_diagnosis_s": timings["kill_to_diagnosis_s"],
+        "reset_to_resumed_s": timings["reset_to_resumed_s"],
+        "clean_runs_s": clean_s, "faulted_runs_s": faulted_s,
+        "control_ab_s": ab_s}
+    log(smi_line)
+    log({"phase": "control", "device": smi_line, **figures,
+         "bitwise": {"np2_reset": True, "np3_tree": True,
+                     "np3_tree_reset": True},
+         "seconds": time.perf_counter() - t_phase})
+    return figures
 
 
 def phase_word2vec(smi_line, out_dir):
@@ -6675,11 +6999,17 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-payload", default=None,
                     help=argparse.SUPPRESS)
+    # The control phase's child: one CPU rank of a GPT-2-small run.
+    ap.add_argument("--control-child", default=None, metavar="PATH",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.observe_child:
         sys.path.insert(0, HERE)
         os.makedirs(args.out_dir, exist_ok=True)
         return observe_child(args.observe_child, args.out_dir)
+    if args.control_child:
+        sys.path.insert(0, HERE)
+        return control_child(args.control_child)
     if args.elastic_child:
         sys.path.insert(0, HERE)
         if args.elastic_child == "serve":
@@ -6746,6 +7076,10 @@ def main() -> int:
                else None)
     elastic = (phase_elastic(fa, smi, args.out_dir) if "elastic" in phases
                else None)
+    # The control channel is host code; the phase's kernel launches are
+    # the chaos matrix's local scenarios on the card.
+    control = (phase_control(smi, args.out_dir) if "control" in phases
+               else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -6789,7 +7123,9 @@ def main() -> int:
                 **({"observe": observe["launches"]["hook"][name]}
                    if observe else {}),
                 **({"elastic": elastic["flash"][name]}
-                   if elastic else {})}})
+                   if elastic else {}),
+                **({"control": control["launches"]["total"][name]}
+                   if control else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -6845,7 +7181,9 @@ def main() -> int:
                     **({"observe": observe["launches"]["served"][name]}
                        if observe else {}),
                     **({"elastic": elastic["serving"][name]}
-                       if elastic else {})}})
+                       if elastic else {}),
+                    **({"control": control["launches"]["total"][name]}
+                       if control else {})}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

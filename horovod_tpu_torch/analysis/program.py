@@ -12,11 +12,11 @@ reach the same name.  This module proves the same invariants earlier:
 * :func:`verify_program` hashes the per-rank signature and
   cross-validates it on rank 0 *before* any data-plane work, reporting the
   first divergent entry with both ranks' views.  The reference ships the
-  signatures in TCP ``FRAME_SIGNATURE`` frames; the port's control channel
-  is one lockstep gloo exchange a cycle, so each worker's packed signature
-  rides its next batch (``KIND_SIGNATURE``, ops/transport.py) and rank 0's
-  verdict rides a broadcast (``PAYLOAD_SIGNATURE``), both on the
-  background thread that owns the control group;
+  signatures in TCP ``FRAME_SIGNATURE`` frames; the port's TCP control
+  channel carries one lockstep exchange a cycle, so each worker's packed
+  signature rides its next batch (``KIND_SIGNATURE``, ops/transport.py)
+  and rank 0's verdict rides a broadcast (``PAYLOAD_SIGNATURE``), both on
+  the thread that runs the cycle;
 * :class:`ProgramTracker` is the automatic in-negotiation twin: fed by the
   coordinator as requests arrive (``HVD_TPU_VERIFY_PROGRAM=1``), it flags
   rank-divergent program *order* the moment the streams disagree.

@@ -16,12 +16,16 @@ port hosts the sites that need no TCP channel:
   (``ops/collective.py`` ``Runtime._loop``);
 * ``coord.reorder``: rank 0's freshly negotiated responses of a cycle
   (``Runtime._negotiate``), never across the cache marker or the
-  replays.
+  replays;
+* ``transport.drop``, ``.dup``, ``.delay``, ``.trunc``, ``.reset`` and
+  ``.stall``: every frame the TCP control channel sends after its
+  handshake (``ops/transport.py`` ``_apply_send_chaos``);
+* ``tree.relay_reset``: an interior's relay of the downward stream to a
+  child (``ops/tree.py``).
 
-The ``transport.*`` and ``tree.relay_reset`` sites belong to the
-reference's TCP control channel and its tree overlay, and the
-``router.*`` sites to ``routing/``: the port has neither yet (ROADMAP.md
-§A.5 item 4 and 6), so the grammar accepts them and nothing fires them.
+The ``router.*`` sites belong to ``routing/``'s router, which the port
+does not have yet (ROADMAP.md §A.5 item 6): the grammar accepts them and
+nothing fires them.
 
 The no-hang contract (``python -m horovod_tpu_torch.chaos --matrix``):
 under every schedule of the matrix the run either fully recovers (its

@@ -61,7 +61,11 @@ def main(argv=None) -> int:
                           LOCAL_RANK=str(args.node),
                           MASTER_ADDR="127.0.0.1",
                           MASTER_PORT=str(args.port))
-        _matrix.run_cp_node(args.device)
+        _matrix.reset_launches()
+        try:
+            _matrix.run_cp_node(args.device)
+        finally:
+            _matrix.report_launches(args.node)
         return 0
     if args.scenario:
         fn = _matrix.LOCAL_SCENARIOS.get(args.scenario)
@@ -69,7 +73,11 @@ def main(argv=None) -> int:
             print(f"unknown local scenario {args.scenario!r}",
                   file=sys.stderr)
             return 2
-        fn(args.device)
+        _matrix.reset_launches()
+        try:
+            fn(args.device)
+        finally:
+            _matrix.report_launches(0)
         return 0
     ap.print_help()
     return 2

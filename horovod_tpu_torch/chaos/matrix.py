@@ -12,27 +12,33 @@ under a hard wall-clock cap a pass and holds it to its expectation:
   request storm).
 
 A run still alive at the cap is killed and reported as HANG.  Every
+child zeroes the port's kernel launch counters just before its scenario
+and prints them at its end (``CHAOS_LAUNCHES``); a scenario's report
+sums them over its passes and ranks (``launches``) and names each
+process that printed none (``unreported``).  Every
 scenario's fault sequence is deterministic (``chaos/spec.py``), so a
 failure reproduces from its spec line.
 
 Scenario kinds:
 
-* ``cp``: an np=2 fleet of the port's real runtime: each rank a process
-  that calls ``init()`` and drives negotiated allreduces through the
-  gloo control exchange, the coordinator and the response cache.  The
-  digest covers every completed negotiation ``(step, tensor, response
-  type)`` each rank executed, and the results' bytes.  A fleet needs one
-  card a rank: with fewer cards than ranks it runs on the CPU (gloo), and
-  the output says so.
+* ``cp``: an np=2 or np=3 fleet of the port's real runtime: each rank a
+  process that calls ``init()`` and drives negotiated allreduces through
+  the TCP control channel (its session resume, replay rings, grace
+  windows, frame deadlines and, with ``HVD_TPU_TREE``, the tree overlay),
+  the coordinator and the response cache.  The digest covers every
+  completed negotiation ``(step, tensor, response type)`` each rank
+  executed, and the results' bytes; rank 0 also pulls the fleet's
+  metrics once mid-run and holds a seeded memory gauge to exact values.
+  A fleet needs one card a rank: with fewer cards than ranks it runs on
+  the CPU (gloo), and the output says so.
 * ``local``: one process with the port's stack on ``--device`` (the
   checkpoint writer, the prefetch stager, the serving front door);
   digests cover real bytes (the checkpoint file, trained values,
   generated tokens).
 
 The reference's other scenarios wait for the steps that bring their
-sites (:data:`WAITING`): the TCP control channel's ``transport_*``,
-``grace_expiry`` and ``tree_*``, tuning's ``retune_midfault`` and the
-router's ``router_*`` (ROADMAP.md §A.5 items 4, 5 and 6).
+sites (:data:`WAITING`): tuning's ``retune_midfault`` and the router's
+``router_*`` (ROADMAP.md §A.5 items 5 and 6).
 """
 
 from __future__ import annotations
@@ -69,6 +75,83 @@ class Scenario:
 
 
 SCENARIOS: List[Scenario] = [
+    # -- transport (ops/transport.py): the reconnect protocol ------------
+    Scenario(
+        "transport_reset_worker", "cp", "recover",
+        spec="transport.reset:count=1:after=25:rank=1@11",
+        needle="session resumed",
+        doc="worker's control-plane connection reset mid-run; "
+            "reconnect + ring replay; results identical"),
+    Scenario(
+        "transport_reset_np3", "cp", "recover", np=3,
+        spec="transport.reset:count=1:after=25:rank=2@12",
+        needle="session resumed", cap=120.0,
+        doc="np=3: one of two workers resets; the other is "
+            "undisturbed; results identical on all three"),
+    Scenario(
+        "transport_reset_controller", "cp", "recover",
+        spec="transport.reset:count=1:after=25:rank=0@13",
+        needle="session resumed",
+        doc="controller-side reset of a worker's socket (send path); "
+            "grace + reconnect; results identical"),
+    Scenario(
+        "transport_trunc", "cp", "recover",
+        spec="transport.trunc:count=1:after=20:rank=1@14",
+        needle="session resumed",
+        doc="frame truncated mid-wire then connection reset; the "
+            "replay ring re-sends the full frame"),
+    Scenario(
+        "transport_dup_delay", "cp", "recover",
+        spec="transport.dup:count=3:after=10:rank=1;"
+             "transport.delay:count=5:after=12:delay=0.05:rank=1@15",
+        doc="duplicated + delayed frames; the stream survives (a "
+            "duplicated batch carries a sequence number already taken)"),
+    Scenario(
+        "transport_drop", "cp", "diagnostic",
+        spec="transport.drop:count=1:after=20:rank=1@16",
+        needle="was abandoned",
+        doc="a silently dropped frame (no reset, so no reconnect): the "
+            "worker's timed-out synchronize withdraws at once, rank 0 "
+            "takes the withdrawal in place of the lost batch, and the "
+            "op fails by name"),
+    Scenario(
+        "transport_stall", "cp", "recover",
+        spec="transport.stall:count=1:after=20:delay=3:rank=1@17",
+        needle="frame deadline exceeded",
+        env={"HVD_TPU_FRAME_TIMEOUT": "1"},
+        doc="slow peer stalls mid-frame past HVD_TPU_FRAME_TIMEOUT: "
+            "the deadline names peer+frame, then reconnect recovers"),
+    Scenario(
+        "grace_expiry", "cp", "diagnostic",
+        needle="no reconnect within",
+        env={"HVD_TPU_CHAOS_KILL_STEP": "12",
+             "HVD_TPU_RECONNECT_GRACE": "1.5"},
+        doc="worker dies hard (no reconnect ever comes): the grace "
+            "window expires into a diagnostic naming the fault"),
+    # -- tree overlay (ops/tree.py): interior-node death + re-parent -----
+    Scenario(
+        "tree_interior_down", "cp", "recover", np=3, cap=150.0,
+        spec="tree.relay_reset:count=1:after=40:rank=1;"
+             "transport.reset:count=1:after=30:rank=1@31",
+        needle="re-parent",
+        env={"HVD_TPU_TREE": "on", "HVD_TPU_TREE_FANOUT": "1",
+             "HVD_TPU_RECONNECT_GRACE": "15",
+             "HVD_TPU_RECONNECT_DEADLINE": "15"},
+        doc="np=3 chain 0<-1<-2: both of the interior's links die "
+            "(uplink reset + child-link relay reset); rank 1 resumes "
+            "its uplink, rank 2 re-parents to the root via the "
+            "session-resume listener; results (and the mid-run fleet "
+            "metrics pull) identical to the fault-free tree run"),
+    Scenario(
+        "tree_leaf_reset", "cp", "recover", np=3, cap=150.0,
+        spec="transport.reset:count=1:after=25:rank=2@32",
+        needle="session resumed",
+        env={"HVD_TPU_TREE": "on", "HVD_TPU_TREE_FANOUT": "1",
+             "HVD_TPU_RECONNECT_GRACE": "15",
+             "HVD_TPU_RECONNECT_DEADLINE": "15"},
+        doc="np=3 chain: the leaf's uplink to its interior parent is "
+            "reset; it re-parents to the root and the stream replay "
+            "keeps every cache replica aligned"),
     # -- the background loop and rank 0's negotiation (ops/collective.py)
     Scenario(
         "coord_tick_delay", "cp", "recover", cap=120.0,
@@ -126,21 +209,9 @@ SCENARIOS: List[Scenario] = [
 
 # The reference's scenarios whose sites the port does not host yet, with
 # the step (ROADMAP.md §A.5) that brings them.
-_TCP = ("§A.5 item 4, the TCP decision: the reference's TCP control "
-        "channel (ops/transport.py framing and session resume)")
 WAITING: Dict[str, str] = {
-    "transport_reset_worker": _TCP,
-    "transport_reset_np3": _TCP,
-    "transport_reset_controller": _TCP,
-    "transport_trunc": _TCP,
-    "transport_dup_delay": _TCP,
-    "transport_drop": _TCP,
-    "transport_stall": _TCP,
-    "grace_expiry": _TCP + " and its reconnect grace window",
-    "tree_interior_down": _TCP + " with the tree overlay ops/tree.py",
-    "tree_leaf_reset": _TCP + " with the tree overlay ops/tree.py",
     "retune_midfault": "§A.5 item 5: tuning/ and its RETUNE markers "
-                       "(and item 4's session resume)",
+                       "(item 4's session resume is in place)",
     "router_replica_death": "§A.5 item 6: routing/'s router and replicas",
     "router_restart": "§A.5 item 6: routing/'s router server",
 }
@@ -172,6 +243,32 @@ def _digest(records) -> str:
 def _result(rank: int, records) -> None:
     print(f"CHAOS_RESULT rank={rank} n={len(records)} "
           f"digest={_digest(records)}", flush=True)
+
+
+def reset_launches() -> None:
+    """Zero the port's kernel launch counters (flash attention, the
+    quantized codec, serving): a child does so just before its
+    scenario."""
+    from ..ops import flash_attention, quant, serving
+
+    for mod in (flash_attention, quant, serving):
+        mod.reset_launches()
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counters, by kernel."""
+    from ..ops import flash_attention, quant, serving
+
+    return {**flash_attention.launches, **quant.launches,
+            **serving.launches}
+
+
+def report_launches(rank: int) -> None:
+    """Print the launch counters as one ``CHAOS_LAUNCHES`` line, written
+    whole so that no other thread's output lands inside it."""
+    sys.stdout.write(f"CHAOS_LAUNCHES rank={rank} "
+                     f"{json.dumps(launch_counts(), sort_keys=True)}\n")
+    sys.stdout.flush()
 
 
 def _diag(rank: int, message: str) -> None:
@@ -211,20 +308,63 @@ def _cp_steps() -> int:
     return int(os.environ.get("HVD_TPU_CHAOS_CP_STEPS", "40"))
 
 
+# Every cp rank seeds a rank-keyed ledger entry, so rank 0's mid-run
+# metrics pull can hold the memory gauge family to exact values: every
+# rank's own, and the fleet min/max/mean/sum (reference matrix.py:
+# 308-351).
+MEM_PROBE_GAUGE = "memory.bytes.chaos.probe"
+
+
+def _seed_mem_probe(rank: int) -> None:
+    from ..memory import ledger as _mem
+
+    _mem.ledger.set("chaos.probe", (rank + 1) << 20)
+
+
+def _check_mem_gauges(snaps, np_: int) -> None:
+    """Rank 0, over one completed pull: the probe gauge from every rank
+    with its exact value, and exact fleet aggregates."""
+    from .. import telemetry as _telemetry
+
+    agg = _telemetry.aggregate(snaps).get(MEM_PROBE_GAUGE)
+    if agg is None:
+        _diag(0, f"metrics pull carried no {MEM_PROBE_GAUGE} gauge")
+    expect = {r: (r + 1) << 20 for r in range(np_)}
+    got = {int(r): int(v) for r, v in agg.get("per_rank", {}).items()}
+    if got != expect:
+        _diag(0, f"{MEM_PROBE_GAUGE} per-rank mismatch: got {got}, "
+                 f"expected {expect}")
+    exact = {"min": 1 << 20, "max": np_ << 20,
+             "mean": ((np_ + 1) << 20) / 2.0,
+             "sum": (np_ * (np_ + 1) // 2) << 20}
+    for key, want in exact.items():
+        if agg.get(key) != want:
+            _diag(0, f"{MEM_PROBE_GAUGE} {key} inexact: {agg.get(key)} "
+                     f"!= {want}")
+    print(f"CHAOS_MEMGAUGES ranks={np_} ok", flush=True)
+
+
 def run_cp_node(device: Optional[str] = None) -> None:
     """One rank of the cp fleet (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
     and ``MASTER_PORT`` set by the CLI): ``init()``, then each step one
     grouped allreduce of a tensor a dtype, then synchronized.  Every
     response the runtime executes is recorded with the step it completed
-    in; so are the results' bytes."""
+    in; so are the results' bytes.  Three quarters in, rank 0 pulls the
+    fleet's metrics (:func:`_check_mem_gauges`).  A rank whose step is
+    ``HVD_TPU_CHAOS_KILL_STEP`` dies hard there (no exit handshake).  A
+    synchronize gives up after the step deadline (the withdraw path)."""
     import torch
 
     import horovod_tpu_torch as hvd
+    from .. import telemetry as _telemetry
     from ..core import state as _state
     from ..ops.wire import ResponseType
 
+    os.environ.setdefault("HOROVOD_TPU_SYNC_TIMEOUT", str(CP_STEP_DEADLINE))
+    kill_step = int(os.environ.get("HVD_TPU_CHAOS_KILL_STEP", "-1"))
     hvd.init(device=device or "cuda")
     rank = hvd.rank()
+    _seed_mem_probe(rank)
     dev = hvd.device()
     rt = _state._state.runtime
     records: List = []
@@ -242,9 +382,14 @@ def run_cp_node(device: Optional[str] = None) -> None:
 
     rt._execute = recording
     values = hashlib.sha256()
+    steps = _cp_steps()
     try:
-        for step in range(_cp_steps()):
+        for step in range(steps):
             step_now[0] = step
+            if rank and step == kill_step:
+                sys.stderr.flush()
+                report_launches(rank)
+                os._exit(1)  # a hard crash: no exit handshake, no resume
             # One batch: the four requests negotiate in the same cycle.
             handles = hvd.grouped_allreduce_async(
                 [torch.full((8,), rank + 1 + step + k, device=dev,
@@ -260,6 +405,12 @@ def run_cp_node(device: Optional[str] = None) -> None:
             if time.monotonic() - t0 > CP_STEP_DEADLINE:
                 _diag(rank, f"step {step} took more than "
                             f"{CP_STEP_DEADLINE:.0f}s")
+            if step == (3 * steps) // 4 and rank == 0 and hvd.size() > 1:
+                snaps = rt.collect_metrics(_telemetry.metrics(), 10.0)
+                if len(snaps) < hvd.size():
+                    _diag(0, f"metrics pull covered only {sorted(snaps)} "
+                             f"of {hvd.size()} ranks")
+                _check_mem_gauges(snaps, hvd.size())
         records.append((-1, values.hexdigest(), "VALUES"))
         _result(rank, records)
     finally:
@@ -525,10 +676,13 @@ class PassResult:
     output: str
     results: Dict[int, str]  # rank -> CHAOS_RESULT line payload
     seconds: float
+    # rank -> its kernel launches (CHAOS_LAUNCHES), by kernel
+    launches: Dict[int, Dict[str, int]] = field(default_factory=dict)
 
 
 _RESULT_RE = re.compile(
     r"CHAOS_RESULT rank=(\d+) n=(\d+) digest=([0-9a-f]{24})")
+_LAUNCHES_RE = re.compile(r"CHAOS_LAUNCHES rank=(\d+) (\{[^{}]*\})")
 
 
 def _parse_results(output: str) -> Dict[int, str]:
@@ -539,6 +693,11 @@ def _parse_results(output: str) -> Dict[int, str]:
     for m in _RESULT_RE.finditer(output):
         out[int(m.group(1))] = f"n={m.group(2)} digest={m.group(3)}"
     return out
+
+
+def _parse_launches(output: str) -> Dict[int, Dict[str, int]]:
+    return {int(m.group(1)): json.loads(m.group(2))
+            for m in _LAUNCHES_RE.finditer(output)}
 
 
 def fleet_device(s: Scenario, device: str) -> str:
@@ -592,7 +751,25 @@ def _run_pass(s: Scenario, faulted: bool, device: str) -> PassResult:
     rc: Optional[int] = None if hang else max(rcs)
     return PassResult(rc=rc, output=output,
                       results=_parse_results(output),
-                      seconds=time.monotonic() - t0)
+                      seconds=time.monotonic() - t0,
+                      launches=_parse_launches(output))
+
+
+def _count_launches(report: Dict, nproc: int, *passes: PassResult) -> None:
+    """The passes' kernel launches, summed by kernel, into ``report``,
+    and the processes that reported none (``unreported``: a count of
+    none is not a count of zero)."""
+    total: Dict[str, int] = {}
+    missing = []
+    for i, p in enumerate(passes):
+        for rank in range(nproc):
+            if rank not in p.launches:
+                missing.append(f"pass {i} rank {rank}")
+                continue
+            for k, n in p.launches[rank].items():
+                total[k] = total.get(k, 0) + n
+    report["launches"] = total
+    report["unreported"] = missing
 
 
 def run_scenario(s: Scenario, verbose: bool = False,
@@ -613,9 +790,11 @@ def run_scenario(s: Scenario, verbose: bool = False,
             print(f"  ---- pass output tail ----\n{tail}", flush=True)
         return report
 
+    nproc = s.np if s.kind == "cp" else 1
     if s.expect == "complete":
         p = _run_pass(s, False, device)
         report["seconds"] = p.seconds
+        _count_launches(report, nproc, p)
         if p.rc is None:
             return fail("HANG", f"still running at the {s.cap:.0f}s "
                                 f"cap", p)
@@ -635,6 +814,7 @@ def run_scenario(s: Scenario, verbose: bool = False,
                         base)
     fp = _run_pass(s, True, device)
     report["seconds"] = (base.seconds if base else 0.0) + fp.seconds
+    _count_launches(report, nproc, *([base, fp] if base else [fp]))
     report["fired"] = fp.output.count("[hvd-chaos] rank")
     if fp.rc is None:
         return fail("HANG", f"faulted run still alive at the "

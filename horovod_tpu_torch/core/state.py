@@ -11,27 +11,37 @@ as in the original Horovod.  ``init()`` joins a process group:
 * if the caller already initialised ``torch.distributed``, that group.
 
 The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``.
-Local rank and size come from the ranks sharing a host name, exchanged
-once at init (the reference's node split).
 
-Beside that group ``init`` creates what the negotiated collectives
-(:mod:`..ops.collective`) run on: a gloo control group (more than one
-rank), an eager data group of the device's backend, so that negotiated
-collectives never share a communicator with the monolithic step's, rank
-0's coordinator, the background thread (cycle ``HOROVOD_CYCLE_TIME`` ms,
-default 5) and the process-set table.  Before any collective it
-validates the compression, topology, fusion, overlap, pipeline,
-memory and fault-injection (``HVD_TPU_FAULTS``) knobs; the host
-exchange carries each rank's
-:func:`..ops.compression.env_fingerprint`, and rank 0 warns about a
-rank that differs.  When the job is
+With more than one rank ``init`` opens the TCP control channel the
+negotiated collectives (:mod:`..ops.collective`) agree over
+(:mod:`..ops.transport`, the reference's :270-315): rank 0 listens on
+``HVD_TPU_CONTROLLER_PORT`` when it is set (else a free port; the host is
+``MASTER_ADDR`` when set, else loopback on one host and rank 0's host name
+across hosts) and every other rank connects,
+as a :class:`~..ops.transport.WorkerTransport`, or as a
+:class:`~..ops.tree.TreeWorkerTransport` when the tree overlay is armed
+(:func:`..ops.tree.tree_active`).  Every rank's host name, then the address
+and each interior's relay listener, travel over the job's group.  The HELLO carries each rank's
+:func:`..ops.compression.env_fingerprint` (rank 0 warns about a rank
+that differs); rank 0's TOPO answers with the local and cross rank and
+size (the reference's node split) and whether it runs the response
+cache.
+
+Beside that ``init`` creates an eager data group of the device's
+backend, so that negotiated collectives never share a communicator with
+the monolithic step's, rank 0's coordinator, the background thread
+(cycle ``HOROVOD_CYCLE_TIME`` ms, default 5) and the process-set table.
+Before any collective it validates the compression, topology, fusion,
+overlap, pipeline, tree, memory and fault-injection
+(``HVD_TPU_FAULTS``) knobs.  When the job is
 hierarchical (:mod:`.topology`) every rank creates the node and
 cross-node groups, in one order.  It installs the telemetry's runtime
 collector and, when ``HVD_TPU_METRICS_PORT`` is set, starts the metrics
 exporter (rank 0 only unless ``HVD_TPU_METRICS_ALL_RANKS=1``; host
 ``HVD_TPU_METRICS_HOST``, default 0.0.0.0; a bad port warns).
 ``shutdown`` agrees on a SHUTDOWN response with every rank, stops the
-thread, fails pending handles, closes the exporter and flushes the
+thread, fails pending handles, runs the channel's exit handshake and
+closes its sockets and threads, closes the exporter and flushes the
 quantization state.
 """
 
@@ -41,7 +51,7 @@ import os
 import socket
 import sys
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,7 +61,6 @@ from ..analysis import races as _races
 from ..memory import oom as _mem_oom
 from ..ops import compression as _compression
 from ..ops import megakernel as _megakernel
-from ..ops.transport import check_env_fingerprint
 from . import topology as _topology
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, parallel/data.py:76-80
@@ -81,7 +90,9 @@ class _State:
     hosts: tuple = ()  # each rank's host, in rank order (its node)
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
     tick_seconds: float = DEFAULT_CYCLE_TIME_MS / 1000.0
-    control_group: Any = None  # gloo, more than one rank
+    # ops.transport.ControllerTransport / WorkerTransport, or
+    # ops.tree.TreeWorkerTransport; None with one rank.
+    channel: Any = None
     data_group: Any = None  # the negotiated collectives' data
     # Registered and removed by callers' threads, read by the cycle's
     # thread (reference core/state.py:108-114).
@@ -147,12 +158,14 @@ def init(device=None) -> None:
     _compression.validate_env()
     _topology.validate_env()
     from ..ops import fused as _fused
+    from ..ops import tree as _tree
     from ..parallel import overlap as _overlap
     from ..parallel import pipeline as _pipeline
 
     _fused.validate_env()
     _overlap.validate_env()
     _pipeline.validate_env()
+    _tree.validate_env()
     # hvd-mem: a mistyped HVD_TPU_MEM_CAPACITY fails init too.
     _mem_oom.validate_env()
     # hvd-chaos: so does a mistyped HVD_TPU_FAULTS, with the valid sites.
@@ -170,28 +183,22 @@ def init(device=None) -> None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
     rank, size = dist.get_rank(), dist.get_world_size()
-    fingerprint = _compression.env_fingerprint()
-    hello = [(socket.gethostname(), fingerprint)]
     if size > 1:
-        hello = [None] * size
-        dist.all_gather_object(hello, (socket.gethostname(), fingerprint))
-    hosts = [h for h, _ in hello]
-    if rank == 0:
-        for r, (_, theirs) in enumerate(hello):
-            check_env_fingerprint(r, theirs)
-    mine = hosts[rank]
-    unique = list(dict.fromkeys(hosts))
+        hosts, channel = _open_channel(rank, size)
+        topo = channel.topology[0] if rank == 0 else channel.topology
+        place = dict(local_rank=topo.local_rank, local_size=topo.local_size,
+                     cross_rank=topo.cross_rank,
+                     cross_size=topo.cross_size)
+    else:
+        hosts, channel, place = [socket.gethostname()], None, {}
     _state.__dict__.update(
         initialized=True, owns_group=owns, device=dev, rank=rank, size=size,
-        local_rank=[i for i, h in enumerate(hosts) if h == mine].index(rank),
-        local_size=hosts.count(mine), cross_rank=unique.index(mine),
-        cross_size=len(unique), hosts=tuple(hosts),
+        hosts=tuple(hosts), channel=channel,
         fusion_threshold_bytes=int(os.environ.get(
             "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)),
         tick_seconds=float(os.environ.get(
             "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS)) / 1000.0,
-        control_group=dist.new_group(backend="gloo") if size > 1 else None,
-        data_group=dist.new_group(backend=backend))
+        data_group=dist.new_group(backend=backend), **place)
     topo = _topology.replica_hierarchy(hosts)
     if topo is not None:
         # Collective: every rank creates every group, in one order.
@@ -220,6 +227,72 @@ def init(device=None) -> None:
         _state.runtime.set_timeline(Timeline(timeline_path))
     _state.runtime.start()
     _start_telemetry(rank)
+
+
+def _control_address(hosts) -> Tuple[str, str]:
+    """(bind address, advertised host) of rank 0's listener.  The host is
+    ``MASTER_ADDR`` when set; else loopback when every rank's host name
+    (``hosts``) is one, and else this host's name on every interface, as
+    the tree's interior relays do, so that a job set up with its own
+    ``init_method`` across hosts still reaches rank 0."""
+    host = os.environ.get("MASTER_ADDR")
+    if not host:
+        if len(set(hosts)) == 1:
+            return "127.0.0.1", "127.0.0.1"
+        return "0.0.0.0", socket.gethostname()
+    return ("127.0.0.1" if host in ("127.0.0.1", "localhost")
+            else "0.0.0.0"), host
+
+
+def _open_channel(rank: int, size: int):
+    """The control channel (reference core/state.py:270-315): one
+    exchange over the job's group carries every rank's host name; rank 0
+    listens (on ``HVD_TPU_CONTROLLER_PORT`` when set, else a free port)
+    and each interior of the tree opens its relay listener; a second
+    exchange carries those addresses, then the ranks connect.  Returns
+    the hosts in rank order and this rank's transport."""
+    from ..ops import transport as _tp
+    from ..ops import tree as _tree
+
+    layout = _tree.build_layout(size) if _tree.tree_active(size) else None
+    hosts = [None] * size
+    dist.all_gather_object(hosts, socket.gethostname())
+    bind, host = _control_address(hosts)
+    ctrl = relay = None
+    addr = None
+    try:
+        if rank == 0:
+            port = os.environ.get("HVD_TPU_CONTROLLER_PORT")
+            ctrl = _tp.ControllerTransport(size, int(port) if port else 0,
+                                           bind_host=bind, tree=layout)
+            addr = (host, ctrl.port)
+        elif layout is not None and layout.is_interior(rank):
+            relay = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            relay.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            relay.bind((bind, 0))
+            relay.listen(len(layout.children(rank)))
+            addr = (host if bind == "127.0.0.1" else socket.gethostname(),
+                    relay.getsockname()[1])
+        info = [None] * size
+        dist.all_gather_object(info, addr)
+        if rank == 0:
+            ctrl.accept(hostname=hosts[0])
+            return hosts, ctrl
+        root = info[0]
+        if layout is None:
+            return hosts, _tp.WorkerTransport(root[0], root[1], rank,
+                                              hostname=hosts[rank])
+        parent = layout.parent(rank)
+        return hosts, _tree.TreeWorkerTransport(
+            root[0], root[1], rank, layout, hostname=hosts[rank],
+            parent_addr=root if parent == 0 else info[parent],
+            listen_sock=relay)
+    except BaseException:
+        if ctrl is not None:
+            ctrl.close()
+        if relay is not None:
+            relay.close()
+        raise
 
 
 def _start_telemetry(rank: int) -> None:
@@ -268,10 +341,12 @@ def _preflight_init() -> None:
 
 def shutdown() -> None:
     """Agree on shutdown with every rank, stop the background thread
-    (pending handles fail with the shut-down error), leave the groups
-    ``init`` created, and reset."""
+    (pending handles fail with the shut-down error), close the control
+    channel, leave the groups ``init`` created, and reset."""
     if _state.runtime is not None:
         _state.runtime.shutdown()
+    if _state.channel is not None:
+        _state.channel.close()
     if _state.metrics_exporter is not None:
         _state.metrics_exporter.close()
         _state.metrics_exporter = None
@@ -285,8 +360,8 @@ def shutdown() -> None:
             dist.destroy_process_group()
         else:
             for group in [ps.group for ps in sets] \
-                    + [_state.control_group, _state.data_group,
-                       _state.node_group, _state.cross_group]:
+                    + [_state.data_group, _state.node_group,
+                       _state.cross_group]:
                 if group is not None:
                     dist.destroy_process_group(group)
     _state.__dict__.update(_State().__dict__)

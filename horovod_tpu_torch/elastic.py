@@ -329,7 +329,8 @@ def _cluster_reformable() -> bool:
     """Can this process retry in-process, or is a relaunch the job's only
     way on?  A runtime of more than one rank that a failed control
     exchange or a shutdown stopped (``peer_shutdown``, the stopped
-    background loop) cannot be re-formed: the gloo group is broken."""
+    background loop) cannot be re-formed: a rank is lost, and the job's
+    torch.distributed group with it."""
     from .core import state as _state
 
     st = _state._state

@@ -348,11 +348,13 @@ class Runtime:
         self._work = threading.Event()  # posted since the last cycle
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self.channel = (_tp.ControlChannel(st.control_group, st.rank,
-                                           st.size)
-                        if st.size > 1 else None)
+        # The TCP control channel core/state.py opened (None: one rank).
+        self.channel = st.channel
         self.cache = (_cache.ResponseCache(rank=st.rank)
                       if self._cache_agreed() else None)
+        # Waiting handles' withdraw deadlines: name -> [deadline, process
+        # set id, withdrawn] (``wait``; a worker's ``_withdraw_due``).
+        self._waits: Dict[str, list] = {}  # guarded_by: _lock
         self._hits: List[Tuple[int, int]] = []  # guarded_by: _lock
         # Rank 0's Chrome trace (utils/timeline.py), or None.
         self.timeline = None
@@ -392,6 +394,14 @@ class Runtime:
         # Clock probes (trace/clock.py): rank 0's estimator set and probe
         # cadence; a worker's last probe (t0, its receipt stamp).
         self.clock = _trace_clock.ClockSync()
+        if self.channel is not None:
+            # A resume resets the peer's samples (the channel's clock).
+            if self.rank == 0:
+                self.clock = self.channel.clock
+            self.channel.cache = self.cache
+            self.channel.on_cache_dropped = self._drop_cache
+            if self.rank != 0:
+                self.channel.on_wait = self._withdraw_due
         self._ping_interval = _trace.ping_interval()
         self._last_ping = 0.0
         self._probe_burst = 0  # guarded_by: _lock
@@ -411,13 +421,32 @@ class Runtime:
     def _cache_agreed(self) -> bool:
         """``HVD_TPU_RESPONSE_CACHE`` as rank 0 reads it: every replica
         must exist for entry indices to mean the same tensor, so the job
-        follows rank 0."""
-        enabled = _cache.cache_enabled()
-        if self.channel is not None:
-            flag = torch.tensor([int(enabled)], dtype=torch.int64)
-            dist.broadcast(flag, src=0, group=self.st.control_group)
-            enabled = bool(flag.item())
-        return enabled
+        follows rank 0 (its flag rides the TOPO frame)."""
+        if self.channel is None or self.rank == 0:
+            return _cache.cache_enabled()
+        return self.channel.controller_cache
+
+    def _drop_cache(self) -> None:
+        """A worker's session resumed cache-less (its replica's epoch was
+        not the one rank 0 recorded at the disconnect): run without it;
+        rank 0 flushed its own and negotiates every request in full."""
+        self.cache = None
+
+    def _withdraw_due(self) -> None:
+        """A worker's one withdraw path, run at each slice of its wait in
+        the channel and when a synchronize times out between cycles: a
+        handle past its deadline is withdrawn once, at once, outside the
+        cycle, so a cycle whose batch was lost on the wire still ends
+        (rank 0 takes the withdrawal in place of the batch)."""
+        now = time.monotonic()
+        due = []
+        with self._lock:
+            for name, w in self._waits.items():
+                if not w[2] and now > w[0] and name in self._ops:
+                    w[2] = True
+                    due.append((name, w[1]))
+        for name, psid in due:
+            self.channel.withdraw(name, psid)
 
     def _coordinators(self) -> list:
         """Rank 0: the global set's coordinator, then the sets' by id."""
@@ -481,10 +510,27 @@ class Runtime:
     def run_cycle(self) -> None:
         """One cycle, on the background thread or inline in a waiting
         caller (serialized by ``cycle_lock``).  If the control exchange
-        itself fails (a peer died, the control group broke), nothing more
-        can be agreed: every pending op fails and the runtime stops."""
+        itself fails (a rank's grace window ran out, the channel broke),
+        nothing more can be agreed: every pending op fails and the
+        runtime stops; rank 0 tells the surviving ranks why."""
         try:
             self._cycle()
+        except _tp.PeerLostError as exc:
+            with self._lock:
+                pending = bool(self._ops)
+            detail = (" while collectives were pending" if pending else "") \
+                + (f" ({exc.why})" if exc.why else "")
+            self.peer_shutdown = True
+            self.shutdown_message = (
+                f"Horovod has been shut down: rank(s) {exc.ranks} "
+                f"{wire.DEAD_PEER_MARKER}{detail}.")
+            _telemetry.dead_peer_event(
+                f"rank(s) {exc.ranks} {wire.DEAD_PEER_MARKER}{detail}")
+            print(f"ERROR: worker rank(s) {exc.ranks} "
+                  f"{wire.DEAD_PEER_MARKER};"
+                  f"{' pending collectives failed;' if pending else ''}"
+                  f" shutting down.", file=sys.stderr)
+            self._stop_after_failure(notify=True)
         except Exception as exc:  # noqa: BLE001 — see the docstring
             traceback.print_exc(file=sys.stderr)
             self.peer_shutdown = True
@@ -492,10 +538,20 @@ class Runtime:
                 f"Horovod has been shut down: the control exchange "
                 f"failed on rank {self.rank}: {exc!r}")
             _telemetry.dead_peer_event(self.shutdown_message)
-            self._stopped.set()
-            if self.cache is not None:
-                self.cache.flush("control exchange failed")
-            self._poison(self.shutdown_message)
+            self._stop_after_failure()
+
+    def _stop_after_failure(self, notify: bool = False) -> None:
+        self._stopped.set()
+        if notify:
+            try:
+                self.channel.broadcast(_tp.encode_responses([Response(
+                    ResponseType.SHUTDOWN,
+                    error_message=self.shutdown_message)]))
+            except OSError:
+                pass
+        if self.cache is not None:
+            self.cache.flush("control exchange failed")
+        self._poison(self.shutdown_message)
 
     # -- enqueue side (any thread) ----------------------------------------
     def auto_name(self, prefix: str, ps=None) -> str:
@@ -810,6 +866,9 @@ class Runtime:
                     self._sig_sent.set()
                 if self.rank != 0:
                     payload = self._observe_prefixes(payload)
+                    # A resume while this rank waited may have dropped
+                    # its replica (a cache-less verdict).
+                    cache = self.cache
                 if self.rank != 0 and payload:
                     kind, body = _tp.decode_payload(payload)
                     responses = (cache.rebuild_groups(*body)
@@ -882,12 +941,29 @@ class Runtime:
         errors: List[Response] = []
         shutdown = False
         pending, self._unrouted = self._unrouted, []
-        withdrawals = []
+        if self.channel is not None:
+            # Cached submissions a cache-less resume's flush downgraded.
+            pending += self.channel.take_orphans()
         pongs, ctxs = [], []
         t2 = time.monotonic()  # the batches' arrival (clock probes)
         cache = self.cache
-        for r, b in enumerate(batches):
-            for kind, body in _tp.decode_batch(b):
+        decoded = [(r, _tp.decode_batch(b)) for r, b in enumerate(batches)]
+        # Withdrawals first: a rank that gave up on a name fails it even
+        # when the last request for it arrives in the same cycle (the
+        # withdrawal of a cycle whose batch was lost on the wire), and a
+        # rank's own request after its withdrawal is a new op.
+        for r, msgs in decoded:
+            for kind, body in msgs:
+                if kind != _tp.KIND_WITHDRAW:
+                    continue
+                psid, name = body
+                coord = self._coordinator_for(psid)
+                if coord is not None:
+                    ps = _ps.get(psid)
+                    coord.withdraw(name, r if ps is None
+                                   else ps.local_rank_of(r))
+        for r, msgs in decoded:
+            for kind, body in msgs:
                 if kind == _tp.KIND_REQUEST:
                     pending.append(body)
                 elif kind == _tp.KIND_HITS:
@@ -899,7 +975,7 @@ class Runtime:
                         if down is not None:
                             pending.append(down)
                 elif kind == _tp.KIND_WITHDRAW:
-                    withdrawals.append((r, body))
+                    pass  # applied first, above
                 elif kind == _tp.KIND_METRICS:
                     with self._lock:
                         self._metrics_replies[r] = body
@@ -935,11 +1011,6 @@ class Runtime:
                 errors.append(Response(ResponseType.ERROR, [req.tensor_name],
                                        error_message=str(exc),
                                        process_set_id=req.process_set_id))
-        for r, (psid, name) in withdrawals:
-            coord = self._coordinator_for(psid)
-            if coord is not None:
-                ps = _ps.get(psid)
-                coord.withdraw(name, r if ps is None else ps.local_rank_of(r))
         coords = self._coordinators()
         marker, replayed, groups, epoch, compact = None, [], [], 0, True
         if cache is not None:
@@ -1296,6 +1367,18 @@ class Runtime:
         response that fails it on every rank (``HOROVOD_TPU_WITHDRAW_GRACE``,
         default 10 s, before it fails here alone)."""
         timeout = float(os.environ.get("HOROVOD_TPU_SYNC_TIMEOUT", "300"))
+        with self._lock:
+            w = self._waits.setdefault(h.name, [0.0, 0, False])
+            w[0] = time.monotonic() + timeout
+            o = self._ops.get(h.name)
+            w[1] = 0 if o is None or o.ps is None else o.ps.process_set_id
+        try:
+            self._wait(h, timeout)
+        finally:
+            with self._lock:
+                self._waits.pop(h.name, None)
+
+    def _wait(self, h: Handle, timeout: float) -> None:
         if self._cycle_until(h.done, timeout):
             return
         if self._stopped.is_set():
@@ -1310,11 +1393,14 @@ class Runtime:
                 f"Collective {h.name} cannot complete: not all replica "
                 f"requests were submitted (it would stall)."))
             return
-        with self._lock:
-            o = self._ops.get(h.name)
-        if o is not None:
-            self._post([_tp.encode_withdraw(
-                h.name, 0 if o.ps is None else o.ps.process_set_id)])
+        if self.rank != 0:
+            self._withdraw_due()
+        else:
+            with self._lock:
+                o = self._ops.get(h.name)
+            if o is not None:
+                self._post([_tp.encode_withdraw(
+                    h.name, 0 if o.ps is None else o.ps.process_set_id)])
         if self._cycle_until(h.done, float(os.environ.get(
                 "HOROVOD_TPU_WITHDRAW_GRACE", "10"))):
             return

@@ -566,6 +566,10 @@ _SPMD_ENV_KNOBS = (
     DEFAULT_ENV, "HVD_TPU_DCN_COMPRESS", "HVD_TPU_ICI_COMPRESS",
     BLOCK_ENV, ROUNDING_ENV, EF_ENV, SEED_ENV, MIN_ELEMS_ENV,
     "HVD_TPU_HIERARCHICAL", "HVD_TPU_VIRTUAL_SLICES",
+    # The reference's executor switch: the port has one executor and
+    # reads no value, but the HELLO names the reference's knobs in its
+    # order, so a rank set apart from the others is still named.
+    "HVD_TPU_MEGAKERNEL",
     # parallel/overlap.py: which step a rank runs (the monolithic one, or
     # bucketed collectives the other ranks must match).
     "HVD_TPU_OVERLAP",
@@ -573,6 +577,9 @@ _SPMD_ENV_KNOBS = (
     # rank dispatches its per-stage buckets; ranks in different orders
     # would desynchronize the per-stage negotiation.
     "HVD_TPU_PIPELINE_SCHEDULE", "HVD_TPU_PIPELINE_INTERLEAVE",
+    # ops/tree.py: who connects to whom and which frames flow; a rank
+    # that differs would deadlock the handshake.
+    "HVD_TPU_TREE", "HVD_TPU_TREE_FANOUT", "HVD_TPU_TREE_THRESHOLD",
     # ops/fused.py: a rank with another chunk plan issues other
     # collectives.
     "HVD_TPU_FUSE", "HVD_TPU_FUSE_CHUNKS",

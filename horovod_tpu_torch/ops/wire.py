@@ -142,6 +142,12 @@ class ResponseType(IntEnum):
 # Device id of a host-resident tensor (≙ CPU_DEVICE_ID, common.h:28).
 CPU_DEVICE_ID = -1
 
+# Phrase carried by every dead-peer SHUTDOWN diagnosis (a peer vanished
+# without its exit handshake; reference wire.py:170-180).  Every producer
+# (rank 0's gather in ops/collective.py, the worker's lost controller in
+# ops/transport.py) builds its message from this constant.
+DEAD_PEER_MARKER = "terminated unexpectedly"
+
 _REQ_HEAD = "<BBiiiBHH"
 
 

@@ -4,13 +4,16 @@
 Spawns N local worker processes, each with the environment
 ``core/state.py`` reads at ``init()``: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and a free
-``MASTER_PORT``.  Each worker's output is prefixed with its rank,
-mpirun style (``[1] ...``).  ``-m module`` runs a module instead of a
-script.  The worker chooses its device (``init()`` defaults to the card;
-the port's examples take ``--device cpu``): the launcher never moves a
-worker off the card.  The reference's ``--platform`` and
-``HVD_TPU_CONTROLLER_PORT`` have no counterpart: the control channel is a
-gloo group on the same store.
+``MASTER_PORT``.  Rank 0's TCP control channel listens on a port it
+binds itself and sends to the others over that group at ``init``: the
+reference's launcher exports a free one as ``HVD_TPU_CONTROLLER_PORT``
+(its ``run.py:71``), which another process can take before rank 0 binds
+it.  Each worker's output is prefixed with its rank, mpirun
+style (``[1] ...``).  ``-m module`` runs a module instead of a script.
+The worker chooses its device (``init()`` defaults to the card; the
+port's examples take ``--device cpu``): the launcher never moves a
+worker off the card.  The reference's ``--platform`` has no
+counterpart.
 
 For a job over several hosts, run one process per rank under a
 scheduler (or ``torchrun``) with the same variables.
@@ -60,9 +63,11 @@ def _launch_once(args, extra_env=None) -> int:
     wait.
 
     Returns the first nonzero exit code (0 when every worker succeeds).
-    A failed worker's peers diagnose the death themselves (their gloo
-    control exchange fails) and exit; ``--grace`` bounds how long the
-    launcher waits for that before it terminates the stragglers."""
+    A failed worker's peers diagnose the death themselves (rank 0 once
+    the dead rank's reconnect grace, ``HVD_TPU_RECONNECT_GRACE``, runs
+    out; the others from rank 0's diagnosis) and exit; ``--grace`` bounds
+    how long the launcher waits for that before it terminates the
+    stragglers."""
     (port,) = _free_ports(1)
     procs = []
     pumps = []

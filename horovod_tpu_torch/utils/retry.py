@@ -3,9 +3,8 @@ horovod_tpu/utils/retry.py (which imports no JAX), so the port depends on
 nothing of the JAX package.
 
 The port's background checkpoint writer (utils/checkpoint.py) retries
-its transient OSErrors through it; the control-plane reconnect loops the
-reference also drives through it have no counterpart in the port, whose
-transport is torch.distributed.
+its transient OSErrors through it, and the control channel's connect and
+reconnect loops (ops/transport.py) pace their attempts with it.
 
 Full jitter (the AWS architecture-blog scheme): attempt ``k`` sleeps
 ``uniform(0, min(cap, base * 2**k))``.  Jitter decorrelates a fleet of

@@ -4,9 +4,10 @@ whose site the port hosts (the grammar and its errors, determinism, the
 filters, ``maybe_reorder``, the checkpoint writer's retries and their
 exhaustion, the input stall, the client probe, the matrix's shape and
 digest), the same spec and seed firing the same sequence in both
-packages at every site, the coordinator sites in a live runtime, and the
-matrix's coverage: every site is hosted by a port scenario or named as
-waiting with the step that brings it.
+packages at every site, the coordinator sites in a live runtime, the
+matrix's coverage (every site is hosted by a port scenario or named as
+waiting with the step that brings it), one np=2 fleet, and three of the
+TCP control channel's scenarios.
 """
 
 import glob
@@ -362,7 +363,10 @@ def test_every_site_is_a_port_scenario_or_waits_with_its_step():
         if s.name == "serving_storm":
             hosted.add("serving.disconnect")  # the fault is the load
     assert hosted == {"coord.tick_delay", "coord.reorder", "ckpt.oserror",
-                      "input.stall", "serving.disconnect"}
+                      "input.stall", "serving.disconnect",
+                      "transport.drop", "transport.dup", "transport.delay",
+                      "transport.trunc", "transport.reset",
+                      "transport.stall", "tree.relay_reset"}
     from horovod_tpu.chaos import matrix as ref_matrix
 
     ref = {s.name: s for s in ref_matrix.SCENARIOS}
@@ -381,9 +385,14 @@ def test_every_site_is_a_port_scenario_or_waits_with_its_step():
             continue
         waiting = [n for n, r in ref.items() if n in matrix.WAITING
                    and site in r.spec]
-        assert waiting or site.startswith("transport."), site
+        assert waiting or site.startswith("router."), site
         for n in waiting:
             assert "§A.5 item" in matrix.WAITING[n], n
+    # The TCP channel's scenarios all left WAITING; what waits is
+    # tuning's and the router's.
+    assert set(matrix.WAITING) == {"retune_midfault",
+                                   "router_replica_death",
+                                   "router_restart"}
 
 
 def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
@@ -396,7 +405,8 @@ def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
     for s in matrix.SCENARIOS:
         assert s.name in out
     with pytest.raises(SystemExit, match="waits for"):
-        matrix.find("grace_expiry")
+        matrix.find("retune_midfault")
+    assert matrix.find("grace_expiry").kind == "cp"
 
 
 def test_matrix_digest_and_result_parsing():
@@ -434,8 +444,50 @@ def test_matrix_smoke_one_cp_scenario(monkeypatch):
     assert report["fired"] >= 1, report
 
 
+def test_matrix_tcp_scenarios(monkeypatch):
+    """Three of the TCP channel's scenarios on real fleets of the port's
+    runtime on the CPU, a short run each (the whole matrix runs on the
+    card's machine): a worker's reset resumes bitwise, a hard death ends
+    in the grace window's diagnostic, and the tree's leaf re-parents and
+    resumes bitwise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setenv("HVD_TPU_CHAOS_CP_STEPS", "16")
+    names = ("transport_reset_worker", "grace_expiry", "tree_leaf_reset")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        reports = list(pool.map(
+            lambda n: matrix.run_scenario(matrix.find(n), device="cpu"),
+            names))
+    for report in reports:
+        assert report["status"] == "PASS", report
+        # Every rank of both passes reported its launches, the hard-killed
+        # one of grace_expiry too; CPU ranks launch no kernel.
+        assert report["unreported"] == [], report
+        assert report["launches"] and not any(
+            report["launches"].values()), report
+    assert reports[0]["fired"] == 1 and reports[2]["fired"] == 1, reports
+
+
 def test_matrix_smoke_one_local_scenario():
     report = matrix.run_scenario(matrix.find("ckpt_exhaustion"),
                                  device="cpu")
     assert report["status"] == "PASS", report
     assert report["fired"] == 3, report
+    assert report["unreported"] == [], report
+    assert sorted(report["launches"]) == sorted(
+        ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "quant_pack",
+         "unpack_dequantize", "serving_gemm", "cache_attention")), report
+
+
+def test_matrix_sums_each_process_launches():
+    """A pass's CHAOS_LAUNCHES lines, one a rank, even with another
+    line glued on, sum by kernel; a rank that printed none is named."""
+    out = ('CHAOS_LAUNCHES rank=0 {"cache_attention": 2, "serving_gemm": '
+           '5}[hvd-x] noise\nCHAOS_LAUNCHES rank=1 {"cache_attention": 1, '
+           '"serving_gemm": 0}\n')
+    p = matrix.PassResult(rc=0, output=out, results={}, seconds=0.0,
+                          launches=matrix._parse_launches(out))
+    report = {}
+    matrix._count_launches(report, 3, p, p)
+    assert report["launches"] == {"cache_attention": 6, "serving_gemm": 10}
+    assert report["unreported"] == ["pass 0 rank 2", "pass 1 rank 2"]

@@ -73,18 +73,22 @@ class Launch:
 @pytest.fixture(scope="module")
 def launches(tmp_path_factory):
     d = tmp_path_factory.mktemp("elastic")
+    # A killed rank is diagnosed when its reconnect grace runs out; the
+    # launches that kill one set a short window, as the chaos matrix's
+    # grace_expiry does.
+    grace = {"HVD_TPU_RECONNECT_GRACE": "1.5"}
     runs = {
         "elastic": Launch(["-np", "2", "--elastic", "--max-restarts", "2",
                            "--elastic-dir", str(d / "one"), WORKER,
-                           "elastic"]),
+                           "elastic"], **grace),
         "elastic2": Launch(["-np", "2", "--elastic", "--max-restarts", "3",
                             "--elastic-dir", str(d / "two"), WORKER,
-                            "elastic2"]),
+                            "elastic2"], **grace),
         "example": Launch(["-np", "2", "--elastic", "--max-restarts", "2",
                            "--elastic-dir", str(d / "example"), "-m",
                            "horovod_tpu_torch.examples.elastic_train",
                            "--device", "cpu"],
-                          HVD_TPU_EXAMPLE_DIE_AT="5"),
+                          HVD_TPU_EXAMPLE_DIE_AT="5", **grace),
         "plain": Launch(["-np", "2", "-m",
                          "horovod_tpu_torch.examples.elastic_train",
                          "--device", "cpu"]),

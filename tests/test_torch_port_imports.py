@@ -55,6 +55,7 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.ops.process_set",
             "horovod_tpu_torch.ops.handles",
             "horovod_tpu_torch.ops.transport",
+            "horovod_tpu_torch.ops.tree",
             "horovod_tpu_torch.ops.collective",
             "horovod_tpu_torch.frontends.torch",
             "horovod_tpu_torch.frontends.torch_sync_bn",
