@@ -375,7 +375,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              ones on the card, the cp fleets (the ten TCP scenarios
              among them) on the CPU, each one's verdict and seconds.
              (b) GPT-2-small at full width in f32 (vocab 32768, d 768,
-             12 heads, 12 layers, d_ff 3072; cut: batch 1 of 128 tokens
+             12 heads, d_ff 3072; cut: 2 layers, batch 1 of 128 tokens
              a rank, the ranks on the CPU, one thread each, 6 AdamW
              steps) through the hook-driven DistributedOptimizer under
              python -m horovod_tpu_torch.run -np 2 (this file with
@@ -401,7 +401,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
              reports them; the kernels line's "control" count is their
              sum (the matrix's serving scenarios on the card launch
              serving_gemm and cache_attention; the CPU ranks none).
-19. word2vec - skip-gram word2vec with sparse embedding gradients
+19. tuning - closed-loop tuning (ROADMAP A.5 item 5: tuning/,
+             utils/autotune.py, RETUNE markers on the cycle, live
+             spec_tokens and prefix_pages).  (a) GPT-2-small (bf16,
+             batch 8, seq 1024) through the hook-driven
+             DistributedOptimizer under HOROVOD_AUTOTUNE=1 and
+             HVD_TPU_TUNE=1 (0.5 s samples, one warm-up sample, the log
+             in the out dir as autotune.csv) until autotuner.done: the 15
+             (threshold, cycle) candidates and the commit applied as
+             RETUNE markers in stream order, the committed pair in the
+             runtime and the coordinators, the CSV's 15 rows and commit
+             line, the rule table off the two pinned knobs, losses and
+             final weights bitwise an untuned run of as many steps, each
+             flash kernel 12 times a step (sm90 in a profiled step);
+             the hook step with the controller on and off in turns
+             (on, off, off, on, twice; 10 timed steps each) and one
+             window's sensor pass.  (b)
+             GPT-2-small served (8 slots, page 16, capacity 1024) with an
+             untrained draft at distill_draft's shape, 48 requests of
+             900-1000 tokens sharing a 64-token header, HVD_TPU_TUNE=1,
+             an 8-cycle window, one negotiated 4 B allreduce after each
+             engine iteration (a process serves without negotiated
+             collectives; the controller ticks on the cycle): the live
+             sensors' policy shrinks spec_tokens and grows prefix_pages
+             through markers, the depth changes only between iterations,
+             the tokens bitwise the trace with HVD_TPU_TUNE unset,
+             serving_gemm and cache_attention in their Hopper forms.
+             Prints the decisions and their reasons, each marker's
+             cycles and ms from enqueue to apply, the sweep's scores,
+             tuning.applied/decisions/vetoes/rollbacks, the turns' step
+             ms, the phase's seconds and its kernel launches.
+20. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -411,7 +441,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-20. resnet - ResNet data parallelism, which runs no kernel of the port's
+21. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -453,7 +483,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
           "serving", "serving_mp", "distill", "observe", "elastic",
-          "control", "word2vec", "resnet")
+          "control", "tuning", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1095,6 +1125,56 @@ def reinit_cache(hvd, cache: bool) -> None:
     hvd.init(device="cuda")
 
 
+def record_fusion(C) -> list:
+    """Record rank 0's cycles on the runtime the last ``init`` made: each
+    cycle's data responses as a tuple of their name tuples, that is, the
+    fused groups of what the cycle found ready.  Returns the list the
+    cycles are appended to."""
+    rt, cycles = C._runtime(), []
+    negotiate = rt._negotiate
+
+    def negotiating(batches):
+        out = negotiate(batches)
+        groups = tuple(tuple(r.tensor_names) for r in out[0]
+                       if r.response_type in C._DATA_RESPONSES)
+        if groups:
+            cycles.append(groups)
+        return out
+
+    rt._negotiate = negotiating
+    return cycles
+
+
+def same_fusion(runs: dict, what: str) -> dict:
+    """Hold runs of one program (label -> recorded cycles) to the same
+    fusion.  Which tensors a cycle finds ready follows the host's timing on
+    one rank: a hook that lands just after a tick splits a step's group
+    over two cycles (7 responses that step where the others have 6), so
+    the runs' responses a step are compared through their cycles.  A ready
+    sequence (a cycle's names, in order) must be fused the same way
+    wherever it occurs, in any run, and every two labels must share at
+    least one such sequence."""
+    seen: dict = {}
+    keys = {label: set() for label in runs}
+    for label, cycles in runs.items():
+        for groups in cycles:
+            key = tuple(n for g in groups for n in g)
+            keys[label].add(key)
+            first, fused = seen.setdefault(key, (label, groups))
+            if fused != groups:
+                raise AssertionError(
+                    f"{what}: {label} fused a ready sequence of {len(key)} "
+                    f"tensors from {key[0]} as {[len(g) for g in groups]}, "
+                    f"{first} as {[len(g) for g in fused]}")
+    for a, b in itertools.combinations(runs, 2):
+        if not keys[a] & keys[b]:
+            raise AssertionError(f"{what}: {a} and {b} share no cycle's "
+                                 f"ready sequence")
+    return {"cycles": {label: len(c) for label, c in runs.items()},
+            "ready_sequences": {label: len(k) for label, k in keys.items()},
+            "shared_sequences": len(set.intersection(*keys.values()))}
+
+
 def negotiation_profiles(top=12):
     """``tools/negotiation_profile.py``: 1,000 synchronous 4-byte
     negotiated allreduces under cProfile, on the CPU (gloo) and on the
@@ -1272,8 +1352,10 @@ def phase_eager(fa, smi_line, out_dir):
              ("hook_cache_off", True, False), ("hook_cache_off", True, False),
              ("hook", True, True), ("monolithic", False, True))
     timed = {"monolithic": [], "hook": [], "hook_cache_off": []}
+    fusion: dict = {"hook": [], "hook_cache_off": []}
     for path, hooks, cache in turns:
         reinit_cache(hvd, cache)
+        cycles = record_fusion(C)
         fa.reset_launches()
         run = transformer_lm.train(cfg, batch=batch, seq=seq, steps=warmup,
                                    device="cuda", seed=0, hooks=hooks)
@@ -1285,6 +1367,8 @@ def phase_eager(fa, smi_line, out_dir):
             losses.append(run["step"](run["params"], run["data"]))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        if hooks:
+            fusion[path] += cycles
         losses = [float(x) for x in losses]
         launches, stats = dict(fa.launches), C.stats()
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1337,9 +1421,8 @@ def phase_eager(fa, smi_line, out_dir):
     for path in ("monolithic", "hook", "hook_cache_off"):
         timed[f"{path}_mean_step_ms"] = float(np.mean(
             [r["step_ms"] for r in timed[path]]))
-    if [r["responses_per_step"] for r in timed["hook"]] != \
-            [r["responses_per_step"] for r in timed["hook_cache_off"]]:
-        raise AssertionError("fused responses a step differ with the cache")
+    timed["fusion"] = same_fusion(fusion, "the hook step with the cache "
+                                  "on and off")
     log({"phase": "eager_trainer", "model": "GPT-2-small", "batch": batch,
          "seq": seq, "dtype": "bfloat16", "device": smi_line, **timed})
 
@@ -1499,8 +1582,9 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
     latencies, with the native coordinator and handle manager and with the
     Python twins (HVD_TPU_DISABLE_NATIVE=1), in turns (native, python,
     python, native), each from the same weights and batches: losses and
-    parameters after 2 + 5 steps bitwise equal, and the same fused
-    responses and cache hits a step."""
+    parameters after 2 + 5 steps bitwise equal, the same cache hits and
+    misses a step, and the same fused responses for the same ready tensors
+    in a cycle (:func:`same_fusion`)."""
     from horovod_tpu_torch.examples import transformer_lm
     from horovod_tpu_torch.native import lib as native
     from horovod_tpu_torch.utils.tree import tree_leaves
@@ -1509,6 +1593,7 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
         raise AssertionError("native_built() is false on the card")
     warmup, steps = 2, 5
     legs: dict = {"native": [], "python": []}
+    fusion: dict = {"native": [], "python": []}
     ref = None
     try:
         for leg in ("native", "python", "python", "native"):
@@ -1518,6 +1603,7 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
             else:
                 os.environ.pop(native.DISABLE_ENV, None)
             hvd.init(device="cuda")
+            cycles = record_fusion(C)
             impl = type(C._runtime().coordinator._impl).__name__
             if impl != ("NativeCoordinator" if leg == "native"
                         else "PyCoordinator"):
@@ -1534,27 +1620,28 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
                 losses.append(run["step"](run["params"], run["data"]))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+            fusion[leg] += cycles
             stats = C.stats()
             got = ([float(x) for x in losses],
                    [p.detach().clone() for p in tree_leaves(run["params"])],
-                   stats["responses"] / steps, stats["cache_hits"] / steps,
-                   stats["cache_misses"] / steps)
+                   stats["cache_hits"] / steps, stats["cache_misses"] / steps,
+                   stats["responses"] / steps)
             if ref is None:
                 ref = got
-            elif got[0] != ref[0] or got[2:] != ref[2:] or not all(
+            elif got[0] != ref[0] or got[2:4] != ref[2:4] or not all(
                     torch.equal(a, b) for a, b in zip(got[1], ref[1])):
                 raise AssertionError(
                     f"the {leg} leg's hook path differs from the native "
-                    f"leg's: losses {got[0]} / {ref[0]}, responses, hits "
-                    f"and misses a step {got[2:]} / {ref[2:]}")
+                    f"leg's: losses {got[0]} / {ref[0]}, hits and misses "
+                    f"a step {got[2:4]} / {ref[2:4]}")
             if any(c != cfg.n_layers * (warmup + steps)
                    for c in fa.launches.values()):
                 raise AssertionError(f"{leg} leg: {fa.launches}")
             del run
             legs[leg].append({
                 "step_ms": seconds / steps * 1e3,
-                "responses_per_step": got[2], "cache_hits_per_step": got[3],
-                "cache_misses_per_step": got[4],
+                "responses_per_step": got[4], "cache_hits_per_step": got[2],
+                "cache_misses_per_step": got[3],
                 "latency": {label: negotiated_latency(fhvd, nbytes, iters,
                                                       name)
                             for label, nbytes, iters, name in (
@@ -1563,7 +1650,9 @@ def native_vs_python(hvd, fhvd, fa, C, cfg, batch=8, seq=1024):
             torch.cuda.empty_cache()
     finally:
         os.environ.pop(native.DISABLE_ENV, None)
-    return {"bitwise": True, "losses": ref[0], **legs}
+    return {"bitwise": True, "losses": ref[0],
+            "fusion": same_fusion(fusion, "the hook step with the native "
+                                  "and the Python coordinator"), **legs}
 
 
 # The quant phase: the int8/int4 codec kernels (ops/csrc/quant.cu) against
@@ -6394,13 +6483,17 @@ CONTROL_SEED = 41        # the reset specs' seed
 CONTROL_RESET_AFTER = 2  # the reset lands after this many steps
 
 
+CONTROL_LAYERS = 2       # the depth the control legs cut GPT-2-small to
+
+
 def control_config():
-    """GPT-2-small at full width (vocab 32768, d 768, 12 heads, 12
-    layers, d_ff 3072) in f32: the control legs train it on CPU ranks."""
+    """GPT-2-small at full width (vocab 32768, d 768, 12 heads, d_ff
+    3072) in f32, cut to CONTROL_LAYERS layers: the control legs train it
+    on CPU ranks."""
     from horovod_tpu_torch.examples import transformer_lm
 
     return dataclasses.replace(transformer_lm.bench_config(CONTROL_SEQ),
-                               dtype=torch.float32)
+                               dtype=torch.float32, n_layers=CONTROL_LAYERS)
 
 
 def _sum_counts(counts):
@@ -6706,6 +6799,428 @@ def _control_legs(smi_line, out_dir, root, t_phase, started):
                      "np3_tree_reset": True},
          "seconds": time.perf_counter() - t_phase})
     return figures
+
+
+# -- tuning: closed-loop tuning (ROADMAP A.5 item 5) -------------------------
+
+TUNING_ENV = ("HOROVOD_AUTOTUNE", "HOROVOD_AUTOTUNE_LOG",
+              "HOROVOD_AUTOTUNE_WARMUP_SAMPLES",
+              "HOROVOD_AUTOTUNE_SAMPLE_SECONDS", "HVD_TPU_TUNE",
+              "HVD_TPU_TUNE_WINDOW", "HVD_TPU_TUNE_PIN",
+              "HVD_TPU_DCN_COMPRESS", "HVD_TPU_MAX_INFLIGHT",
+              "HVD_TPU_SPEC_TOKENS", "HVD_TPU_PREFIX_PAGES")
+TUNING_SAMPLE_SECONDS = 0.5  # the sweep's sample window (leg a)
+TUNING_WINDOW = 8            # cycles a decision window (leg b)
+TUNING_TIMED_STEPS = 10      # timed hook steps a turn (2 warm-up before)
+TUNING_REQUESTS = 48         # the served trace's requests (leg b)
+TUNING_HEADER = 64           # the tokens every prompt shares (leg b)
+
+
+def _tuning_env(values):
+    """Set the tuning knobs to ``values`` (the others unset)."""
+    for k in TUNING_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(values)
+
+
+def _stream_log(rt, tuner):
+    """Record rank 0's cycles and the RETUNE markers it applies: each
+    marker's seq, tokens, the cycle and time of its enqueue and apply."""
+    from horovod_tpu_torch.ops.wire import ResponseType
+
+    log = {"cycles": 0, "enqueued": {}, "applied": []}
+    negotiate, execute, enqueue = rt._negotiate, rt._execute, tuner._enqueue
+
+    def negotiating(batches):
+        log["cycles"] += 1
+        return negotiate(batches)
+
+    def executing(resp, tl=None):
+        if resp.response_type == ResponseType.RETUNE:
+            seq = int(resp.tensor_sizes[0])
+            c0, t0 = log["enqueued"].get(seq, (None, None))
+            log["applied"].append({
+                "seq": seq, "tokens": list(resp.tensor_names),
+                "cycles_to_apply": None if c0 is None
+                else log["cycles"] - c0,
+                "ms_to_apply": None if t0 is None
+                else (time.perf_counter() - t0) * 1e3})
+        return execute(resp, tl)
+
+    def enqueuing(tokens, undo=None):
+        seq = enqueue(tokens, undo)
+        log["enqueued"][seq] = (log["cycles"], time.perf_counter())
+        return seq
+
+    rt._negotiate, rt._execute, tuner._enqueue = negotiating, executing, \
+        enqueuing
+    return log
+
+
+def _tuning_counters():
+    from horovod_tpu_torch import telemetry
+
+    m = telemetry.metrics()
+    return {k: m.get(f"tuning.{k}", {}).get("value", 0)
+            for k in ("applied", "decisions", "vetoes", "rollbacks")}
+
+
+def _tuning_sweep(fa, out_dir, res):
+    """Leg (a): GPT-2-small's hook step under HOROVOD_AUTOTUNE=1 and
+    HVD_TPU_TUNE=1 until the sweep's commit is applied; then the hook
+    step with the controller on and off in turns, and one profiled
+    step.  Returns the run's losses and digests."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.core import state as st_mod
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.ops import quant, serving as S
+    from horovod_tpu_torch.tuning import Tuner
+    from horovod_tpu_torch.utils import autotune
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    csv = os.path.join(out_dir, "autotune.csv")
+    _tuning_env({"HOROVOD_AUTOTUNE": "1", "HVD_TPU_TUNE": "1",
+                 "HOROVOD_AUTOTUNE_LOG": csv,
+                 "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                 "HOROVOD_AUTOTUNE_SAMPLE_SECONDS": str(TUNING_SAMPLE_SECONDS)})
+    cfg = transformer_lm.bench_config()
+    run = transformer_lm.train(cfg, batch=8, seq=1024, steps=0,
+                               device="cuda", seed=0, hooks=True)
+    try:
+        st = st_mod._state
+        tuner = st.autotuner
+        if tuner is None or tuner is not st.tuner or tuner.policy is None:
+            raise AssertionError("init did not install the closed loop with "
+                                 "the sweep folded in")
+        log = _stream_log(st.runtime, tuner)
+        for mod in (fa, quant, S):
+            mod.reset_launches()
+        losses, per_step = [], []
+        t0 = time.perf_counter()
+        while not tuner.done:
+            if len(losses) >= 1000:
+                raise AssertionError(f"the sweep did not commit in 1000 "
+                                     f"steps: {log['applied'][-3:]}")
+            before = dict(fa.launches)
+            losses.append(float(run["step"](run["params"], run["data"])))
+            per_step.append({k: n - before[k] for k, n in fa.launches.items()})
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        flash = dict(fa.launches)
+        other = {**{k: quant.launches[k] for k in quant.KERNELS},
+                 **{k: S.launches[k] for k in S.KERNELS}}
+        if any(c != {k: cfg.n_layers for k in fa.KERNELS} for c in per_step):
+            raise AssertionError(f"each flash kernel must launch "
+                                 f"{cfg.n_layers} times a step: {per_step}")
+        grid = [(t, c) for t in autotune.DEFAULT_THRESHOLDS
+                for c in autotune.DEFAULT_CYCLES]
+        th, cy = tuner.committed
+        sent = [(m["seq"], m["tokens"]) for m in log["applied"]]
+        want = [[f"fusion_threshold={t}", f"cycle_time={float(c)}"]
+                for t, c in grid + [(th, cy)]]
+        # The rule table's markers may ride between them (never on the
+        # sweep's knobs, checked below); seqs rise in stream order.
+        if [t for _, t in sent if t[0].startswith("fusion_threshold=")] \
+                != want or [q for q, _ in sent] != sorted(
+                    q for q, _ in sent):
+            raise AssertionError(f"the sweep's markers, in stream order: "
+                                 f"{sent}")
+        coords = [c.fusion_threshold for c in st.runtime._coordinators()]
+        if (st.fusion_threshold_bytes, st.tick_seconds) != (th, cy) or \
+                coords != [th]:
+            raise AssertionError(f"committed {(th, cy)}, the runtime holds "
+                                 f"{(st.fusion_threshold_bytes, st.tick_seconds)}"
+                                 f", the coordinators {coords}")
+        with open(csv) as f:
+            rows = f.read().splitlines()
+        if len(rows) != 17 or rows[-1] != f"# committed,{th},{cy}":
+            raise AssertionError(f"the autotune log: {rows}")
+        decided = [(d.knob, d.value, d.reason)
+                   for d in tuner.policy.decisions]
+        if any(k in ("fusion_threshold", "cycle_time") for k, _, _ in decided):
+            raise AssertionError(f"the rule table touched a sweep knob: "
+                                 f"{decided}")
+        leaves = tree_leaves(run["params"])
+        digest = _digest_tensors(leaves)
+        res["sweep"] = {
+            "steps": len(losses), "seconds": sweep_s,
+            "scores": [dict(zip(("bytes_per_s", "fusion_threshold",
+                                 "cycle_time_s"), map(float, r.split(","))))
+                       for r in rows[1:16]],
+            "committed": [th, cy], "markers": log["applied"],
+            "rule_decisions": decided, "flash_launches": flash,
+            "other_launches": other, "loss_first_last": [losses[0],
+                                                         losses[-1]]}
+        # The controller's own cost on the host: the hook step with
+        # HVD_TPU_TUNE=1's controller and without it, in turns.
+        closed = Tuner(st, closed_loop=True)
+        turns = []
+        for on in (True, False, False, True) * 2:
+            st.tuner = st.autotuner = closed if on else None
+            for _ in range(2):
+                run["step"](run["params"], run["data"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TUNING_TIMED_STEPS):
+                run["step"](run["params"], run["data"])
+            torch.cuda.synchronize()
+            turns.append({"tune": on, "step_ms": (time.perf_counter() - t0)
+                          * 1e3 / TUNING_TIMED_STEPS})
+        res["hook_step_turns"] = turns
+        # One window's sensor pass on the span buffer as it stands.
+        t0 = time.perf_counter()
+        closed._sensors.sample()
+        res["sensor_pass_ms"] = (time.perf_counter() - t0) * 1e3
+        res["span_buffer_events"] = len(trace.export_events())
+        prof = profile_step(lambda: run["step"](run["params"], run["data"]),
+                            out_dir, "tuning")
+        # The form from the profile (which may drop records in a long
+        # run); the counts a step from the launch counters, above.
+        names = " ".join(prof["flash_kernels"])
+        for want_k in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                       "flash_bwd_dq_sm90_kernel"):
+            ran = sum(n for name, n in prof["flash_kernels"].items()
+                      if want_k in name)
+            if not 1 <= ran <= cfg.n_layers:
+                raise AssertionError(f"the profiled tuned step ran {want_k} "
+                                     f"{ran} times: {names}")
+        for first_form in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                           "flash_bwd_dq_kernel<"):
+            if first_form in names:
+                raise AssertionError(f"the tuned step ran {first_form}")
+        res["profiled_step"] = {k: prof[k] for k in (
+            "profiled_step_ms", "device_busy_ms", "device_idle_share",
+            "flash_kernels")}
+        res["counters_a"] = _tuning_counters()
+        del run, leaves
+    finally:
+        hvd.shutdown()
+        _tuning_env({})
+    return losses, digest, flash, other
+
+
+def _tuning_untuned(n_steps):
+    """Leg (a)'s reference: the same steps with the tuning env unset."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.utils.tree import tree_leaves
+
+    try:
+        run = transformer_lm.train(transformer_lm.bench_config(), batch=8,
+                                   seq=1024, steps=n_steps, device="cuda",
+                                   seed=0, hooks=True)
+        return run["losses"], _digest_tensors(tree_leaves(run["params"]))
+    finally:
+        hvd.shutdown()
+
+
+def _tuning_trace(vocab):
+    """Leg (b)'s trace: TUNING_REQUESTS prompts of 900-1000 tokens that
+    share a TUNING_HEADER-token header, each asking for 2-16 new tokens
+    (seeded): eight such sequences hold more than 75% of the KV pages,
+    the shared header counted once."""
+    g = np.random.default_rng(23)
+    header = g.integers(0, vocab, TUNING_HEADER).tolist()
+    reqs = []
+    for _ in range(TUNING_REQUESTS):
+        n = int(g.integers(900, 1001))
+        prompt = header + g.integers(0, vocab, n - TUNING_HEADER).tolist()
+        reqs.append((prompt, int(min(16, 1024 - n, g.integers(2, 17)))))
+    return reqs
+
+
+def _tuning_serve(params, cfg, draft, dcfg, trace_reqs, tuned):
+    """Serve the trace once; after each engine iteration one negotiated 4
+    B allreduce (a process serves without negotiated collectives, and the
+    controller ticks on the cycle).  Returns the tokens and, tuned, the
+    decisions, markers, depths and launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import state as st_mod
+    from horovod_tpu_torch.ops import flash_attention as fa, quant
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    _tuning_env({"HVD_TPU_TUNE": "1", "HVD_TPU_TUNE_WINDOW":
+                 str(TUNING_WINDOW), "HVD_TPU_TUNE_PIN":
+                 "dcn_compress,max_inflight,fusion_threshold,cycle_time"}
+                if tuned else {})
+    gc.collect()  # earlier phases' engines leave the actuation's sets
+    hvd.init(device="cuda")
+    try:
+        st = st_mod._state
+        eng = InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                              page_size=16, capacity=1024,
+                              draft=(draft, dcfg), spec_tokens=3,
+                              prefix_pages=0)
+        eng.warm_start()
+        log = _stream_log(st.runtime, st.tuner) if tuned else None
+        depths = []
+        dispatch = eng._spec_dispatch
+        used = [None]
+
+        def spec_dispatch(slots):
+            used[0] = eng.spec_tokens
+            return dispatch(slots)
+
+        eng._spec_dispatch = spec_dispatch
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in trace_reqs]
+        tick = torch.zeros(1, device="cuda")
+        for mod in (fa, quant, S):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        while not eng.scheduler.idle():
+            used[0] = None
+            eng.step()
+            depths.append((eng.spec_tokens, used[0],
+                           eng.cache.free_pages()))
+            hvd.allreduce(tick, op=hvd.Sum, name="tuning.tick")
+        # A decision of the last cycles still reaches the stream.
+        for _ in range(4 * TUNING_WINDOW):
+            if not tuned or len(log["applied"]) >= len(
+                    st.tuner.policy.decisions):
+                break
+            hvd.allreduce(tick, op=hvd.Sum, name="tuning.tick")
+        torch.cuda.synchronize()
+        out = {"tokens": [r.result(0) for r in reqs],
+               "seconds": time.perf_counter() - t0,
+               "iterations": len(depths),
+               "acceptance": eng.spec_acceptance_rate,
+               "serving": dict(S.launches),
+               "by_form": {f"{k}/{f}": n for (k, f), n in
+                           S.launches_by_form.items()},
+               "other": {**dict(fa.launches), **dict(quant.launches)}}
+        if tuned:
+            tuner = st.tuner
+            out.update(
+                decisions=[(d.seq, d.window, d.knob, d.value, d.reason)
+                           for d in tuner.policy.decisions],
+                markers=log["applied"], cycles=log["cycles"],
+                depths=depths, counters=_tuning_counters(),
+                final={"spec_tokens": eng.spec_tokens,
+                       "prefix_target": eng.cache._prefix_target,
+                       "prefix": eng.cache.prefix_stats()})
+        del eng
+        return out
+    finally:
+        hvd.shutdown()
+        _tuning_env({})
+
+
+def phase_tuning(fa, smi_line, out_dir):
+    """Closed-loop tuning (ROADMAP A.5 item 5).  (a) GPT-2-small (bf16,
+    batch 8, seq 1024) through the hook-driven DistributedOptimizer on one
+    rank under HOROVOD_AUTOTUNE=1 and HVD_TPU_TUNE=1 (the sweep folded into
+    the controller; a TUNING_SAMPLE_SECONDS sample window, one warm-up
+    sample, the log in the out dir) until ``autotuner.done``: the 15
+    (threshold, cycle) candidates and the commit applied as RETUNE markers
+    in stream order, the committed pair in the runtime and the
+    coordinators, the 15 CSV rows and the commit line, the rule table off
+    the pinned knobs, every step's losses and the final weights bitwise an
+    untuned run of as many steps (on one rank a threshold only regroups
+    responses), each flash kernel 12 times a step and, in a profiled step,
+    in the sm90 form; then the hook step with the controller on and off,
+    in turns (the controller's own host cost; no gain is claimed).  (b)
+    GPT-2-small served (8 slots, page 16, capacity 1024) with an untrained
+    draft at distill_draft's shape (d 384, 6 layers; acceptance below 0.5)
+    on a trace whose 900-1000-token prompts share a header (the index hot
+    while free KV falls under 25%), under HVD_TPU_TUNE=1 with a window of
+    TUNING_WINDOW cycles and the knobs under no test pinned.  A process
+    serves without negotiated collectives and the controller ticks on
+    rank 0's cycle, so the leg posts one 4 B negotiated allreduce after
+    each engine iteration (as tests/test_tuning.py's
+    ``_drive_until_applied`` drives the reference).  The live sensors'
+    policy must decide a spec_tokens shrink and a prefix_pages grow, each
+    applied through a marker; the engine's depth changes only between
+    iterations; every request's tokens bitwise the trace served with
+    HVD_TPU_TUNE unset; serving_gemm and cache_attention in their Hopper
+    forms.  Returns the launches."""
+    from horovod_tpu_torch.examples import distill_draft, transformer_lm
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ[k] for k in TUNING_ENV if k in os.environ}
+    res = {}
+    try:
+        losses, digest, flash, other_a = _tuning_sweep(fa, out_dir, res)
+        plain_losses, plain_digest = _tuning_untuned(len(losses))
+        if plain_losses != losses or plain_digest != digest:
+            raise AssertionError(
+                f"the tuned hook run is not bitwise the untuned one: losses "
+                f"{losses[:3]}... vs {plain_losses[:3]}..., weights "
+                f"{digest[:12]} vs {plain_digest[:12]}")
+        res["sweep"]["bitwise_untuned"] = True
+        t_a = time.perf_counter() - t_phase
+
+        cfg = transformer_lm.bench_config()
+        dcfg = distill_draft.draft_config(cfg)
+        params = tree_map(lambda x: x.detach(), tt.init_transformer(
+            torch.Generator().manual_seed(0), cfg, device="cuda"))
+        draft = tree_map(lambda x: x.detach(), tt.init_transformer(
+            torch.Generator().manual_seed(2), dcfg, device="cuda"))
+        trace_reqs = _tuning_trace(cfg.vocab_size)
+        tuned = _tuning_serve(params, cfg, draft, dcfg, trace_reqs, True)
+        plain = _tuning_serve(params, cfg, draft, dcfg, trace_reqs, False)
+        del params, draft
+        if tuned["tokens"] != plain["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(tuned["tokens"],
+                                                    plain["tokens"]))
+                   if a != b]
+            raise AssertionError(f"the tuned trace's tokens differ from the "
+                                 f"untuned trace's at requests {bad}")
+        knobs = [d[2] for d in tuned["decisions"]]
+        shrink = [d for d in tuned["decisions"] if d[2] == "spec_tokens"]
+        grow = [d for d in tuned["decisions"] if d[2] == "prefix_pages"]
+        if not shrink or not grow or not set(knobs) <= {"spec_tokens",
+                                                        "prefix_pages"}:
+            raise AssertionError(f"the served leg's decisions: "
+                                 f"{tuned['decisions']}")
+        if not tuned["acceptance"] < 0.5:
+            raise AssertionError(f"the untrained draft's acceptance "
+                                 f"{tuned['acceptance']}")
+        # Every marker of this leg is a decision's, applied in order.
+        if [m["tokens"] for m in tuned["markers"]] != [
+                [f"{d[2]}={d[3]}"] for d in tuned["decisions"]]:
+            raise AssertionError(f"the decisions {tuned['decisions']} and "
+                                 f"the markers applied {tuned['markers']}")
+        if any(u is not None and u != d for d, u, _ in tuned["depths"]):
+            raise AssertionError(f"an iteration's programs ran at another "
+                                 f"depth than it ended with: "
+                                 f"{tuned['depths']}")
+        seen = [d for d, _, _ in tuned["depths"]]
+        # A shrink applied in the last iteration's cycle is never adopted.
+        if seen[0] != 3 or not 3 - len(shrink) <= seen[-1] < 3 or \
+                seen != sorted(seen, reverse=True):
+            raise AssertionError(f"the depth by iteration: {seen}")
+        for name in ("serving_gemm", "cache_attention"):
+            if not tuned["by_form"][f"{name}/sm90"] or \
+                    tuned["by_form"][f"{name}/first"]:
+                raise AssertionError(f"the served leg's forms: "
+                                     f"{tuned['by_form']}")
+        kv_free = [f / 512 for _, _, f in tuned["depths"]]
+        res["serve"] = {
+            "requests": len(trace_reqs), "iterations": tuned["iterations"],
+            "decisions": tuned["decisions"], "markers": tuned["markers"],
+            "cycles": tuned["cycles"], "counters": tuned["counters"],
+            "final": tuned["final"], "acceptance": tuned["acceptance"],
+            "kv_free_frac_min_median": [min(kv_free), _pct(kv_free, 0.5)],
+            "seconds_tuned": tuned["seconds"],
+            "seconds_untuned": plain["seconds"],
+            "depth_by_iteration": seen, "bitwise_untuned": True,
+            "serving_launches": tuned["serving"],
+            "by_form": tuned["by_form"], "other_launches": tuned["other"]}
+    finally:
+        _tuning_env(saved)
+    quant_launches = {k: other_a.get(k, 0) + tuned["other"].get(k, 0)
+                      for k in ("quant_pack", "unpack_dequantize")}
+    out = {"flash": flash, "serving": tuned["serving"],
+           "quant": quant_launches}
+    log(smi_line)
+    log({"phase": "tuning", "device": smi_line, **res,
+         "launches": out, "leg_a_seconds": t_a,
+         "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 def phase_word2vec(smi_line, out_dir):
@@ -7080,6 +7595,8 @@ def main() -> int:
     # the chaos matrix's local scenarios on the card.
     control = (phase_control(smi, args.out_dir) if "control" in phases
                else None)
+    tuning = (phase_tuning(fa, smi, args.out_dir) if "tuning" in phases
+              else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -7125,7 +7642,8 @@ def main() -> int:
                 **({"elastic": elastic["flash"][name]}
                    if elastic else {}),
                 **({"control": control["launches"]["total"][name]}
-                   if control else {})}})
+                   if control else {}),
+                **({"tuning": tuning["flash"][name]} if tuning else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -7146,7 +7664,9 @@ def main() -> int:
                 "library_ms": None,
                 **({"form": r["form"],
                     "first_form_ms": r["quant_pack_first_form_ms"]}
-                   if name == "quant_pack" else {})})
+                   if name == "quant_pack" else {}),
+                **({"launches_by_path": {"tuning": tuning["quant"][name]}}
+                   if tuning else {})})
     # The serving path's kernels (no Pallas counterpart: the reference's
     # serving half is jnp), timed at the decode shape: the FFN-in product
     # at M = 16 (8 slots x a width-2 block) and the attention at b8 s2
@@ -7183,7 +7703,9 @@ def main() -> int:
                     **({"elastic": elastic["serving"][name]}
                        if elastic else {}),
                     **({"control": control["launches"]["total"][name]}
-                       if control else {})}})
+                       if control else {}),
+                    **({"tuning": tuning["serving"][name]}
+                       if tuning else {})}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

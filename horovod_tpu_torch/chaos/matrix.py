@@ -27,8 +27,9 @@ Scenario kinds:
   windows, frame deadlines and, with ``HVD_TPU_TREE``, the tree overlay),
   the coordinator and the response cache.  The digest covers every
   completed negotiation ``(step, tensor, response type)`` each rank
-  executed, and the results' bytes; rank 0 also pulls the fleet's
-  metrics once mid-run and holds a seeded memory gauge to exact values.
+  executed, every RETUNE marker it applied ``(seq, token)``, and the
+  results' bytes; rank 0 also pulls the fleet's metrics once mid-run and
+  holds a seeded memory gauge to exact values.
   A fleet needs one card a rank: with fewer cards than ranks it runs on
   the CPU (gloo), and the output says so.
 * ``local``: one process with the port's stack on ``--device`` (the
@@ -36,9 +37,19 @@ Scenario kinds:
   digests cover real bytes (the checkpoint file, trained values,
   generated tokens).
 
-The reference's other scenarios wait for the steps that bring their
-sites (:data:`WAITING`): tuning's ``retune_midfault`` and the router's
-``router_*`` (ROADMAP.md §A.5 items 5 and 6).
+The reference's other scenarios wait for the step that brings their sites
+(:data:`WAITING`): the router's ``router_*`` (ROADMAP.md §A.5 item 6).
+
+``retune_midfault`` (hvd-tune): rank 0's :class:`~..tuning.Tuner` enqueues a
+RETUNE marker at each of ``HVD_TPU_CHAOS_RETUNE_STEPS``.  Besides the
+scenario's worker-side reset, the faulted pass resets the worker's
+connection on the payload that carries the last marker: rank 0 arms that
+reset when it enqueues the marker, holding ``cycle_lock``, so the next frame
+it sends is that payload, which the worker then receives only through the
+session resume's replay.  A count of frames from the fault-free pass could
+not place it there: idle cycles send frames at the clock's pace.  The
+records must equal the fault-free pass's: no marker lost, none applied
+twice.
 """
 
 from __future__ import annotations
@@ -152,6 +163,19 @@ SCENARIOS: List[Scenario] = [
         doc="np=3 chain: the leaf's uplink to its interior parent is "
             "reset; it re-parents to the root and the stream replay "
             "keeps every cache replica aligned"),
+    # -- hvd-tune actuation (tuning/actuation.py) ------------------------
+    Scenario(
+        "retune_midfault", "cp", "recover",
+        spec="transport.reset:count=1:after=26:rank=1@33",
+        needle="session resumed",
+        env={"HVD_TPU_CHAOS_RETUNE_STEPS": "10,25"},
+        doc="RETUNE markers from rank 0's Tuner ride the response stream "
+            "at steps 10 and 25; the worker's connection resets, and, "
+            "placed by rank 0, resets again on the payload that carries "
+            "the second marker, before the worker's apply: the session "
+            "resume must deliver each marker exactly once (records "
+            "identical to the fault-free pass: never lost, never applied "
+            "twice)"),
     # -- the background loop and rank 0's negotiation (ops/collective.py)
     Scenario(
         "coord_tick_delay", "cp", "recover", cap=120.0,
@@ -210,8 +234,6 @@ SCENARIOS: List[Scenario] = [
 # The reference's scenarios whose sites the port does not host yet, with
 # the step (ROADMAP.md §A.5) that brings them.
 WAITING: Dict[str, str] = {
-    "retune_midfault": "§A.5 item 5: tuning/ and its RETUNE markers "
-                       "(item 4's session resume is in place)",
     "router_replica_death": "§A.5 item 6: routing/'s router and replicas",
     "router_restart": "§A.5 item 6: routing/'s router server",
 }
@@ -297,6 +319,9 @@ def _device(name: Optional[str]):
 # ---------------------------------------------------------------------------
 
 CP_STEP_DEADLINE = 8.0
+# retune_midfault's marker: the reference's tokens (its cp fleet's
+# threshold doubled, a 4 ms cycle).
+RETUNE_TOKENS = ("fusion_threshold=2097152", "cycle_time=0.004")
 # One tensor a dtype, so the four are four responses of a cycle (tensors
 # of one dtype fuse into one): coord.reorder has something to permute.
 CP_DTYPES = ("float32", "float64", "int32", "int64")
@@ -352,15 +377,24 @@ def run_cp_node(device: Optional[str] = None) -> None:
     in; so are the results' bytes.  Three quarters in, rank 0 pulls the
     fleet's metrics (:func:`_check_mem_gauges`).  A rank whose step is
     ``HVD_TPU_CHAOS_KILL_STEP`` dies hard there (no exit handshake).  A
-    synchronize gives up after the step deadline (the withdraw path)."""
+    synchronize gives up after the step deadline (the withdraw path).  At
+    each of ``HVD_TPU_CHAOS_RETUNE_STEPS`` rank 0's Tuner enqueues a RETUNE
+    marker; every rank records each marker it applies (see the module's
+    docstring for the placed reset)."""
     import torch
 
     import horovod_tpu_torch as hvd
+    from .. import chaos as _chaos
     from .. import telemetry as _telemetry
     from ..core import state as _state
     from ..ops.wire import ResponseType
+    from ..tuning import Tuner
 
     os.environ.setdefault("HOROVOD_TPU_SYNC_TIMEOUT", str(CP_STEP_DEADLINE))
+    retune_steps = sorted(
+        int(v) for v in os.environ.get("HVD_TPU_CHAOS_RETUNE_STEPS", "")
+        .replace(";", ",").split(",") if v.strip())
+    faulted = bool(os.environ.get("HVD_TPU_FAULTS"))
     kill_step = int(os.environ.get("HVD_TPU_CHAOS_KILL_STEP", "-1"))
     hvd.init(device=device or "cuda")
     rank = hvd.rank()
@@ -378,9 +412,17 @@ def run_cp_node(device: Optional[str] = None) -> None:
         if resp.response_type in data_types:
             for n in resp.tensor_names:
                 records.append((step_now[0], n, resp.response_type.name))
+        elif resp.response_type == ResponseType.RETUNE:
+            # Recorded as applied: a marker lost or applied twice across
+            # the fault changes the digest.
+            for n in resp.tensor_names:
+                records.append((int(resp.tensor_sizes[0]), n, "RETUNE"))
         return execute(resp, tl)
 
     rt._execute = recording
+    if retune_steps and rank == 0 and _state._state.tuner is None:
+        # A bare controller (no policy, no sweep): the markers' source.
+        _state._state.tuner = Tuner(_state._state)
     values = hashlib.sha256()
     steps = _cp_steps()
     try:
@@ -390,6 +432,16 @@ def run_cp_node(device: Optional[str] = None) -> None:
                 sys.stderr.flush()
                 report_launches(rank)
                 os._exit(1)  # a hard crash: no exit handshake, no resume
+            if rank == 0 and step in retune_steps:
+                with rt.cycle_lock:
+                    _state._state.tuner._enqueue(list(RETUNE_TOKENS))
+                    if faulted and step == retune_steps[-1]:
+                        # The next frame rank 0 sends is the payload that
+                        # carries this marker: reset the worker's
+                        # connection before it.
+                        os.environ["HVD_TPU_FAULTS"] = \
+                            "transport.reset:count=1:after=0:rank=0@33"
+                        _chaos.reload()
             # One batch: the four requests negotiate in the same cycle.
             handles = hvd.grouped_allreduce_async(
                 [torch.full((8,), rank + 1 + step + k, device=dev,

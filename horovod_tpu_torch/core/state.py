@@ -32,8 +32,10 @@ backend, so that negotiated collectives never share a communicator with
 the monolithic step's, rank 0's coordinator, the background thread
 (cycle ``HOROVOD_CYCLE_TIME`` ms, default 5) and the process-set table.
 Before any collective it validates the compression, topology, fusion,
-overlap, pipeline, tree, memory and fault-injection
-(``HVD_TPU_FAULTS``) knobs.  When the job is
+overlap, pipeline, tree, memory, fault-injection (``HVD_TPU_FAULTS``) and
+tuning (``HVD_TPU_TUNE*``) knobs, and once the runtime exists it installs
+hvd-tune (:func:`..tuning.install`: every rank's collector, rank 0's
+controller when it is enabled).  When the job is
 hierarchical (:mod:`.topology`) every rank creates the node and
 cross-node groups, in one order.  It installs the telemetry's runtime
 collector and, when ``HVD_TPU_METRICS_PORT`` is set, starts the metrics
@@ -107,6 +109,12 @@ class _State:
     node_group: Any = None
     cross_group: Any = None
     metrics_exporter: Any = None  # telemetry.exporter.MetricsExporter
+    # Rank 0's hvd-tune controller (tuning.Tuner) when HVD_TPU_TUNE=1 or
+    # HOROVOD_AUTOTUNE=1: ``tuner`` is the marker source ``_negotiate``
+    # drains, ``autotuner`` the same object as the cycle's
+    # record_bytes/maybe_step feed (the reference's two names).
+    tuner: Any = None
+    autotuner: Any = None
     lock: Any = field(
         default_factory=lambda: _lockorder.make_rlock("GlobalState.lock"))
 
@@ -172,6 +180,11 @@ def init(device=None) -> None:
     from .. import chaos as _chaos
 
     _chaos.validate_env()
+    # hvd-tune: a mistyped HVD_TPU_TUNE/_WINDOW/_PIN fails init, not the
+    # first decision window.
+    from .. import tuning as _tuning
+
+    _tuning.validate_env()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owns = False
@@ -218,6 +231,9 @@ def init(device=None) -> None:
     # it from the first broadcast (reference core/state.py:336-341).
     _trace.reset_run(rank=rank)
     _state.runtime = collective.Runtime(_state)
+    # hvd-tune: every rank's collector; rank 0's controller when enabled,
+    # in place before the first cycle.
+    _tuning.install(_state)
     # Timeline: rank 0 only, the reference's env contract
     # (operations.cc:1201-1204).
     timeline_path = os.environ.get("HOROVOD_TIMELINE")
@@ -345,6 +361,9 @@ def shutdown() -> None:
     channel, leave the groups ``init`` created, and reset."""
     if _state.runtime is not None:
         _state.runtime.shutdown()
+    if _state.autotuner is not None:
+        _state.autotuner.close()
+    _state.tuner = _state.autotuner = None
     if _state.channel is not None:
         _state.channel.close()
     if _state.metrics_exporter is not None:

@@ -616,9 +616,10 @@ class ResponseCache:
                     self._disarmed = True
             return
         if rt == ResponseType.RETUNE:
-            # The reference's tuner marker (never produced by the port):
-            # the negotiated outcome does not depend on the knobs, so
-            # entries stay valid.
+            # hvd-tune's knob marker (tuning/actuation.py): every rank's
+            # executor applies it at this same stream position; the
+            # negotiated outcome does not depend on the knobs, so entries
+            # stay valid.
             return
         if rt == ResponseType.JOIN:
             with self._lock:

@@ -44,6 +44,12 @@ Cycles run on the background thread (async progress, every
 way), one at a time under ``cycle_lock``: the data groups' calls follow
 response order whichever thread makes them.
 
+hvd-tune (:mod:`..tuning`): rank 0's controller's RETUNE markers enter the
+stream after the cache's flush marker and before the replays, and every rank
+applies them at that position, inside the cycle (:func:`apply_fusion_threshold`
+is the threshold's lock-free change); after a cycle's responses ran, rank 0
+feeds their bytes and one window tick to the controller.
+
 Callers do not modify an input (or in-place target) between the
 ``*_async`` call and ``synchronize``, and do not keep negotiated ops in
 flight across a monolithic step (:mod:`..parallel.data` reduces on its
@@ -675,15 +681,27 @@ class Runtime:
         background thread answers in the batch of its cycle after that.
         A rank that has not answered within ``timeout`` seconds is left
         out (the reference's pull behaves the same)."""
+        self.request_metrics()
+        self._work.set()
+        self._metrics_done.wait(timeout)
+        return {0: local, **self.metrics_replies()}
+
+    def request_metrics(self) -> None:
+        """Rank 0, without waiting: the next cycle's broadcast asks every
+        worker for its metrics snapshot, each answers in the batch of its
+        cycle after that, and :meth:`metrics_replies` collects them.  The
+        tuner's fleet check calls it from inside rank 0's cycle, where
+        waiting for the replies could never see them."""
         with self._lock:
             self._metrics_replies = {}
             self._metrics_done.clear()
             self._metrics_ask = True
-        self._work.set()
-        self._metrics_done.wait(timeout)
+
+    def metrics_replies(self) -> Dict[int, dict]:
+        """The workers' snapshots that have arrived since the last ask,
+        by rank."""
         with self._lock:
-            replies = dict(self._metrics_replies)
-        return {0: local, **replies}
+            return dict(self._metrics_replies)
 
     # -- verify_program's exchange (analysis/program.py) -------------------
     def collect_signatures(self, payload: bytes,
@@ -886,10 +904,18 @@ class Runtime:
             tl = self.timeline
             if tl is not None:
                 self._timeline_queue(tl, responses)
+            # hvd-tune (reference :2241-2245, :2282-2285): rank 0 feeds
+            # each executed response's bytes to its controller, then one
+            # step of its loop a cycle.
+            tuner = self.st.autotuner
             for resp in responses:
                 if self._stopped.is_set():
                     break
-                self._execute(resp, tl)
+                nbytes = self._execute(resp, tl)
+                if tuner is not None:
+                    tuner.record_bytes(nbytes)
+            if tuner is not None and not self._stopped.is_set():
+                tuner.maybe_step()
 
     def _observe_prefixes(self, payload: bytes) -> bytes:
         """A worker: act on rank 0's broadcast prefixes (transport.py);
@@ -1052,9 +1078,14 @@ class Runtime:
         if shutdown:
             negotiated.append(Response(ResponseType.SHUTDOWN,
                                        error_message=SHUT_DOWN_ERROR_MESSAGE))
-        # The marker first: replicas flush before inserting anything this
-        # cycle negotiated.
+        # The flush marker first: replicas flush before inserting anything
+        # this cycle negotiated.  hvd-tune's RETUNE markers next (reference
+        # :2145-2152), before the replays, so a knob never flips between
+        # two of a cycle's responses; they count as non-replay traffic, so
+        # a cycle that carries one never goes out as the compact payload.
         head = [marker] if marker is not None else []
+        if self.st.tuner is not None:
+            head += self.st.tuner.take_markers()
         return (head + replayed + negotiated, groups, epoch, compact,
                 len(head) + len(negotiated),
                 frozenset(id(r) for r in replayed))
@@ -1077,8 +1108,19 @@ class Runtime:
                     tl.activity_start(n, "QUEUE")
 
     # -- execution (background thread, response order) ---------------------
-    def _execute(self, resp: Response, tl=None) -> None:
+    def _execute(self, resp: Response, tl=None) -> int:
+        """Run one response of the cycle's stream on this rank; returns
+        the payload bytes of the ops it completed (0 for a marker or a
+        failure), the autotune sweep's score."""
         rt = resp.response_type
+        if rt == ResponseType.RETUNE:
+            # hvd-tune: every rank applies the marker HERE, at the same
+            # stream position (reference :1468-1476), inside the cycle:
+            # the appliers take no cycle_lock (tuning/actuation.py).
+            from ..tuning import actuation as _actuation
+
+            _actuation.apply_marker(resp, self.st)
+            return 0
         if rt == ResponseType.ERROR:
             mt0 = time.monotonic()
             err = HorovodError(resp.error_message)
@@ -1088,12 +1130,12 @@ class Runtime:
             for o in taken.values():
                 o.handle.finish(error=err)
             self._trace_spans(resp, taken, mt0)
-            return
+            return 0
         if rt == ResponseType.JOIN:
             self.join_result = resp.tensor_sizes[0] if resp.tensor_sizes \
                 else -1
             self._join_done.set()
-            return
+            return 0
         if rt == ResponseType.SHUTDOWN:
             if resp.error_message and \
                     resp.error_message != SHUT_DOWN_ERROR_MESSAGE:
@@ -1108,12 +1150,12 @@ class Runtime:
                 # Cached cycles never replay across the teardown.
                 self.cache.flush("shutdown")
             self._poison(self.shutdown_message)
-            return
+            return 0
         if rt not in _DATA_RESPONSES:
-            return  # CACHE_FLUSH: the cache observed it already
+            return 0  # CACHE_FLUSH: the cache observed it already
         ps = _ps.get(resp.process_set_id) if resp.process_set_id else None
         if resp.process_set_id and (ps is None or not ps.included()):
-            return  # not a member: the set's members run it
+            return 0  # not a member: the set's members run it
         ops = self._take(resp.tensor_names)
         mt0 = time.monotonic()
         if _telemetry.enabled():
@@ -1152,7 +1194,7 @@ class Runtime:
                 if tl is not None:
                     tl.end(name)
                 o.handle.finish(error=err)
-            return
+            return 0
         self.stats["responses"] += 1
         self.stats["tensors"] += len(resp.tensor_names)
         for name, o in ops.items():
@@ -1161,6 +1203,7 @@ class Runtime:
             o.handle.finish(result=outs[name], event=event)
         _M_COMPLETED.inc(len(ops))
         self._trace_spans(resp, ops, mt0)
+        return sum(o.nbytes for o in ops.values())
 
     @staticmethod
     def _trace_spans(resp: Response, ops: Dict[str, _QueuedOp],
@@ -1834,20 +1877,32 @@ def global_process_set():
 
 
 def set_fusion_threshold(nbytes: int) -> None:
-    """Set the Tensor Fusion threshold, in bytes, between steps (the
-    reference's autotune hook, tuning/actuation.py:169).  Every rank calls
-    it with the same value: the bucket plans of the monolithic and the
-    overlapped steps use this rank's, rank 0's coordinators fuse with
-    theirs (which drops the cache's packing plans and the quantized
-    residuals and ticks)."""
+    """Set the Tensor Fusion threshold, in bytes, between steps.  Every
+    rank calls it with the same value: the bucket plans of the monolithic
+    and the overlapped steps use this rank's, rank 0's coordinators fuse
+    with theirs.  Takes ``cycle_lock``; a RETUNE marker, applied inside
+    the cycle, calls :func:`apply_fusion_threshold` itself."""
     rt = _runtime()
-    _state._state.fusion_threshold_bytes = int(nbytes)
+    with rt.cycle_lock:
+        apply_fusion_threshold(rt, int(nbytes),
+                               f"fusion threshold -> {int(nbytes)}")
+
+
+def apply_fusion_threshold(rt: Runtime, nbytes: int, reason: str) -> None:
+    """The fusion threshold's change on this rank, taking no lock: the
+    caller holds ``rt.cycle_lock`` or runs inside the cycle (reference
+    tuning/actuation.py:168-187).  Rank 0 sets every coordinator's, the
+    global set's and each process set's (each drops the cache's packing
+    plans and the quantized residuals and ticks); a worker drops its cache
+    replica's packing plans and flushes the quantized state."""
+    rt.st.fusion_threshold_bytes = int(nbytes)
     if rt.coordinator is not None:
-        with rt.cycle_lock:
-            for coord in rt._coordinators():
-                coord.set_fusion_threshold(int(nbytes))
-    else:  # the coordinators flush rank 0's; the buckets change everywhere
-        _megakernel.flush(f"fusion threshold -> {int(nbytes)}")
+        for coord in rt._coordinators():
+            coord.set_fusion_threshold(int(nbytes))
+    else:
+        if rt.cache is not None:
+            rt.cache.invalidate_plans(reason)
+        _megakernel.flush(reason)
 
 
 @contextlib.contextmanager

@@ -122,9 +122,11 @@ def reduce_op_name(op) -> str:
 class ResponseType(IntEnum):
     """≙ MPIResponseType.  ERROR carries a cross-rank validation message;
     SHUTDOWN closes the negotiation; JOIN releases every joined rank
-    (tensor_sizes carries the last joining rank).  CACHE_FLUSH and RETUNE
-    are the reference's response-cache and tuner markers: kept so the
-    numbering matches, never produced by the port."""
+    (tensor_sizes carries the last joining rank).  CACHE_FLUSH is the
+    response cache's epoch marker; RETUNE carries hvd-tune's ``knob=value``
+    tokens (tensor_names) and the decision's sequence number
+    (tensor_sizes), applied by every rank at its stream position
+    (tuning/actuation.py)."""
 
     ALLREDUCE = 0
     ALLGATHER = 1

@@ -96,8 +96,6 @@ from .data import _resolve_grad_op, partition_fusion_buckets
 
 OVERLAP_ENV = "HVD_TPU_OVERLAP"
 _VALID_MODES = ("auto", "on", "off", "serial")
-# Buckets a CPU step may have dispatched and not yet executed.
-_MAX_INFLIGHT = 2
 
 
 def _normalize(v: str) -> str:
@@ -239,16 +237,35 @@ def _build_plan(seg_specs: List[List[Any]], threshold: int) -> _Plan:
 # In-flight window
 # ---------------------------------------------------------------------------
 
+def _max_inflight() -> int:
+    """Buckets a CPU step may have dispatched and not yet executed:
+    ``HVD_TPU_MAX_INFLIGHT`` (default 2; reference :345-349)."""
+    try:
+        return max(1, int(os.environ.get("HVD_TPU_MAX_INFLIGHT", "2")))
+    except ValueError:
+        return 2
+
+
 class _InflightWindow:
     """At most ``depth`` dispatched buckets whose response has not been
     executed (reference :352).  The CPU runs the step and the gloo
     collectives on the same cores, so the window keeps the queue of
-    pending buckets short; the GPU never builds one."""
+    pending buckets short; the GPU never builds one.  It registers with
+    hvd-tune's actuation, whose ``max_inflight`` knob resizes it live."""
 
     def __init__(self, depth: int, stats: dict):
         self._depth = depth
         self._q: collections.deque = collections.deque()
         self._stats = stats
+        from ..tuning import actuation as _actuation
+
+        _actuation.register_inflight_window(self)
+
+    def resize(self, depth: int) -> None:
+        """hvd-tune's live retune: a shrink waits down to the new depth at
+        the next ``admit``, never here (the cycle that applies the marker
+        must not wait on a bucket)."""
+        self._depth = max(1, int(depth))
 
     def admit(self, handles: List[int]) -> None:
         self._q.append(handles)
@@ -511,7 +528,7 @@ class _OverlapStep:
         cuda = _state.device().type == "cuda"
         self._inner.zero_grad(set_to_none=True)
         handles: List[Optional[int]] = [None] * plan.n_leaves
-        window = None if cuda else _InflightWindow(_MAX_INFLIGHT,
+        window = None if cuda else _InflightWindow(_max_inflight(),
                                                    self._stats)
         comp = self._compression
 

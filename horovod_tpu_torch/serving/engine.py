@@ -61,9 +61,18 @@ work is a ``serving.iteration`` trace span and each finished request a
 (``serving.params``, ``serving.draft_params``) and ``warm_start`` runs
 the pre-flight.  ``drain``, ``export_prefix_index``, ``seed_prefixes``
 and ``import_requests`` are what ``elastic.ServingState`` and the
-server's ``/drain`` and ``/resume`` move a fleet's work with.  Waiting
-for later work (ROADMAP.md A.5.5): tuning actuation (the reference's
-``set_spec_tokens``).
+server's ``/drain`` and ``/resume`` move a fleet's work with.
+
+hvd-tune (reference :263-276, :1083-1101): every engine registers with
+:mod:`..tuning.actuation` (a speculative one for ``spec_tokens`` too).  A
+RETUNE marker is applied on the cycle's thread while this engine's thread
+may be inside an iteration, which reads ``spec_tokens`` several times and
+allocates pages, so :meth:`InferenceEngine.set_spec_tokens` and
+:meth:`InferenceEngine.set_prefix_target` only latch the value; the engine
+adopts it at the start of its next :meth:`InferenceEngine.step`.  Rank 0's
+plan broadcast carries the adopted depth and prefix target and a follower
+adopts those, at the same point of its iteration (the reference sets both
+at once on each rank; ROADMAP.md §C.3).
 """
 
 from __future__ import annotations
@@ -287,6 +296,12 @@ class InferenceEngine:
         self._prev_token = np.zeros((max_slots,), np.int64)
         self._spec_proposed = 0
         self._spec_accepted = 0
+        # hvd-tune's knobs as the cycle's thread latched them, adopted at
+        # the start of the next step (None: nothing pending).
+        self._latch_lock = _lockorder.make_lock(
+            "serving.InferenceEngine._latch_lock")
+        self._spec_latched: Optional[int] = None
+        self._prefix_latched: Optional[int] = None
         self._ready = False
         self._drained = False
         # Serializes drain/abort_all/import_requests: the serve loop's
@@ -309,6 +324,14 @@ class InferenceEngine:
                 _mem.ledger.alloc(category, nbytes, key=self._ledger_key)
             weakref.finalize(self, _mem.ledger.free_deferred, category,
                              key=self._ledger_key)
+        # hvd-tune: every engine takes the prefix_pages knob (and prices it
+        # by page_global_bytes); a speculative one spec_tokens too, and
+        # feeds the acceptance-rate sensor.
+        from ..tuning import actuation as _actuation
+
+        if self._draft_params is not None:
+            _actuation.register_spec_engine(self)
+        _actuation.register_serving_engine(self)
 
     def _shard(self, params, cfg):
         """This rank's serving parameters: its shard on a model axis of
@@ -572,11 +595,17 @@ class InferenceEngine:
         and runs the same programs in the same order."""
         mt0 = time.monotonic() if _trace.enabled() else 0.0
         mp = self._multiprocess()
+        target = self._adopt_latched()
         admitted = self._admit(now) if admit else []
         if mp:
-            self._bcast({"stop": False,
-                         "admit": [(slot, list(req.prompt))
-                                   for slot, req in admitted]})
+            # The adopted depth, and the prefix target when this step
+            # adopted one: a follower adopts them at this same point.
+            plan = {"stop": False, "spec_tokens": self.spec_tokens,
+                    "admit": [(slot, list(req.prompt))
+                              for slot, req in admitted]}
+            if target is not None:
+                plan["prefix_target"] = target
+            self._bcast(plan)
         finished = [slot for slot, req in admitted
                     if self._prefill_and_sample(slot, req) is not None]
         # Clean abort of disconnected clients' slots, at the iteration
@@ -628,6 +657,19 @@ class InferenceEngine:
                         args={"admitted": len(admitted),
                               "active": len(active), "spec": spec})
         return bool(admitted or active)
+
+    def _adopt_latched(self) -> Optional[int]:
+        """The start of an iteration: adopt the knobs hvd-tune latched
+        since the last one.  Returns the prefix target adopted (the
+        cache's index trimmed or its cap lifted), or None."""
+        with self._latch_lock:
+            spec, self._spec_latched = self._spec_latched, None
+            target, self._prefix_latched = self._prefix_latched, None
+        if spec is not None:
+            self.spec_tokens = spec
+        if target is not None:
+            self.cache.set_prefix_target(target)
+        return target
 
     def _admit(self, now: Optional[int]) -> List[Tuple[int, Request]]:
         """Headroom-gated admission: each candidate's prefill is priced
@@ -865,6 +907,35 @@ class InferenceEngine:
             return None
         return self._spec_accepted / self._spec_proposed
 
+    def set_spec_tokens(self, n: int) -> None:
+        """hvd-tune's live retune (tuning/actuation.py): the speculative
+        depth the next iteration adopts (latched: an iteration in flight
+        keeps its depth).  The propose and verify programs are keyed by
+        depth, so the new depth builds or reuses its own."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"spec_tokens must be >= 1, got {n}")
+        with self._latch_lock:
+            self._spec_latched = n
+
+    def set_prefix_target(self, n_pages: int) -> None:
+        """hvd-tune's ``prefix_pages`` knob: the prefix index's size cap
+        the next iteration adopts (:meth:`.kv_cache.PagedKVCache.
+        set_prefix_target`), latched as :meth:`set_spec_tokens` is."""
+        with self._latch_lock:
+            self._prefix_latched = max(0, int(n_pages))
+
+    def spec_token_bytes(self) -> int:
+        """The byte cost of one more speculative token, for the planner's
+        pricing of spec_tokens retunes: one target and one draft KV token
+        column a slot (the verify writes target KV for every proposed
+        token)."""
+        per_tok = 0
+        for cache in (self.cache, self.draft_cache):
+            if cache is not None:
+                per_tok += cache.page_global_bytes // cache.page_size
+        return per_tok * self.max_slots
+
     # -- multi-process mirroring (reference :1104-1203) ---------------------
     def _multiprocess(self) -> bool:
         from ..core import state as _state
@@ -894,6 +965,13 @@ class InferenceEngine:
         if plan.get("abort"):
             self._free_all_slots()
             return True
+        # Rank 0's adopted knobs, at the point of the iteration where it
+        # adopted them (this rank's own latch is never read: the marker
+        # reached it at another point of its iteration).
+        if "spec_tokens" in plan:
+            self.spec_tokens = int(plan["spec_tokens"])
+        if "prefix_target" in plan:
+            self.cache.set_prefix_target(plan["prefix_target"])
         for slot, prompt in plan.get("admit", ()):
             self._prefill(int(slot), Request(prompt=list(prompt)))
         sync = self._bcast(None)

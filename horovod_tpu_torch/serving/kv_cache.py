@@ -42,16 +42,16 @@ list and the prefix index stay whole and identical on every rank: rank
 
 The lock is the lock-order checker's named lock and the guarded fields
 carry the race checker; the page tensors are charged to the memory
-ledger (reference :101-206).  Waiting for later work (ROADMAP.md A.5.5):
-the live retune of the index's size (the reference's
-``set_prefix_target``, with tuning actuation).
+ledger (reference :101-206).  hvd-tune's ``prefix_pages`` knob caps the
+index's size live (:meth:`PagedKVCache.set_prefix_target`, called by the
+engine at the start of an iteration, reference :568-585).
 """
 
 from __future__ import annotations
 
 import weakref
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,6 +167,8 @@ class PagedKVCache:
         self._page_tokens: Dict[bytes, List[int]] = {}
         self._refcount: Dict[int, int] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # hvd-tune's live cap on the index's size (None: uncapped).
+        self._prefix_target: Optional[int] = None  # guarded_by: _lock
         if self._gauges:
             _M_KV_TOTAL.set(self.total_pages)
         self._set_page_gauges_locked()
@@ -442,6 +444,9 @@ class PagedKVCache:
                 key = hashes[j]
                 if key in self._index or page in self._page_hash:
                     continue
+                if (self._prefix_target is not None
+                        and len(self._page_hash) >= self._prefix_target):
+                    break  # the retuned cap is reached: stop publishing
                 self._index[key] = page
                 self._page_hash[page] = key
                 self._page_tokens[key] = [int(t)
@@ -495,7 +500,10 @@ class PagedKVCache:
                 if page == 0:
                     continue
                 key = hashes[j] if j < n_full else None
-                if key is not None and key not in self._index:
+                if (key is not None and key not in self._index
+                        and (self._prefix_target is None
+                             or len(self._page_hash)
+                             < self._prefix_target)):
                     self._index[key] = page
                     self._page_hash[page] = key
                     self._page_tokens[key] = [
@@ -534,6 +542,24 @@ class PagedKVCache:
         with self._lock:
             keys = list(self._index)
         return [k.hex() for k in keys[-int(limit):]]
+
+    def set_prefix_target(self, n_pages: Optional[int]) -> int:
+        """Retune the index's live size cap (hvd-tune's ``prefix_pages``
+        knob).  A shrink evicts reclaimable LRU pages back to the free list
+        until the index fits (REFERENCED shared pages are untouchable: the
+        cap converges as slots release them); a grow lifts the cap.
+        Returns the index's size after the trim."""
+        with self._lock:
+            self._prefix_target = None if n_pages is None \
+                else max(0, int(n_pages))
+            if self._prefix_target is not None:
+                while (len(self._page_hash) > self._prefix_target
+                       and self._lru):
+                    page, _ = self._lru.popitem(last=False)
+                    self._drop_index_locked(page)
+                    self._free.append(page)
+                self._set_page_gauges_locked()
+            return len(self._page_hash)
 
     def reclaimable_pages(self) -> int:
         """Unreferenced cached prefix pages — allocatable on demand, so

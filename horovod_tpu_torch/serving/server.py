@@ -373,9 +373,12 @@ class LMServer:
         (reference :368-382)."""
         from .. import elastic as _elastic
 
+        # NOT_READY first: a drained request's handler answers 503 the
+        # moment the drain finishes it, and its client may then read
+        # /healthz (the reference flips readiness after the export).
+        self.engine.mark_unready()
         exported = self.engine.drain()
         payload = _elastic.serving_export_payload(self.engine, exported)
-        self.engine.mark_unready()
         self._wake.set()  # the loop sees the emptied scheduler
         return (200, (json.dumps(payload) + "\n").encode(),
                 "application/json")

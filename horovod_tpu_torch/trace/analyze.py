@@ -28,10 +28,17 @@ cost.  Output is a human report plus JSON (``--json``; ``bench.py``'s
 ``trace`` section consumes it) — both are
 pure functions of the input file, so two replays of one trace are
 byte-identical.
+
+A dispatch span finds the launch spans inside it through the launches
+sorted by start (the reference scans every launch for every dispatch,
+quadratic in a window's spans: the online tuner decomposes its whole span
+buffer each window); the sums add in the reference's order, so the legs
+are the same floats.
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 from typing import Dict, List, Optional, Tuple
 
@@ -86,14 +93,23 @@ def _decompose(spans: List[dict]) -> Dict[str, float]:
     for leg in LEGS:
         legs[leg] = 0.0
     coll = [s for s in spans if s.get("cat") == "collective"]
+    # A launch inside [d0 - 1, d1 + 1] starts in that range unless its
+    # duration is negative: those few are checked against every dispatch.
+    by_start = sorted((float(c.get("ts", 0.0)), i) for i, c in
+                      enumerate(coll) if float(c.get("dur", 0.0)) >= 0.0)
+    starts = [t for t, _ in by_start]
+    backwards = [i for i, c in enumerate(coll)
+                 if float(c.get("dur", 0.0)) < 0.0]
     used = set()
     for d in (s for s in spans if s.get("cat") == "dispatch"):
         d0 = float(d.get("ts", 0.0))
         d1 = d0 + float(d.get("dur", 0.0))
-        inner = [c for c in coll
-                 if d0 - 1.0 <= float(c.get("ts", 0.0))
-                 and float(c.get("ts", 0.0)) + float(c.get("dur", 0.0))
-                 <= d1 + 1.0]
+        near = [i for _, i in by_start[bisect.bisect_left(starts, d0 - 1.0):
+                                       bisect.bisect_right(starts, d1 + 1.0)]]
+        inner = [coll[i] for i in sorted(near + backwards)
+                 if d0 - 1.0 <= float(coll[i].get("ts", 0.0))
+                 and float(coll[i].get("ts", 0.0))
+                 + float(coll[i].get("dur", 0.0)) <= d1 + 1.0]
         if inner:
             first = min(float(c["ts"]) for c in inner)
             last = max(float(c["ts"]) + float(c.get("dur", 0.0))

@@ -388,11 +388,11 @@ def test_every_site_is_a_port_scenario_or_waits_with_its_step():
         assert waiting or site.startswith("router."), site
         for n in waiting:
             assert "§A.5 item" in matrix.WAITING[n], n
-    # The TCP channel's scenarios all left WAITING; what waits is
-    # tuning's and the router's.
-    assert set(matrix.WAITING) == {"retune_midfault",
-                                   "router_replica_death",
+    # The TCP channel's and tuning's scenarios all left WAITING; what
+    # waits is the router's.
+    assert set(matrix.WAITING) == {"router_replica_death",
                                    "router_restart"}
+    assert len(matrix.SCENARIOS) == 19
 
 
 def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
@@ -405,7 +405,8 @@ def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
     for s in matrix.SCENARIOS:
         assert s.name in out
     with pytest.raises(SystemExit, match="waits for"):
-        matrix.find("retune_midfault")
+        matrix.find("router_restart")
+    assert matrix.find("retune_midfault").kind == "cp"
     assert matrix.find("grace_expiry").kind == "cp"
 
 
@@ -466,6 +467,19 @@ def test_matrix_tcp_scenarios(monkeypatch):
         assert report["launches"] and not any(
             report["launches"].values()), report
     assert reports[0]["fired"] == 1 and reports[2]["fired"] == 1, reports
+
+
+def test_matrix_retune_midfault(monkeypatch):
+    """RETUNE markers from rank 0's Tuner at steps 10 and 25 on a real np=2
+    fleet, the worker's connection reset twice (the scenario's spec, and
+    rank 0's on the payload that carries the second marker): both passes'
+    records equal, each marker applied once on each rank."""
+    monkeypatch.setenv("HVD_TPU_CHAOS_CP_STEPS", "28")
+    report = matrix.run_scenario(matrix.find("retune_midfault"),
+                                 device="cpu")
+    assert report["status"] == "PASS", report
+    assert report["fired"] == 2, report
+    assert report["unreported"] == [], report
 
 
 def test_matrix_smoke_one_local_scenario():

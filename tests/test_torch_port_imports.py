@@ -86,7 +86,13 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.serving.engine",
             "horovod_tpu_torch.serving.harness",
             "horovod_tpu_torch.serving.server",
-            "horovod_tpu_torch.examples.serve_lm"} <= set(names)
+            "horovod_tpu_torch.examples.serve_lm",
+            "horovod_tpu_torch.tuning",
+            "horovod_tpu_torch.tuning.policy",
+            "horovod_tpu_torch.tuning.sensors",
+            "horovod_tpu_torch.tuning.actuation",
+            "horovod_tpu_torch.tuning.controller",
+            "horovod_tpu_torch.utils.autotune"} <= set(names)
 
 
 def _imported_roots(tree):

@@ -34,6 +34,12 @@ DIFFERENCES = {
         "has no counterpart (torch has no buffer donation, ROADMAP.md §A "
         "'No counterpart needed'), so the port runs lint, thread-role and "
         "stale-waiver only"),
+    "serving.InferenceEngine.set_spec_tokens": (
+        "latched: a RETUNE marker is applied on the cycle's thread while "
+        "the engine's thread may be inside an iteration, so the engine "
+        "adopts the depth (and set_prefix_target's cap) at the start of "
+        "its next step and rank 0's plan carries them to the followers; "
+        "the reference sets both at once (ROADMAP.md §C.3)"),
 }
 
 
@@ -103,3 +109,26 @@ def test_analyze_sources_lacks_only_the_donation_pass():
     src = {"m.py": "def f(x):\n    return x\n"}
     assert port_hvd.analysis.analyze_sources(src) == []
     assert ref_analysis.analyze_sources(src) == []
+
+
+def test_set_spec_tokens_and_the_prefix_target_wait_for_the_next_step():
+    """DIFFERENCES["serving.InferenceEngine.set_spec_tokens"]: the
+    reference's engine takes the new depth at once, the port's at its next
+    step; the prefix target likewise reaches the cache only then."""
+    from torch_serving_cases import (CFG_R, DRAFT, DRAFT_CFG, DRAFT_CFG_R,
+                                     DRAFT_R, PARAMS_R, make_engine)
+
+    assert "serving.InferenceEngine.set_spec_tokens" in DIFFERENCES
+    ref = ref_hvd.serving.InferenceEngine(
+        PARAMS_R, CFG_R, max_slots=3, page_size=8, capacity=32,
+        draft=(DRAFT_R, DRAFT_CFG_R), spec_tokens=3)
+    ref.set_spec_tokens(2)
+    assert ref.spec_tokens == 2
+    port = make_engine(draft=(DRAFT, DRAFT_CFG), spec_tokens=3)
+    port.set_spec_tokens(2)
+    port.set_prefix_target(4)
+    with pytest.raises(ValueError, match="spec_tokens must be >= 1"):
+        port.set_spec_tokens(0)
+    assert port.spec_tokens == 3 and port.cache._prefix_target is None
+    assert port.step() is False  # an idle iteration adopts them
+    assert port.spec_tokens == 2 and port.cache._prefix_target == 4
