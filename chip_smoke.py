@@ -372,8 +372,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
              has no exchange); the channel launches no kernel.  (a)
              python -m
              horovod_tpu_torch.chaos --matrix, every scenario: the local
-             ones on the card, the cp fleets (the ten TCP scenarios
-             among them) on the CPU, each one's verdict and seconds.
+             ones on the card (the router's two among them: a replica
+             drained and killed behind the Router, the RouterServer's
+             process SIGKILLed mid-generation), the cp fleets (the ten
+             TCP scenarios among them) on the CPU, each one's verdict
+             and seconds.
              (b) GPT-2-small at full width in f32 (vocab 32768, d 768,
              12 heads, d_ff 3072; cut: 2 layers, batch 1 of 128 tokens
              a rank, the ranks on the CPU, one thread each, 6 AdamW
@@ -431,7 +434,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
              cycles and ms from enqueue to apply, the sweep's scores,
              tuning.applied/decisions/vetoes/rollbacks, the turns' step
              ms, the phase's seconds and its kernel launches.
-20. word2vec - skip-gram word2vec with sparse embedding gradients
+20. routing - the fleet router (ROADMAP A.5 item 6: routing/'s
+             HttpReplicaClient, Router, FleetAutoscaler, RouterServer).
+             GPT-2-small (bf16, one set of weights from --seed, default
+             21) served by LMServer replicas (8 slots, page 16, capacity
+             1024, the prefix cache on), each on a private route registry
+             and port 0, behind a Router and a RouterServer with its poll
+             thread, all in this process on the card; every answer's
+             tokens held bitwise to one engine's completion computed
+             beforehand outside the fleet.  (a) 48 seeded requests (6
+             header families of 2-4 pages, 4-16-token suffixes, 16-32 new
+             tokens) from 8 client threads through the router's
+             /generate: bitwise, affinity hits > 0, both replicas
+             serving; then the same prompts one at a time for one token,
+             direct to the replica that served each and through the
+             router in turns (direct, router, router, direct): the
+             router-added p50/p99.  (b) A 256-token request
+             drained mid-generation (drain_replica): the 503 partial
+             continued on the survivor, merged bitwise; the export's
+             chains donated to the survivor (its index grows by a header
+             a client pinned to the victim warmed), a follow-up on that
+             header routed there with affinity and one prefix-cache hit;
+             the drained replica resumed.  (c) FleetAutoscaler (up_load 2,
+             sustain 1, cooldown 0; price: the planner's KV and prefix
+             bytes and the weights'; headroom: the card's free bytes):
+             during a burst of 24 requests, veto:up while a tensor holds
+             all but half the price of the card's free memory, then
+             up:auto1 booting a third replica on the card, seeded from
+             the donor before its first request, which routes to it with
+             affinity; the burst bitwise; in the trough down:auto1, its
+             chains donated.  (d) a replica's front door closed without a
+             drain: ReplicaUnreachable, marked dead, the next dispatches
+             on the survivor bitwise.  The serving kernels launched in
+             every step in their Hopper form only, the flash kernels
+             never (asserted, printed a step).  Prints the router-added
+             latency, affinity hits, the drain-to-continuation time, the
+             newcomer's seeded pages, the decisions and the phase's
+             seconds.
+21. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -441,7 +481,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-21. resnet - ResNet data parallelism, which runs no kernel of the port's
+22. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -483,7 +523,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
           "overlap", "parallel", "sharded", "pipeline", "checkpoint",
           "serving", "serving_mp", "distill", "observe", "elastic",
-          "control", "tuning", "word2vec", "resnet")
+          "control", "tuning", "routing", "word2vec", "resnet")
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -6664,6 +6704,13 @@ def _control_legs(smi_line, out_dir, root, t_phase, started):
         raise AssertionError(f"the matrix: processes that printed no "
                              f"launch counts: {unreported}")
     kinds = {s.name: s.kind for s in _matrix.SCENARIOS}
+    by_name = {r["scenario"]: r for r in report["scenarios"]}
+    # The router's scenarios: each passed (its needle shown, its digests
+    # the fault-free pass's) with its one fault fired.
+    for name in ("router_replica_death", "router_restart"):
+        r = by_name.get(name, {})
+        if r.get("status") != "PASS" or r.get("fired") != 1:
+            raise AssertionError(f"the matrix's {name}: {r}")
     devices = {r["scenario"]: r["device"] for r in report["scenarios"]}
     if set(devices) != set(kinds) or any(
             devices[n] != ("cpu" if kinds[n] == "cp" else "cuda")
@@ -7223,6 +7270,562 @@ def phase_tuning(fa, smi_line, out_dir):
     return out
 
 
+# -- routing: the fleet router (ROADMAP A.5 item 6) --------------------------
+
+ROUTING_FAMILIES = 6       # header families of the routed traffic (a)
+ROUTING_REQUESTS = 48      # requests of the routed traffic (a)
+ROUTING_CLIENTS = 8        # client threads of (a)
+ROUTING_LONG_TOKENS = 256  # the long request drained mid-generation (b)
+ROUTING_DRAIN_AFTER = 16   # its tokens generated before the drain
+ROUTING_BURST = 24         # the burst that scales the fleet up (c)
+ROUTING_BURST_TOKENS = 32
+# The core replicas' names sort after the autoscaler's "auto1", so that
+# an idle fleet's ties (equal load, equal affinity) go to the newcomer.
+ROUTING_CORE = ("r0", "r1")
+ROUTING_COUNTERS = ("routing.requests", "routing.affinity_hits",
+                    "routing.affinity_pages", "routing.failovers",
+                    "routing.continuations", "routing.replica_deaths",
+                    "routing.no_replica_errors", "routing.scale_ups",
+                    "routing.scale_downs", "routing.scale_vetoes",
+                    "serving.prefix_hits", "serving.prefix_pages_shared",
+                    "serving.client_disconnects")
+
+
+def _routing_traffic(vocab, seed):
+    """The seeded traffic: ROUTING_FAMILIES headers of 2-4 full pages
+    (32-64 tokens), ROUTING_REQUESTS prompts of a header and a 4-16-token
+    suffix asking for 16-32 new tokens, and three fresh headers (3 pages)
+    that (a) never sends: the long request's, the pinned one's of (b) and
+    the burst's probe tail of (c)."""
+    g = np.random.default_rng(seed)
+    headers = [g.integers(0, vocab, 16 * int(g.integers(2, 5))).tolist()
+               for _ in range(ROUTING_FAMILIES)]
+    reqs = []
+    for _ in range(ROUTING_REQUESTS):
+        h = headers[int(g.integers(0, ROUTING_FAMILIES))]
+        reqs.append((h + g.integers(0, vocab, int(g.integers(4, 17))
+                                    ).tolist(), int(g.integers(16, 33))))
+    fresh = [g.integers(0, vocab, 48).tolist() for _ in range(3)]
+    burst = []
+    for _ in range(ROUTING_BURST):
+        h = headers[int(g.integers(0, ROUTING_FAMILIES))]
+        burst.append((h + g.integers(0, vocab, int(g.integers(4, 17))
+                                     ).tolist(), ROUTING_BURST_TOKENS))
+    tail = g.integers(0, vocab, 20).tolist()
+    return headers, reqs, fresh, burst, tail
+
+
+def _complete_all(engine, reqs):
+    """Each (prompt, max_tokens)'s greedy completion by one engine alone
+    (batched: a sequence's tokens do not depend on its batch)."""
+    handles = [engine.submit(p, max_new_tokens=m) for p, m in reqs]
+    engine.run_until_idle()
+    return [h.result(timeout=0) for h in handles]
+
+
+def _http_post(port, payload, timeout=300.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _routing_counts(S, fa):
+    """The kernel counters: serving's by kernel and form, flash's."""
+    return {"serving": dict(S.launches),
+            "by_form": {f"{k}/{f}": n for (k, f), n in
+                        S.launches_by_form.items()},
+            "flash": dict(fa.launches)}
+
+
+def _counts_delta(a, b):
+    return {part: {k: b[part][k] - a[part][k] for k in b[part]}
+            for part in b}
+
+
+def _metric_values(telemetry):
+    return {n: telemetry.counter(n).value for n in ROUTING_COUNTERS}
+
+
+def phase_routing(fa, smi_line, out_dir, seed):
+    """The fleet router (ROADMAP A.5 item 6): GPT-2-small replicas (bf16,
+    8 slots, page 16, capacity 1024, the prefix cache on, one set of
+    weights from ``seed``) as LMServers on private route registries behind
+    a Router and a RouterServer with its poll thread, all in this process
+    on the card.  (a) ROUTING_REQUESTS seeded requests from
+    ROUTING_CLIENTS threads through the router's /generate: every answer
+    bitwise one engine's completion, affinity hits, both replicas serving;
+    then the same prompts one at a time for one token, direct to the
+    replica that served each and through the router, in turns (direct,
+    router, router, direct): the router-added latency.  (b) A long request drained mid-generation by
+    drain_replica: its 503 partial continued on the survivor, merged
+    bitwise; the export's chains donated to the survivor, whose index
+    grows, and a follow-up on a donated header routed there with affinity
+    and a prefix-cache hit.  (c) FleetAutoscaler (up_load 2, sustain 1,
+    cooldown 0) whose launch boots a third replica on the card and whose
+    price is the planner's KV and prefix bytes plus the weights' against
+    the card's free bytes: during a burst, veto:up while a tensor holds
+    the card's memory, then up:auto1, the newcomer seeded before its
+    first request, which routes to it with affinity; in the trough
+    down:auto1, its chains donated.  (d) A replica's front door closed without a
+    drain: ReplicaUnreachable, marked dead, the next dispatches fail over
+    bitwise.  The serving kernels launch in the Hopper form only, the
+    flash kernels never (asserted, counted a step).  Returns the
+    launches."""
+    import queue
+
+    import horovod_tpu_torch.telemetry as telemetry
+    from horovod_tpu_torch.examples import transformer_lm
+    from horovod_tpu_torch.memory import planner
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.routing import (AutoscaleConfig, FleetAutoscaler,
+                                           HttpReplicaClient,
+                                           ReplicaUnreachable, Router,
+                                           RouterConfig, RouterServer,
+                                           published_page_hashes)
+    from horovod_tpu_torch.serving import InferenceEngine, LMServer
+    from horovod_tpu_torch.telemetry import exporter
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = transformer_lm.bench_config()
+    params = tree_map(lambda x: x.detach(), tt.init_transformer(
+        torch.Generator().manual_seed(seed), cfg, device="cuda"))
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params))
+
+    def engine_of(**kw):
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=1024, **kw)
+
+    headers, reqs, fresh, burst, tail = _routing_traffic(cfg.vocab_size,
+                                                         seed)
+    long_prompt = fresh[0] + reqs[0][0][-8:]
+    pinned = (fresh[1] + reqs[1][0][-6:], 12)
+    follow = (fresh[1] + reqs[2][0][-5:], 12)
+    t0 = time.perf_counter()
+    single = engine_of()
+    single.warm_start()
+    want = _complete_all(single, reqs)
+    want_long, want_pinned, want_follow = _complete_all(
+        single, [(long_prompt, ROUTING_LONG_TOKENS), pinned, follow])
+    want_burst = _complete_all(single, burst)
+    probes = {i: h + tail for i, h in enumerate(headers)}
+    want_probe = dict(zip(probes, _complete_all(
+        single, [(p, 16) for p in probes.values()])))
+    reference_s = time.perf_counter() - t0
+    fp = single.fingerprint.encode()
+    del single
+
+    steps = {}
+    res = {"seed": seed, "reference_seconds": reference_s}
+    servers, clients = {}, {}
+    front = None
+    counts = _routing_counts(S, fa)
+    metrics = {}
+
+    def boot(name):
+        srv = LMServer(engine_of(prefix_cache=True), port=0,
+                       routes=exporter.RouteRegistry()).start()
+        servers[name] = srv
+        clients[name] = HttpReplicaClient("127.0.0.1", srv.port)
+        return clients[name]
+
+    def step_done(name, t_step):
+        nonlocal counts, metrics
+        now = _routing_counts(S, fa)
+        d = _counts_delta(counts, now)
+        counts = now
+        m = _metric_values(telemetry)
+        steps[name] = {"launches": d,
+                       "counters": {k: m[k] - metrics[k] for k in m
+                                    if m[k] != metrics[k]},
+                       "seconds": time.perf_counter() - t_step}
+        metrics = m
+        log({"phase": "routing", "step": name, **steps[name]})
+
+    try:
+        t_step = time.perf_counter()
+        for name in ROUTING_CORE:
+            boot(name)
+        router = Router(RouterConfig())
+        for name in ROUTING_CORE:
+            router.add_replica(name, clients[name])
+        front = RouterServer(router, port=0, poll_interval=0.1).start()
+        res["boot_seconds"] = time.perf_counter() - t_step
+        fa.reset_launches()
+        S.reset_launches()
+        counts = _routing_counts(S, fa)
+        m0 = metrics = _metric_values(telemetry)
+
+        # (a) Routed traffic from ROUTING_CLIENTS threads.
+        work = queue.Queue()
+        for i in range(len(reqs)):
+            work.put(i)
+        routed = {}
+
+        def client():
+            while True:
+                try:
+                    i = work.get_nowait()
+                except queue.Empty:
+                    return
+                routed[i] = _http_post(front.port, {
+                    "tokens": reqs[i][0], "max_tokens": reqs[i][1]})
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(ROUTING_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        bad = [i for i in range(len(reqs))
+               if routed.get(i, (0,))[0] != 200
+               or routed[i][1]["tokens"] != want[i]]
+        if bad:
+            raise AssertionError(
+                f"routing (a): requests {bad} not bitwise one engine's: "
+                f"{[routed.get(i) for i in bad[:2]]}")
+        served_by = [routed[i][1]["router"]["replica"]
+                     for i in range(len(reqs))]
+        d = _metric_values(telemetry)
+        hits = d["routing.affinity_hits"] - m0["routing.affinity_hits"]
+        if hits <= 0 or set(served_by) != set(ROUTING_CORE):
+            raise AssertionError(f"routing (a): affinity hits {hits}, "
+                                 f"served by {sorted(set(served_by))}")
+        # The router's own latency: the same prompts one at a time (no
+        # queueing, one serve loop busy), one new token each (a prefill:
+        # the hop is the largest share), direct to the replica that
+        # served each and through the router, in turns.
+        turns = {"router": [], "direct": []}
+        for mode in ("direct", "router", "router", "direct"):
+            for i, (p, _) in enumerate(reqs):
+                port = (front.port if mode == "router"
+                        else servers[served_by[i]].port)
+                t = time.perf_counter()
+                st, r = _http_post(port, {"tokens": p, "max_tokens": 1})
+                turns[mode].append(time.perf_counter() - t)
+                if st != 200 or r["tokens"] != want[i][:1]:
+                    raise AssertionError(f"routing (a): {mode} turn, "
+                                         f"request {i}: {st}")
+        res["a"] = {
+            "requests": len(reqs), "clients": ROUTING_CLIENTS,
+            "served": {n: served_by.count(n) for n in ROUTING_CORE},
+            "affinity_hits": hits,
+            "affinity_pages": d["routing.affinity_pages"]
+            - m0["routing.affinity_pages"],
+            "bitwise_single_engine": True,
+            "latency_ms": {
+                mode: {"p50": _pct(v, 0.5) * 1e3, "p99": _pct(v, 0.99) * 1e3}
+                for mode, v in turns.items()}}
+        res["a"]["router_added_ms"] = {
+            q: res["a"]["latency_ms"]["router"][q]
+            - res["a"]["latency_ms"]["direct"][q] for q in ("p50", "p99")}
+        step_done("a", t_step)
+
+        # (b) A long request drained mid-generation, then the donation.
+        t_step = time.perf_counter()
+        m1 = _metric_values(telemetry)
+        box = {}
+        th = threading.Thread(target=lambda: box.update(out=_http_post(
+            front.port, {"tokens": long_prompt,
+                         "max_tokens": ROUTING_LONG_TOKENS})))
+        th.start()
+
+        def holder(n_tokens, prompt_len):
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                for name, srv in servers.items():
+                    for _, r in srv.engine.scheduler.active():
+                        if r.prompt[:len(long_prompt)] == long_prompt \
+                                and len(r.prompt) >= prompt_len \
+                                and len(r.generated) >= n_tokens:
+                            return name
+                time.sleep(0.0005)
+            raise AssertionError("routing (b): the long request was never "
+                                 "generating")
+
+        victim = holder(1, len(long_prompt))
+        survivor = next(n for n in ROUTING_CORE if n != victim)
+        # A client pinned to the victim (no router) warms a header only
+        # the victim holds; the drain's export carries it.
+        st, pin = _http_post(servers[victim].port,
+                             {"tokens": pinned[0], "max_tokens": pinned[1]})
+        if st != 200 or pin["tokens"] != want_pinned:
+            raise AssertionError(f"routing (b): the pinned request {st}")
+        holder(ROUTING_DRAIN_AFTER, len(long_prompt))
+        before_pages = servers[survivor].engine.cache.prefix_stats()
+        t_drain = time.perf_counter()
+        export = router.drain_replica(victim)
+        drain_call_s = time.perf_counter() - t_drain
+        holder(0, len(long_prompt) + 1)  # the continuation, on the survivor
+        drain_to_continuation_s = time.perf_counter() - t_drain
+        th.join(timeout=600)
+        status, merged = box["out"]
+        if status != 200 or merged["tokens"] != want_long or \
+                merged["router"]["resubmits"] != 1 or \
+                merged["router"]["replica"] != survivor:
+            raise AssertionError(
+                f"routing (b): the continuation {status} "
+                f"{merged.get('router')}, tokens bitwise "
+                f"{merged.get('tokens') == want_long}")
+        drain_to_done_s = time.perf_counter() - t_drain
+        chains = export["prefixes"]
+        donated_hashes = set(published_page_hashes(
+            fp, pinned[0], 16, servers[survivor].engine.cache.pages_per_slot))
+        if donated_hashes & set(
+                servers[survivor].engine.cache.export_prefix_hashes()):
+            raise AssertionError("routing (b): the survivor held the pinned "
+                                 "header before the donation")
+        mid_pages = servers[survivor].engine.cache.prefix_stats()
+        st, _ = clients[survivor].resume({"requests": [],
+                                          "prefixes": chains})
+        after_pages = servers[survivor].engine.cache.prefix_stats()
+        index = set(servers[survivor].engine.cache.export_prefix_hashes())
+        if st != 200 or not donated_hashes <= index or \
+                after_pages["cached_pages"] <= mid_pages["cached_pages"]:
+            raise AssertionError(f"routing (b): the donation {st}, pages "
+                                 f"{mid_pages} -> {after_pages}")
+        router.poll()
+        m2 = _metric_values(telemetry)
+        st, fol = _http_post(front.port, {"tokens": follow[0],
+                                          "max_tokens": follow[1]})
+        m3 = _metric_values(telemetry)
+        hits = m3["serving.prefix_hits"] - m2["serving.prefix_hits"]
+        if st != 200 or fol["tokens"] != want_follow or \
+                fol["router"]["replica"] != survivor or \
+                fol["router"]["affinity_pages"] <= 0 or hits != 1:
+            raise AssertionError(
+                f"routing (b): the follow-up {st} {fol.get('router')}, "
+                f"prefix hits {hits}")
+        res["b"] = {
+            "victim": victim, "survivor": survivor,
+            "partial_tokens_before_drain": ROUTING_DRAIN_AFTER,
+            "drain_call_ms": drain_call_s * 1e3,
+            "drain_to_continuation_ms": drain_to_continuation_s * 1e3,
+            "drain_to_merged_ms": drain_to_done_s * 1e3,
+            "merged_bitwise": True, "export_chains": len(chains),
+            "export_requests": len(export.get("requests") or []),
+            "survivor_cached_pages": [before_pages["cached_pages"],
+                                      mid_pages["cached_pages"],
+                                      after_pages["cached_pages"]],
+            "follow_up_affinity_pages": fol["router"]["affinity_pages"],
+            "follow_up_prefix_pages_shared":
+                m3["serving.prefix_pages_shared"]
+                - m2["serving.prefix_pages_shared"],
+            "continuations": m3["routing.continuations"]
+            - m1["routing.continuations"]}
+        # The victim back in the fleet (POST /resume of an empty export).
+        st, _ = clients[victim].resume({"requests": [], "prefixes": []})
+        router.poll()
+        if st != 200 or router.ready_count() != 2:
+            raise AssertionError(f"routing (b): resume {st}, ready "
+                                 f"{router.replica_status()}")
+        step_done("b", t_step)
+
+        # (c) The autoscaler on the card.
+        t_step = time.perf_counter()
+        hog = []
+
+        def price():
+            e = servers[ROUTING_CORE[0]].engine.cache
+            return (planner.kv_cache_bytes(
+                cfg.n_layers, cfg.n_heads, cfg.d_model // cfg.n_heads,
+                8, e.pages_per_slot, 16, "bfloat16")
+                + planner.prefix_pages_bytes(
+                    cfg.n_layers, cfg.n_heads, cfg.d_model // cfg.n_heads,
+                    e.prefix_pages, 16, "bfloat16")
+                + weight_bytes)
+
+        def headroom():
+            return torch.cuda.mem_get_info()[0]
+
+        launched, retired = [], []
+
+        def launch(name):
+            launched.append(name)
+            return boot(name)
+
+        def retire(name):
+            retired.append(name)
+            servers.pop(name).close()
+
+        scaler = FleetAutoscaler(
+            router, launch, retire,
+            cfg=AutoscaleConfig(min_replicas=2, max_replicas=4, up_load=2.0,
+                                down_load=1.0, sustain=1, cooldown=0),
+            price=price, headroom=headroom)
+        m4 = _metric_values(telemetry)
+        bout, pending = {}, [len(burst)]
+        plock = threading.Lock()
+
+        def one(i):
+            bout[i] = _http_post(front.port, {"tokens": burst[i][0],
+                                              "max_tokens": burst[i][1]})
+            with plock:
+                pending[0] -= 1
+
+        bthreads = [threading.Thread(target=one, args=(i,))
+                    for i in range(len(burst))]
+        for th in bthreads:
+            th.start()
+        deadline = time.monotonic() + 120
+        while True:  # every burst request dispatched
+            st_ = router.replica_status()
+            with plock:
+                done = len(burst) - pending[0]
+            if sum(s["inflight"] for s in st_.values()) + done >= len(burst):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"routing (c): the burst was not "
+                                     f"dispatched: {st_}")
+            time.sleep(0.001)
+        router.poll()
+        need = price()
+        hog.append(torch.empty(max(0, headroom() - need // 2),
+                               dtype=torch.uint8, device="cuda"))
+        squeezed = headroom()
+        veto = scaler.observe()
+        hog.clear()
+        torch.cuda.empty_cache()
+        t_up = time.perf_counter()
+        up = scaler.observe()
+        up_s = time.perf_counter() - t_up
+        if veto != "veto:up" or up != "up:auto1" or not squeezed < need:
+            raise AssertionError(f"routing (c): {veto}, {up}; price {need} "
+                                 f"against headroom {squeezed}")
+        seeded = servers["auto1"].engine.cache.prefix_stats()
+        seeded_index = set(servers["auto1"].engine.cache
+                           .export_prefix_hashes())
+        # The probe: a header the newcomer was seeded with, and a tail
+        # none holds.  The newcomer wins on load while the burst runs, or
+        # on its name in a tie.
+        fams = [i for i, h in enumerate(headers) if set(
+            published_page_hashes(fp, h, 16, 64)) <= seeded_index]
+        if not fams:
+            raise AssertionError("routing (c): the newcomer was seeded "
+                                 "with no whole header")
+        fam = fams[0]
+        with plock:
+            busy = pending[0]
+        st, pr = _http_post(front.port, {"tokens": probes[fam],
+                                         "max_tokens": 16})
+        if seeded["cached_pages"] <= 0 or st != 200 or \
+                pr["tokens"] != want_probe[fam] or \
+                pr["router"]["replica"] != "auto1" or \
+                pr["router"]["affinity_pages"] <= 0:
+            raise AssertionError(
+                f"routing (c): seeded {seeded}, burst pending {busy}, the "
+                f"probe {st} {pr.get('router')}")
+        for th in bthreads:
+            th.join(timeout=600)
+        bad = [i for i in range(len(burst)) if bout[i][0] != 200
+               or bout[i][1]["tokens"] != want_burst[i]]
+        if bad:
+            raise AssertionError(f"routing (c): burst requests {bad} not "
+                                 f"bitwise one engine's")
+        probe_hashes = set(published_page_hashes(fp, probes[fam], 16, 64))
+        pages_before = {n: servers[n].engine.cache.prefix_stats()[
+            "cached_pages"] for n in ROUTING_CORE}
+        router.poll()
+        down = scaler.observe()
+        pages_after = {n: servers[n].engine.cache.prefix_stats()[
+            "cached_pages"] for n in ROUTING_CORE}
+        gained = [n for n in ROUTING_CORE if probe_hashes <= set(
+            servers[n].engine.cache.export_prefix_hashes())]
+        if down != "down:auto1" or retired != ["auto1"] or \
+                router.replica_names() != list(ROUTING_CORE) or \
+                not gained or \
+                sum(pages_after.values()) <= sum(pages_before.values()):
+            raise AssertionError(
+                f"routing (c): {down}, retired {retired}, fleet "
+                f"{router.replica_names()}, pages {pages_before} -> "
+                f"{pages_after}, the probe's chain on {gained}")
+        m5 = _metric_values(telemetry)
+        res["c"] = {
+            "decisions": [veto, up, down], "price_bytes": need,
+            "headroom_squeezed_bytes": squeezed,
+            "headroom_bytes": headroom(), "scale_up_ms": up_s * 1e3,
+            "auto1_seeded_pages": seeded["cached_pages"],
+            "probe_affinity_pages": pr["router"]["affinity_pages"],
+            "burst_pending_at_probe": busy, "burst_bitwise": True,
+            "donated_to": gained, "pages_before_after": [pages_before,
+                                                         pages_after],
+            "counters": {k: m5[k] - m4[k] for k in (
+                "routing.scale_ups", "routing.scale_downs",
+                "routing.scale_vetoes")}}
+        step_done("c", t_step)
+
+        # (d) A hard death: r0's front door closed without a drain (r0,
+        # the tie-break's choice, so a dispatch may meet it first).
+        t_step = time.perf_counter()
+        m6 = _metric_values(telemetry)
+        dead, alive = ROUTING_CORE
+        dead_client = clients[dead]
+        servers.pop(dead).close()
+        try:
+            dead_client.health()
+            raise AssertionError("routing (d): the closed replica answered")
+        except ReplicaUnreachable:
+            pass
+        stamps = []
+        for i in range(8):
+            st, r = _http_post(front.port, {"tokens": reqs[i][0],
+                                            "max_tokens": reqs[i][1]})
+            if st != 200 or r["tokens"] != want[i] or \
+                    r["router"]["replica"] != alive:
+                raise AssertionError(f"routing (d): dispatch {i}: {st} "
+                                     f"{r.get('router')}")
+            stamps.append(r["router"])
+        m7 = _metric_values(telemetry)
+        status = router.replica_status()
+        if status[dead]["status"] != "dead" or \
+                m7["routing.replica_deaths"] - m6["routing.replica_deaths"] \
+                != 1:
+            raise AssertionError(f"routing (d): {status}")
+        res["d"] = {"dead": dead, "status": status[dead]["status"],
+                    "failovers": sum(s["failovers"] for s in stamps),
+                    "deaths": m7["routing.replica_deaths"]
+                    - m6["routing.replica_deaths"],
+                    "bitwise_single_engine": True}
+        step_done("d", t_step)
+    finally:
+        if front is not None:
+            front.close()
+        for srv in list(servers.values()):
+            srv.close()
+    total = {"serving": {}, "by_form": {}, "flash": {}}
+    for st in steps.values():
+        for part, d in st["launches"].items():
+            for k, n in d.items():
+                total[part][k] = total[part].get(k, 0) + n
+    if any(total["flash"].values()):
+        raise AssertionError(f"routing: flash launches {total['flash']}")
+    for name, st in steps.items():
+        for k in S.KERNELS:
+            got = st["launches"]
+            if got["serving"][k] <= 0 or got["by_form"][f"{k}/first"] or \
+                    got["by_form"][f"{k}/sm90"] != got["serving"][k]:
+                raise AssertionError(f"routing ({name}): {k} launches "
+                                     f"{got}")
+    res["counters"] = {k: sum(st["counters"].get(k, 0)
+                              for st in steps.values())
+                       for k in ROUTING_COUNTERS}
+    log(smi_line)
+    log({"phase": "routing", "device": smi_line, **res,
+         "steps": steps, "launches": total,
+         "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def phase_word2vec(smi_line, out_dir):
     """Skip-gram word2vec with sparse embedding gradients on the card:
     upstream Horovod's examples/tensorflow_word2vec.py configuration
@@ -7514,6 +8117,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-payload", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--seed", type=int, default=21,
+                    help="the routing phase's weights and traffic")
     # The control phase's child: one CPU rank of a GPT-2-small run.
     ap.add_argument("--control-child", default=None, metavar="PATH",
                     help=argparse.SUPPRESS)
@@ -7597,6 +8202,8 @@ def main() -> int:
                else None)
     tuning = (phase_tuning(fa, smi, args.out_dir) if "tuning" in phases
               else None)
+    routing = (phase_routing(fa, smi, args.out_dir, args.seed)
+               if "routing" in phases else None)
     if "word2vec" in phases:
         phase_word2vec(smi, args.out_dir)
     if "resnet" in phases:
@@ -7643,7 +8250,9 @@ def main() -> int:
                    if elastic else {}),
                 **({"control": control["launches"]["total"][name]}
                    if control else {}),
-                **({"tuning": tuning["flash"][name]} if tuning else {})}})
+                **({"tuning": tuning["flash"][name]} if tuning else {}),
+                **({"routing": routing["flash"][name]}
+                   if routing else {})}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -7705,7 +8314,9 @@ def main() -> int:
                     **({"control": control["launches"]["total"][name]}
                        if control else {}),
                     **({"tuning": tuning["serving"][name]}
-                       if tuning else {})}})
+                       if tuning else {}),
+                    **({"routing": routing["serving"][name]}
+                       if routing else {})}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,7 @@ boundaries (port of horovod_tpu/chaos/__init__.py, which imports no JAX).
 :class:`~.spec.FaultSchedule`; every hardened layer asks :func:`fire` at
 its failure boundary and the schedule answers deterministically (same
 spec + seed, the identical fault sequence: the replay contract).  The
-port hosts the sites that need no TCP channel:
+port hosts every site of the reference:
 
 * ``ckpt.oserror``: the checkpoint writer's tmp-file write
   (``utils/checkpoint.py`` ``_write_bytes_once``);
@@ -21,11 +21,12 @@ port hosts the sites that need no TCP channel:
   ``.stall``: every frame the TCP control channel sends after its
   handshake (``ops/transport.py`` ``_apply_send_chaos``);
 * ``tree.relay_reset``: an interior's relay of the downward stream to a
-  child (``ops/tree.py``).
-
-The ``router.*`` sites belong to ``routing/``'s router, which the port
-does not have yet (ROADMAP.md §A.5 item 6): the grammar accepts them and
-nothing fires them.
+  child (``ops/tree.py``);
+* ``router.replica_kill`` and ``router.kill``: the fleet router's
+  scenarios (``chaos/matrix.py`` ``scenario_router_replica_death``,
+  ``scenario_router_restart``), which drain and kill a replica behind the
+  ``routing/`` router, or SIGKILL the router's own process, at the
+  point the reference does.
 
 The no-hang contract (``python -m horovod_tpu_torch.chaos --matrix``):
 under every schedule of the matrix the run either fully recovers (its

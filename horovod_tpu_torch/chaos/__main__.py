@@ -5,7 +5,6 @@
   python -m horovod_tpu_torch.chaos --matrix --device cpu
   python -m horovod_tpu_torch.chaos --matrix --only A B run a subset
   python -m horovod_tpu_torch.chaos --list              print the matrix
-                                                        and what waits
   python -m horovod_tpu_torch.chaos --scenario NAME     (child) one local
                                                         scenario here
   python -m horovod_tpu_torch.chaos --node R --np N \\
@@ -29,7 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="*", default=None,
                     help="scenario subset for --matrix")
     ap.add_argument("--list", action="store_true",
-                    help="list the matrix scenarios and those waiting")
+                    help="list the matrix scenarios")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; a cp fleet runs on the "
                          "CPU when there are fewer cards than ranks")
@@ -50,8 +49,6 @@ def main(argv=None) -> int:
         for s in _matrix.SCENARIOS:
             print(f"{s.name:26s} {s.kind:5s} expect={s.expect:10s} "
                   f"cap={s.cap:.0f}s spec={s.spec!r}")
-        for name, step in sorted(_matrix.WAITING.items()):
-            print(f"{name:26s} waits for {step}")
         return 0
     if args.matrix:
         return _matrix.run_matrix(only=args.only, verbose=args.verbose,

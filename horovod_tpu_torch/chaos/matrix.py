@@ -33,12 +33,18 @@ Scenario kinds:
   A fleet needs one card a rank: with fewer cards than ranks it runs on
   the CPU (gloo), and the output says so.
 * ``local``: one process with the port's stack on ``--device`` (the
-  checkpoint writer, the prefetch stager, the serving front door);
+  checkpoint writer, the prefetch stager, the serving front door, the
+  router);
   digests cover real bytes (the checkpoint file, trained values,
   generated tokens).
 
-The reference's other scenarios wait for the step that brings their sites
-(:data:`WAITING`): the router's ``router_*`` (ROADMAP.md §A.5 item 6).
+Every scenario of the reference is in the matrix (:data:`WAITING` is
+empty).  The router's two (``router_replica_death``, ``router_restart``)
+run toy transformer replicas on ``--device`` behind the real
+:class:`~..routing.Router` over HTTP; ``router_restart`` kills its router
+child once a replica's ``/healthz`` shows the long request admitted, not
+after a fixed sleep, so that the kill lands mid-generation on a fast
+device too.
 
 ``retune_midfault`` (hvd-tune): rank 0's :class:`~..tuning.Tuner` enqueues a
 RETUNE marker at each of ``HVD_TPU_CHAOS_RETUNE_STEPS``.  Besides the
@@ -229,23 +235,37 @@ SCENARIOS: List[Scenario] = [
             "slots and the prefix references; the follow-up request "
             "(a prefix hit) completes identically to the fault-free "
             "run"),
+    # -- hvd-route fleet router (routing/router.py) ----------------------
+    Scenario(
+        "router_replica_death", "local", "recover", cap=300.0,
+        spec="router.replica_kill:count=1@40",
+        needle="failed over",
+        doc="two real replicas behind the real Router over real HTTP; "
+            "the one that served the first request is drained and then "
+            "killed hard: dispatch fails over to the survivor and every "
+            "completion is identical to the fault-free fleet's"),
+    Scenario(
+        "router_restart", "local", "recover", cap=300.0,
+        spec="router.kill:count=1@41",
+        needle="severed router connection",
+        doc="the real RouterServer runs as a separate process and is "
+            "SIGKILLed mid-generation; the replicas abort the severed "
+            "sockets via the client probe (no slot leak), a fresh router "
+            "over the same fleet serves the resubmitted request, and "
+            "completions are identical to the never-killed run (the "
+            "bitwise contract makes the retry the same answer)"),
 ]
 
-# The reference's scenarios whose sites the port does not host yet, with
-# the step (ROADMAP.md §A.5) that brings them.
-WAITING: Dict[str, str] = {
-    "router_replica_death": "§A.5 item 6: routing/'s router and replicas",
-    "router_restart": "§A.5 item 6: routing/'s router server",
-}
+# The reference's scenarios whose sites the port did not host yet, by the
+# step (ROADMAP.md §A.5) that brought them: none since the router (§A.5
+# item 6) brought the last two.
+WAITING: Dict[str, str] = {}
 
 
 def find(name: str) -> Scenario:
     for s in SCENARIOS:
         if s.name == name:
             return s
-    if name in WAITING:
-        raise SystemExit(f"chaos scenario {name!r} waits for "
-                         f"{WAITING[name]}")
     raise SystemExit(f"unknown chaos scenario {name!r}; "
                      f"--list shows the matrix")
 
@@ -692,6 +712,240 @@ def scenario_serving_storm(device: Optional[str] = None) -> None:
         srv.close()
 
 
+def scenario_router_replica_death(device: Optional[str] = None) -> None:
+    """Two real replicas (identical params, so completions are bitwise
+    identical wherever they run) behind the real Router over real HTTP.
+    The faulted pass drains the replica that served the first request and
+    then kills its front door hard: the remaining dispatches must fail
+    over to the survivor, and the digested completions must match the
+    fault-free fleet's exactly."""
+    from .. import chaos as _chaos
+    from ..routing import Router, RouterConfig
+    from ..routing.replica import HttpReplicaClient
+    from ..serving.server import LMServer
+    from ..telemetry import exporter as _exporter
+
+    def replica():
+        # Private routes: two replicas in one process must not clobber
+        # each other's /generate and /healthz (LMServer docstring).
+        return LMServer(_small_engine(device, prefix_cache=True), port=0,
+                        routes=_exporter.RouteRegistry()).start()
+
+    servers = {"a": replica(), "b": replica()}
+    router = Router(RouterConfig(probe_base=0.01))
+    try:
+        for name, srv in servers.items():
+            router.add_replica(
+                name, HttpReplicaClient("127.0.0.1", srv.port))
+        router.poll()
+        records = []
+        header = list(range(40, 56))  # two full 8-token pages
+        status, first = router.dispatch(
+            {"tokens": header + [5, 6, 7], "max_tokens": 12})
+        if status != 200:
+            _diag(0, f"first dispatch failed: {status} {first}")
+        records.append(("req0", tuple(first["tokens"]),
+                        first["finish_reason"]))
+        if _chaos.fire("router.replica_kill") is not None:
+            victim = first["router"]["replica"]
+            router.drain_replica(victim)  # real POST /drain
+            servers[victim].close()       # then the hard death
+            router.poll()                 # -> ReplicaUnreachable
+        for i, prompt in enumerate((header + [9, 10, 11],
+                                    [7, 8, 9, 10])):
+            status, resp = router.dispatch({"tokens": prompt,
+                                            "max_tokens": 8})
+            if status != 200:
+                _diag(0, f"dispatch {i + 1} failed after the replica "
+                         f"death: {status} {resp}")
+            records.append((f"req{i + 1}", tuple(resp["tokens"]),
+                            resp["finish_reason"]))
+        down = sorted(n for n, s in router.replica_status().items()
+                      if s["status"] != "ready")
+        if _chaos.active():
+            if not down:
+                _diag(0, "the kill was injected but every replica "
+                         "still reads ready")
+            print(f"[hvd-route] failed over from {down} to the "
+                  f"surviving replica", flush=True)
+        _result(0, records)
+    finally:
+        for srv in servers.values():
+            try:
+                srv.close()
+            except Exception:  # noqa: BLE001 — the victim is already
+                pass           # closed on the faulted pass
+
+
+def _restart_engine(device: Optional[str], **kw):
+    """``router_restart``'s replica: the reference's wider toy model (d 64,
+    d_ff 256, 256 positions), so that a 220-token generation is a long
+    request beside the first one.  ``kw`` goes to the engine."""
+    import torch
+
+    from ..models.transformer import TransformerConfig, init_transformer
+    from ..serving.engine import InferenceEngine
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_heads=2,
+                            n_layers=2, d_ff=256, max_seq_len=256)
+    params = init_transformer(torch.Generator().manual_seed(5), cfg,
+                              device=_device(device))
+    return InferenceEngine(params, cfg, device=_device(device), max_slots=2,
+                           page_size=8, capacity=256, **kw)
+
+
+def _await_admission(servers, severed, deadline_s: float = 60.0) -> None:
+    """Until a replica's ``/healthz`` shows a request in a decode slot (the
+    long request, admitted and generating): the kill must land
+    mid-generation, and on a fast device a fixed sleep can outlast the
+    whole generation."""
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        for srv in servers:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv.port}/healthz",
+                        timeout=5.0) as resp:
+                    health = json.loads(resp.read())
+            except (urllib.error.URLError, OSError, ValueError):
+                continue
+            if health.get("serving", {}).get("batch_occupancy", 0) > 0:
+                return
+        if severed:
+            _diag(0, f"the long request ended before any replica showed "
+                     f"it admitted: {severed}")
+        time.sleep(0.002)
+    _diag(0, "no replica admitted the long request")
+
+
+def scenario_router_restart(device: Optional[str] = None) -> None:
+    """The real RouterServer runs in a separate process over two real
+    in-process replicas; the faulted pass SIGKILLs it mid-generation.  The
+    replicas must abort the severed connections via the client probe (no
+    slot leak), a fresh router over the same fleet serves the resubmitted
+    request, and the digested completions are identical to the
+    never-killed run (the serving bitwise contract makes the retry the
+    same answer)."""
+    import signal
+    import urllib.request
+
+    from .. import chaos as _chaos
+    from ..serving.server import LMServer
+    from ..telemetry import exporter as _exporter
+
+    def replica():
+        return LMServer(_restart_engine(device), port=0,
+                        routes=_exporter.RouteRegistry()).start()
+
+    servers = [replica(), replica()]
+
+    def boot_router():
+        port = _free_port()
+        env = dict(os.environ)
+        env.pop("HVD_TPU_FAULTS", None)  # the router child is plain
+        env["HVD_TPU_CHAOS_REPLICAS"] = ",".join(
+            str(s.port) for s in servers)
+        env["HVD_TPU_CHAOS_ROUTER_PORT"] = str(port)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.chaos",
+             "--scenario", "router_restart_node"],
+            env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                _diag(0, f"router child exited {proc.returncode} "
+                         f"before becoming healthy")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz",
+                        timeout=2.0) as resp:
+                    if resp.status == 200:
+                        return proc, port
+            except Exception:  # noqa: BLE001 — still booting
+                time.sleep(0.1)
+        proc.kill()
+        _diag(0, "router child never became healthy")
+
+    proc, port = boot_router()
+    try:
+        records = []
+        r0 = _post_generate(port, {"tokens": [5, 6, 7],
+                                   "max_tokens": 8})
+        records.append(("req0", tuple(r0["tokens"]),
+                        r0["finish_reason"]))
+        long_payload = {"tokens": [11, 12, 13, 14], "max_tokens": 220}
+        if _chaos.fire("router.kill") is not None:
+            severed: Dict[str, object] = {}
+
+            def fire_and_forget() -> None:
+                try:
+                    severed["resp"] = _post_generate(
+                        port, long_payload, timeout=120.0)
+                except Exception as e:  # noqa: BLE001 — the router
+                    severed["error"] = str(e)  # we kill takes it down
+            th = threading.Thread(target=fire_and_forget, daemon=True)
+            th.start()
+            _await_admission(servers, severed)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            th.join(timeout=30.0)
+            proc, port = boot_router()
+            aborted = 0
+            deadline = time.monotonic() + 45.0
+            while time.monotonic() < deadline:
+                aborted = _disconnects()
+                if aborted >= 1:
+                    break
+                time.sleep(0.2)
+            if aborted < 1:
+                _diag(0, f"router killed mid-generation but no "
+                         f"replica aborted the orphaned request "
+                         f"(client_disconnects={aborted}; severed "
+                         f"reply: {severed})")
+            print(f"[hvd-route] replica aborted the severed router "
+                  f"connection (client_disconnects={aborted}); "
+                  f"resubmitting through the restarted router",
+                  flush=True)
+        rl = _post_generate(port, long_payload, timeout=120.0)
+        records.append(("long", tuple(rl["tokens"]),
+                        rl["finish_reason"]))
+        r2 = _post_generate(port, {"tokens": [9, 10, 11],
+                                   "max_tokens": 8})
+        records.append(("req2", tuple(r2["tokens"]),
+                        r2["finish_reason"]))
+        _result(0, records)
+    finally:
+        proc.kill()
+        proc.wait()
+        for srv in servers:
+            srv.close()
+
+
+def _router_restart_node(device: Optional[str] = None) -> None:
+    """(child helper, no matrix row) The router process of
+    ``router_restart``: the real RouterServer over HTTP clients to the
+    parent scenario's replicas; the parent SIGKILLs it mid-generation on
+    the faulted pass.  It runs no tensor work (``device`` is unused)."""
+    from ..routing import Router, RouterConfig, RouterServer
+    from ..routing.replica import HttpReplicaClient
+
+    ports = [int(p) for p in
+             os.environ["HVD_TPU_CHAOS_REPLICAS"].split(",")]
+    router = Router(RouterConfig(probe_base=0.01))
+    for i, port in enumerate(ports):
+        router.add_replica(f"r{i}",
+                           HttpReplicaClient("127.0.0.1", port))
+    RouterServer(
+        router, port=int(os.environ["HVD_TPU_CHAOS_ROUTER_PORT"]),
+        poll_interval=0.2).start()
+    while True:  # serve until the parent kills us
+        time.sleep(60.0)
+
+
 LOCAL_SCENARIOS = {
     "ckpt_flaky": lambda device=None: scenario_ckpt(False, device),
     "ckpt_exhaustion": lambda device=None: scenario_ckpt(True, device),
@@ -699,6 +953,9 @@ LOCAL_SCENARIOS = {
     "serving_disconnect": scenario_serving_disconnect,
     "serving_spec_disconnect": scenario_serving_spec_disconnect,
     "serving_storm": scenario_serving_storm,
+    "router_replica_death": scenario_router_replica_death,
+    "router_restart": scenario_router_restart,
+    "router_restart_node": _router_restart_node,
 }
 
 
@@ -906,8 +1163,7 @@ def run_matrix(only: Optional[List[str]] = None, verbose: bool = False,
     """Run the matrix (or ``only``'s scenarios) and print one JSON report;
     ``jobs`` scenarios run at a time.  Returns 1 if any failed."""
     todo = [find(n) for n in only] if only else SCENARIOS
-    print(f"hvd-chaos matrix: {len(todo)} scenario(s) on {device}; "
-          f"waiting for later steps: {', '.join(sorted(WAITING))}",
+    print(f"hvd-chaos matrix: {len(todo)} scenario(s) on {device}",
           flush=True)
     for s in todo:
         dev = fleet_device(s, device)
@@ -916,9 +1172,14 @@ def run_matrix(only: Optional[List[str]] = None, verbose: bool = False,
               + (f" (a fleet of {s.np} ranks needs {s.np} cards: on "
                  f"{dev})" if dev != device else ""), flush=True)
     with ThreadPoolExecutor(max_workers=max(1, jobs)) as pool:
-        reports = list(pool.map(
-            lambda s: run_scenario(s, verbose=verbose, device=device),
-            todo))
+        # The matrix ends with its last scenario: start those with the
+        # longest caps (the local serving and router ones) first; the
+        # report keeps the matrix's order.
+        futures = {i: pool.submit(run_scenario, s, verbose=verbose,
+                                  device=device)
+                   for i, s in sorted(enumerate(todo),
+                                      key=lambda t: -t[1].cap)}
+        reports = [futures[i].result() for i in range(len(todo))]
     failed = [r for r in reports if r.get("status") != "PASS"]
     print(json.dumps({"scenarios": reports,
                       "passed": len(reports) - len(failed),

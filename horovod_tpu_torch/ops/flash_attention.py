@@ -30,6 +30,7 @@ rows with no visible key give ``o = 0``, ``lse = -inf``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -40,6 +41,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 launches = {name: 0 for name in KERNELS}
+# Threads may launch at once (the autograd engine's, a serve loop's): a
+# count's read-modify-write holds this leaf lock, so no launch is lost.
+_counts_lock = threading.Lock()
 
 # dtype codes of csrc/flash_common.cuh, and the head dims it is built for.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,8 +51,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
+    with _counts_lock:
+        for name in KERNELS:
+            launches[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +182,8 @@ def _stream(t) -> int:
 def _check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    with _counts_lock:
+        launches[name] += 1
 
 
 def flash_fwd(q, k, v, sm_scale: float, causal: bool, q_block_offset: int):

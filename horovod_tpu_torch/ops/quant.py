@@ -29,6 +29,7 @@ launches beside ``launches["quant_pack"]``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -40,6 +41,9 @@ KERNELS = ("quant_pack", "unpack_dequantize")
 launches = {name: 0 for name in KERNELS}
 FORMS = ("one_pass", "first")
 form_launches = {form: 0 for form in FORMS}
+# Threads may launch at once (the executor's, a caller's inline cycle): a
+# count's read-modify-write holds this leaf lock, so no launch is lost.
+_counts_lock = threading.Lock()
 ONE_PASS_BLOCKS = (64, 128, 256, 512, 1024)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -56,10 +60,11 @@ _entry_points: dict = {}
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
-    for form in FORMS:
-        form_launches[form] = 0
+    with _counts_lock:
+        for name in KERNELS:
+            launches[name] = 0
+        for form in FORMS:
+            form_launches[form] = 0
 
 
 def _entry(symbol: str):
@@ -88,7 +93,8 @@ def _uses_plain(*tensors) -> bool:
 def _check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    with _counts_lock:
+        launches[name] += 1
 
 
 def _check_shape(C: int, fmt: _c.WireFormat) -> None:
@@ -190,7 +196,8 @@ def quant_pack(rows: torch.Tensor, fmt: _c.WireFormat, key,
                  int(fmt.stochastic), int(k0), int(k1), *store_arg,
                  torch.cuda.current_stream(rows.device).cuda_stream)
     _check("quant_pack", err)
-    form_launches[form] += 1
+    with _counts_lock:
+        form_launches[form] += 1
     return wire
 
 

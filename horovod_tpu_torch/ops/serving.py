@@ -30,7 +30,8 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 on the current stream or raises.  Each launch adds one to
 ``launches[<kernel>]`` and to ``launches_by_form[(<kernel>, <form>)]``
 (a split-K product is one kernel too: its K ranges are the blocks of one
-cluster, which add their partial sums among themselves).  The plain versions are row-invariant on the CPU too: every
+cluster, which add their partial sums among themselves), under a lock:
+several engines' threads launch at once.  The plain versions are row-invariant on the CPU too: every
 product is a loop of fixed ``[16, K] @ [K, N]`` blocks (the last padded
 with zero rows), and the attention runs one (batch, head) and 16 query
 rows at a time, so each row meets the same library call whatever the
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -53,6 +55,10 @@ KERNELS = ("serving_gemm", "cache_attention")
 FORMS = ("sm90", "first")
 launches = {name: 0 for name in KERNELS}
 launches_by_form = {(name, form): 0 for name in KERNELS for form in FORMS}
+# Several engines' serve loops launch at once in one process (a router's
+# replicas): each count's read-modify-write holds this lock, so no launch
+# is lost.  A leaf lock, held for two additions.
+_counts_lock = threading.Lock()
 
 # Rows a block of the plain product (and of the kernel's tile).
 BLOCK_ROWS = 16
@@ -74,10 +80,11 @@ _entry_points: dict = {}
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
-    for key in launches_by_form:
-        launches_by_form[key] = 0
+    with _counts_lock:
+        for name in KERNELS:
+            launches[name] = 0
+        for key in launches_by_form:
+            launches_by_form[key] = 0
 
 
 def _entry(symbol: str):
@@ -116,8 +123,9 @@ def _check(name: str, form: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} ({form} form) kernel launch failed: "
                            f"cudaError_t {err}")
-    launches[name] += 1
-    launches_by_form[(name, form)] += 1
+    with _counts_lock:
+        launches[name] += 1
+        launches_by_form[(name, form)] += 1
 
 
 # ---------------------------------------------------------------------------

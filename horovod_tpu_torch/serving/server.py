@@ -388,9 +388,9 @@ class LMServer:
         """Boot or scale-up: install a drained export (the requests
         resubmit, the prefix chains ghost-seed the cache) and reopen
         admission; a replica drained NOT_READY warm-starts back to ready
-        (reference :384-412).  A payload of prefixes alone seeds them
-        without the wholesale drain, so a live replica's work survives
-        the gift."""
+        (reference :384-412).  A payload of prefixes alone (or none)
+        seeds them without the wholesale drain, so a live replica's work
+        survives the gift, and reopens a drained replica's admission."""
         from .. import elastic as _elastic
 
         try:
@@ -403,6 +403,12 @@ class LMServer:
         if isinstance(payload, dict) and not payload.get("requests"):
             if payload.get("prefixes"):
                 self.engine.seed_prefixes(payload["prefixes"])
+            # A drained replica reopens admission here too (an empty
+            # import does only that; a live one is untouched).  The
+            # reference's prefix-only branch leaves a drained replica
+            # ready but refusing every request with 503 (ROADMAP.md
+            # §C.3), which a router would then mark draining again.
+            self.engine.import_requests([])
             installed = []
         else:
             installed = _elastic.serving_install_payload(self.engine,

@@ -366,7 +366,10 @@ def test_every_site_is_a_port_scenario_or_waits_with_its_step():
                       "input.stall", "serving.disconnect",
                       "transport.drop", "transport.dup", "transport.delay",
                       "transport.trunc", "transport.reset",
-                      "transport.stall", "tree.relay_reset"}
+                      "transport.stall", "tree.relay_reset",
+                      "router.replica_kill", "router.kill"}
+    # Every site of the grammar is hosted by a scenario of the matrix.
+    assert hosted == set(chaos_spec.VALID_SITES)
     from horovod_tpu.chaos import matrix as ref_matrix
 
     ref = {s.name: s for s in ref_matrix.SCENARIOS}
@@ -388,11 +391,10 @@ def test_every_site_is_a_port_scenario_or_waits_with_its_step():
         assert waiting or site.startswith("router."), site
         for n in waiting:
             assert "§A.5 item" in matrix.WAITING[n], n
-    # The TCP channel's and tuning's scenarios all left WAITING; what
-    # waits is the router's.
-    assert set(matrix.WAITING) == {"router_replica_death",
-                                   "router_restart"}
-    assert len(matrix.SCENARIOS) == 19
+    # The router's scenarios were the last to leave WAITING: nothing
+    # waits, and the matrix is the reference's 21.
+    assert matrix.WAITING == {}
+    assert len(matrix.SCENARIOS) == 21 == len(ref)
 
 
 def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
@@ -404,8 +406,11 @@ def test_list_names_the_waiting_scenarios_with_their_steps(capsys):
         assert f"{name:26s} waits for {step}" in out
     for s in matrix.SCENARIOS:
         assert s.name in out
-    with pytest.raises(SystemExit, match="waits for"):
-        matrix.find("router_restart")
+    assert "waits for" not in out
+    assert matrix.find("router_restart").kind == "local"
+    assert matrix.find("router_replica_death").kind == "local"
+    with pytest.raises(SystemExit, match="unknown chaos scenario"):
+        matrix.find("router_restart_node")  # a child helper, no row
     assert matrix.find("retune_midfault").kind == "cp"
     assert matrix.find("grace_expiry").kind == "cp"
 

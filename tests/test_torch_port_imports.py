@@ -76,7 +76,12 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.utils.serialization",
             "horovod_tpu_torch.utils.checkpoint",
             "horovod_tpu_torch.ops.serving",
+            "horovod_tpu_torch.routing",
             "horovod_tpu_torch.routing.affinity",
+            "horovod_tpu_torch.routing.replica",
+            "horovod_tpu_torch.routing.router",
+            "horovod_tpu_torch.routing.autoscale",
+            "horovod_tpu_torch.routing.server",
             "horovod_tpu_torch.telemetry",
             "horovod_tpu_torch.telemetry.registry",
             "horovod_tpu_torch.telemetry.exporter",
