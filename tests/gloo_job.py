@@ -159,14 +159,19 @@ def unflat(out, prefix):
 class GlooJob:
     """``n`` worker processes running ``PRELUDE + code`` on ``data``."""
 
-    def __init__(self, tmp, code, n, data, timeout=240):
+    def __init__(self, tmp, code, n, data, timeout=240, env=None,
+                 head=""):
+        """``env`` is added to the workers' environment; ``head`` is code
+        that runs before the prelude (a module blocked in
+        ``sys.modules``)."""
         self.tmp, self.n, self.timeout = tmp, n, timeout
         data_path = tmp / "data.npz"
         np.savez(data_path, **data)
         script = tmp / "worker.py"
-        script.write_text(PRELUDE + textwrap.dedent(code))
+        script.write_text(textwrap.dedent(head) + PRELUDE
+                          + textwrap.dedent(code))
         env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", "")}
+               + os.environ.get("PYTHONPATH", ""), **(env or {})}
         for k in ("RANK", "WORLD_SIZE", "HVD_TPU_FUSE",
                   "HVD_TPU_FUSE_CHUNKS"):
             env.pop(k, None)

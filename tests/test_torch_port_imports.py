@@ -97,7 +97,38 @@ def test_every_module_imports_with_jax_and_horovod_tpu_blocked():
             "horovod_tpu_torch.tuning.sensors",
             "horovod_tpu_torch.tuning.actuation",
             "horovod_tpu_torch.tuning.controller",
-            "horovod_tpu_torch.utils.autotune"} <= set(names)
+            "horovod_tpu_torch.utils.autotune",
+            "horovod_tpu_torch.frontends.keras",
+            "horovod_tpu_torch.frontends.tensorflow",
+            "horovod_tpu_torch.examples.keras_mnist"} <= set(names)
+
+
+FRONTENDS = ("horovod_tpu_torch.frontends.keras",
+             "horovod_tpu_torch.frontends.tensorflow",
+             "horovod_tpu_torch.examples.keras_mnist")
+
+
+def test_the_keras_and_tensorflow_frontends_import_neither_framework():
+    """Both frameworks are imported inside the functions that use them;
+    importing the frontends leaves KERAS_BACKEND as the caller set it."""
+    code = ("import importlib, os, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for name in {FRONTENDS!r}:\n"
+            "    importlib.import_module(name)\n"
+            "loaded = [m for m in sys.modules if m.split('.')[0] in "
+            "('keras', 'tensorflow', 'tf_keras')]\n"
+            "assert not loaded, loaded[:5]\n"
+            "print('BACKEND', os.environ.get('KERAS_BACKEND'))\n")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    env.pop("KERAS_BACKEND", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "BACKEND torch" in out.stdout, out.stderr
+    env["KERAS_BACKEND"] = "jax"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "BACKEND jax" in out.stdout, out.stderr
 
 
 def _imported_roots(tree):

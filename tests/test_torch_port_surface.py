@@ -132,3 +132,86 @@ def test_set_spec_tokens_and_the_prefix_target_wait_for_the_next_step():
     assert port.spec_tokens == 3 and port.cache._prefix_target is None
     assert port.step() is False  # an idle iteration adopts them
     assert port.spec_tokens == 2 and port.cache._prefix_target == 4
+
+
+# ---------------------------------------------------------------------------
+# The keras and tensorflow frontends (ROADMAP.md §A.5 item 7)
+# ---------------------------------------------------------------------------
+
+def _frontend_pairs():
+    import horovod_tpu.frontends.keras as ref_keras
+    import horovod_tpu.frontends.tensorflow as ref_tf
+    import horovod_tpu_torch.frontends.keras as port_keras
+    import horovod_tpu_torch.frontends.tensorflow as port_tf
+
+    return {"keras": (ref_keras, port_keras), "tensorflow": (ref_tf, port_tf)}
+
+
+def _public(module):
+    """The module's own public names: what it defines or re-exports from
+    its package, not the modules and typing helpers it imports."""
+    import types
+
+    return sorted(
+        n for n, v in vars(module).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)
+        and getattr(v, "__module__", "").split(".")[0] == "horovod_tpu")
+
+
+# Public names of the reference frontends the port leaves out, with the
+# reason: none.
+FRONTEND_NO_COUNTERPART = {"keras": {}, "tensorflow": {}}
+
+# Bound names whose port differs from the reference's, with the reason
+# (ROADMAP.md §C.3).
+FRONTEND_DIFFERENCES = {
+    "keras.callbacks.LearningRateScheduleCallback": (
+        "the reference's rule as it stands: only Keras on JAX drops a "
+        "per-batch ramp to epoch steps, so on torch the ramp runs per "
+        "batch; and the momentum correction reaches torch's eager step "
+        "where the reference's jitted JAX step never sees it"),
+    "tensorflow.allreduce": (
+        "float64 stays float64 on the wire (the reference rounds it to "
+        "float32, x64 being off there); bfloat16 crosses by its bits"),
+    "tensorflow.grouped_allreduce": (
+        "a batch enqueues as one group (one cycle's batch): one fused "
+        "response by construction, where the reference's fusion follows "
+        "its tick"),
+}
+
+
+@pytest.mark.parametrize("frontend,name", [
+    (f, n) for f in ("keras", "tensorflow")
+    for n in _public(_frontend_pairs()[f][0])
+    if n not in FRONTEND_NO_COUNTERPART[f]])
+def test_port_frontend_binds_the_references_name(frontend, name):
+    ref, port = _frontend_pairs()[frontend]
+    assert hasattr(port, name), f"{port.__name__} lacks {name}"
+    value = getattr(port, name)
+    module = getattr(value, "__module__", "") or ""
+    assert module.split(".")[0] == "horovod_tpu_torch", (name, module)
+
+
+def test_frontend_public_names_are_many_and_the_exclusions_hold():
+    for frontend, (ref, port) in _frontend_pairs().items():
+        names = _public(ref)
+        assert len(names) >= 25, (frontend, names)
+        for name in FRONTEND_NO_COUNTERPART[frontend]:
+            assert name in names and not hasattr(port, name)
+    for key in FRONTEND_DIFFERENCES:
+        frontend, name = key.split(".", 1)
+        assert hasattr(_frontend_pairs()[frontend][1], name.split(".")[0])
+
+
+@pytest.mark.parametrize("frontend", ["keras", "tensorflow"])
+def test_frontend_object_collectives_are_the_ports(frontend):
+    """≙ tests/test_objects.py:26-33 for the port's frontends."""
+    from horovod_tpu_torch.ops import objects as port_objects
+
+    ref, port = _frontend_pairs()[frontend]
+    assert port.allgather_object is port_objects.allgather_object
+    assert port.broadcast_object is port_objects.broadcast_object
+    assert port.allgather_object is port_hvd.allgather_object
+    assert port.broadcast_object is port_hvd.broadcast_object
+    assert port.init is port_hvd.init and port.Sum is port_hvd.Sum
+    assert port.Compression is port_hvd.Compression
