@@ -491,7 +491,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
              bench.py's recipe (ResNet-50, space-to-depth stem, 224 px,
              batch 128, bf16, SGD(0.1, 0.9)), 3 warm-up and 20 timed
              steps, images/s, TFLOP/s and one profiled step (idle share,
-             top kernels).
+             top kernels); then ResNet-50 overlapped: the same recipe
+             through make_train_step_with_state under overlap off,
+             serial and on (deterministic cuDNN), 3 steps bitwise across
+             the three, one response a bucket and no cache miss after
+             the first step, no flash launch, everything on the card;
+             step ms in turns (2 warm-up and 5 timed steps a turn),
+             buckets a step, exposed communication and the leg's
+             seconds (resnet_overlap_leg).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -7978,6 +7985,156 @@ def expected_lr_sequence(base_lr, size, epochs, steps, momentum=0.9):
     return out
 
 
+# resnet phase, the overlapped leg: schedules timed in turns, warm-up and
+# timed steps a turn.
+RESNET_OVERLAP_TURNS = ("off", "serial", "on", "on", "serial", "off")
+RESNET_OVERLAP_WARMUP, RESNET_OVERLAP_STEPS = 2, 5
+
+
+def resnet_overlap_leg(hvd, R, smi_line, device="cuda", model=None,
+                       image_size=224, batch=128):
+    """ResNet-50 overlapped: bench.py's recipe (space-to-depth stem, 224
+    px, batch 128, bf16 compute, SGD(0.1, momentum 0.9)) through
+    make_train_step_with_state with overlap off, serial and on, from the
+    same weights and batch, cuDNN's deterministic algorithms.  Held: 3
+    steps bitwise across the three schedules (losses, parameters, BN
+    statistics); one fused response a bucket plus the loss's and no cache
+    miss after the first step; every tensor on the device; no flash
+    launch (ResNet runs none of the port's kernels).  Logged: step ms in
+    turns, buckets a step, overlap.exposed_comm_seconds a step and the
+    leg's seconds.  One rank moves no byte on the wire: no gain is
+    claimed.  ``device``, ``model``, ``image_size`` and ``batch`` let a
+    CPU rehearsal run it small."""
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    t_leg = time.perf_counter()
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    model = model or R.ResNet50(num_classes=1000, space_to_depth=True)
+    params0, stats0 = R.init_resnet(model, seed=0, device=device)
+    images, labels = R.synthetic_imagenet(batch, image_size=image_size,
+                                          num_classes=1000)
+    data = hvd.shard_batch((images, labels))
+    loss_fn = R.resnet_loss_fn(model)
+
+    def build(mode):
+        params = tree_map(lambda x: x.detach().clone().requires_grad_(),
+                          params0)
+        stats = tree_map(lambda x: x.clone(), stats0)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            tree_leaves(params), lr=0.1, momentum=0.9))
+        return params, stats, hvd.make_train_step_with_state(
+            loss_fn, opt, overlap=mode)
+
+    def responses_ok(mode, step, st, steps):
+        """One fused response a bucket and the loss's a step, all from
+        the cache; the monolithic step negotiates the loss alone."""
+        buckets = step.bucket_count if mode != "off" else 0
+        if mode != "off" and not step.overlap_active:
+            raise AssertionError(f"resnet overlap {mode}: fell back "
+                                 f"({step._fallback_reason})")
+        if st["responses"] != steps * (buckets + 1) or \
+                st["cache_misses"] != 0:
+            raise AssertionError(f"resnet overlap {mode}: {st} over "
+                                 f"{steps} steps for {buckets} buckets")
+        return buckets
+
+    cudnn = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    fa.reset_launches()
+    try:
+        # 1. Bitwise: 3 steps of each schedule from the same start.
+        runs = {}
+        for mode in ("off", "serial", "on"):
+            params, stats, step = build(mode)
+            losses = []
+            for i in range(3):
+                stats, loss = step(params, stats, data)
+                losses.append(loss)
+                if i == 0:
+                    C.reset_stats()
+            buckets = responses_ok(mode, step, C.stats(), 2)
+            leaves = tree_leaves([params, stats]) + losses
+            if any(x.device.type != device for x in leaves):
+                raise AssertionError(f"resnet overlap {mode}: a tensor is "
+                                     f"not on {device}")
+            runs[mode] = ([float(x) for x in losses],
+                          [x.detach().clone() for x in leaves[:-3]],
+                          buckets)
+            del params, stats, step, leaves
+        off = runs["off"]
+        for mode in ("serial", "on"):
+            got = runs[mode]
+            if got[0] != off[0] or not all(
+                    torch.equal(a, b) for a, b in zip(got[1], off[1])):
+                raise AssertionError(
+                    f"resnet overlap {mode} differs from off: "
+                    f"{ {m: r[0] for m, r in runs.items()} }")
+        if not all(np.isfinite(off[0])) or not off[0][-1] < off[0][0]:
+            raise AssertionError(f"resnet overlap losses: {off[0]}")
+        losses, buckets = off[0], runs["on"][2]
+        del runs, off, got
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 2. Timed in turns.
+        timed = {mode: [] for mode in ("off", "serial", "on")}
+        for mode in RESNET_OVERLAP_TURNS:
+            params, stats, step = build(mode)
+            for _ in range(RESNET_OVERLAP_WARMUP):
+                stats, loss = step(params, stats, data)
+            sync()
+            C.reset_stats()
+            before = step.stats() if mode != "off" else None
+            t0 = time.perf_counter()
+            for _ in range(RESNET_OVERLAP_STEPS):
+                stats, loss = step(params, stats, data)
+            sync()
+            seconds = time.perf_counter() - t0
+            row = {"step_ms": seconds / RESNET_OVERLAP_STEPS * 1e3,
+                   "buckets_per_step": responses_ok(
+                       mode, step, C.stats(), RESNET_OVERLAP_STEPS)}
+            if mode != "off":
+                ex0 = before["overlap.exposed_comm_seconds"]
+                ex1 = step.stats()["overlap.exposed_comm_seconds"]
+                row["exposed_comm_ms_per_step"] = (
+                    (ex1["sum"] - ex0["sum"]) / RESNET_OVERLAP_STEPS * 1e3)
+            timed[mode].append(row)
+            del params, stats, step, loss
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = cudnn
+    flash = dict(fa.launches)
+    if any(flash.values()):
+        raise AssertionError(f"resnet overlap: flash kernels launched: "
+                             f"{flash}")
+    out = {"phase": "resnet_overlap",
+           "check": "ResNet-50 space-to-depth, 224 px, batch 128, bf16, "
+                    "3 steps: off == serial == on bitwise (losses, "
+                    "parameters, BN statistics), one response a bucket "
+                    "and the loss's, no cache miss after step 1",
+           "losses": losses, "buckets_per_step": buckets,
+           "flash_launches": flash, "cudnn": "deterministic",
+           "turns": list(RESNET_OVERLAP_TURNS),
+           "warmup": RESNET_OVERLAP_WARMUP,
+           "timed_steps": RESNET_OVERLAP_STEPS, **timed,
+           **{f"{m}_mean_step_ms": float(np.mean(
+               [r["step_ms"] for r in rows])) for m, rows in timed.items()},
+           "seconds": time.perf_counter() - t_leg, "device": smi_line}
+    log(out)
+    return out
+
+
 def phase_resnet(smi_line, out_dir):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import callbacks
@@ -8083,6 +8240,9 @@ def phase_resnet(smi_line, out_dir):
          "step_ms": (time.perf_counter() - t0) * 1e3, "device": smi_line})
     prof = profile_step(run["one_step"], out_dir, "resnet")
     log({"phase": "resnet_profile", "device": smi_line, **prof})
+    del run
+    torch.cuda.empty_cache()
+    resnet_overlap_leg(hvd, R, smi_line)
     hvd.shutdown()
 
 

@@ -328,6 +328,25 @@ def _free_port() -> int:
     return port
 
 
+# A cp fleet's ranks join the TCPStore their parent hosts as clients, as
+# torchrun's workers join their agent's (torch.distributed.rendezvous):
+# every rank, rank 0 included, connects to MASTER_PORT and none binds it.
+AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "TORCHELASTIC_RESTART_COUNT": "0"}
+
+
+def rendezvous_store():
+    """The TCPStore of one cp fleet pass, served by this process on a port
+    the OS picks at bind (``store.port``).  The port stays bound from its
+    choice to the fleet's end: a port picked, released and bound later
+    by the fleet's rank 0 could be taken meanwhile by any other process
+    of the machine, and the fleet's ranks would then hang on that
+    process's listener (its rendezvous retries for 30 minutes)."""
+    from torch.distributed import TCPStore
+
+    return TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+
+
 def _device(name: Optional[str]):
     import torch
 
@@ -1031,11 +1050,12 @@ def _run_pass(s: Scenario, faulted: bool, device: str) -> PassResult:
             env=_child_env(s, faulted, {"HVD_TPU_RANK": "0"}),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)]
     else:
-        port = _free_port()
+        store = rendezvous_store()
         procs = [subprocess.Popen(
             cmd + ["--node", str(rank), "--np", str(s.np),
-                   "--port", str(port), "--scenario", s.name],
-            env=_child_env(s, faulted, {"HVD_TPU_RANK": str(rank)}),
+                   "--port", str(store.port), "--scenario", s.name],
+            env=_child_env(s, faulted, {"HVD_TPU_RANK": str(rank),
+                                        **AGENT_STORE_ENV}),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
             for rank in range(s.np)]
     deadline = t0 + s.cap

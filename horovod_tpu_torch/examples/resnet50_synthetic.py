@@ -11,7 +11,8 @@ examples/resnet50_synthetic.py, checkpoint resume included.
 
     # bench.py's recipe (ResNet-50 with the space-to-depth stem, 224 px,
     # batch 128 per GPU, SGD(0.1, momentum 0.9), one fixed batch, warm-up
-    # then timed steps), one images/sec JSON line:
+    # then timed steps), one images/sec JSON line; --overlap on|serial|off
+    # picks the step's schedule (default HVD_TPU_OVERLAP):
     python -m horovod_tpu_torch.examples.resnet50_synthetic --bench
 
     # several GPUs: one process per GPU under a launcher that sets RANK,
@@ -36,6 +37,7 @@ import json
 import os
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -125,11 +127,14 @@ def fit(full: bool = False, epochs: int = 3, device=None, seed: int = 0,
 
 def bench(batch: int = 128, image_size: int = 224, warmup: int = 3,
           iters: int = 20, space_to_depth: bool = True, device=None,
-          seed: int = 0, num_classes: int = 1000) -> dict:
+          seed: int = 0, num_classes: int = 1000,
+          overlap: Optional[str] = None) -> dict:
     """bench.py's recipe (bench.py:121-190): ResNet-50, ``batch`` images
     per rank, SGD(0.1, momentum 0.9), one fixed synthetic batch,
     ``warmup`` steps, then ``iters`` timed steps ended by a device
-    synchronise.  cuDNN picks its convolution algorithms by timing them
+    synchronise, through ``make_train_step_with_state(...,
+    overlap=overlap)`` (default ``HVD_TPU_OVERLAP``, as bench.py's step
+    reads it).  cuDNN picks its convolution algorithms by timing them
     on the first step (fixed shapes), as XLA's autotuner does for the
     reference."""
     hvd.init(device=device)
@@ -142,7 +147,8 @@ def bench(batch: int = 128, image_size: int = 224, warmup: int = 3,
     leaves = hvd.tree_leaves(params)
     opt = hvd.DistributedOptimizer(torch.optim.SGD(leaves, lr=0.1,
                                                    momentum=0.9))
-    step = hvd.make_train_step_with_state(R.resnet_loss_fn(model), opt)
+    step = hvd.make_train_step_with_state(R.resnet_loss_fn(model), opt,
+                                          overlap=overlap)
     images, labels = R.synthetic_imagenet(batch * hvd.size(),
                                           image_size=image_size,
                                           num_classes=num_classes)
@@ -162,7 +168,8 @@ def bench(batch: int = 128, image_size: int = 224, warmup: int = 3,
     run.update(losses=[float(x) for x in losses], timed_seconds=elapsed,
                images_per_sec=batch * iters / elapsed,
                step_ms=elapsed / iters * 1e3,
-               n_params=sum(p.numel() for p in leaves), one_step=one_step)
+               n_params=sum(p.numel() for p in leaves), one_step=one_step,
+               step=step)
     return run
 
 
@@ -183,6 +190,10 @@ def main() -> None:
     ap.add_argument("--no-space-to-depth", dest="space_to_depth",
                     action="store_false",
                     help="--bench: the 7x7/s2 stem instead")
+    ap.add_argument("--overlap", choices=("off", "serial", "on"),
+                    default=None,
+                    help="--bench: the step's schedule (default "
+                         "HVD_TPU_OVERLAP)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--ckpt", default=CKPT,
                     help="the checkpoint to resume from and save to "
@@ -192,7 +203,7 @@ def main() -> None:
     if args.bench:
         run = bench(batch=args.batch, image_size=args.image_size,
                     iters=args.steps, space_to_depth=args.space_to_depth,
-                    device=args.device)
+                    device=args.device, overlap=args.overlap)
         dev = hvd.device()
         out = {"metric": "resnet50_images_per_sec_per_chip",
                "value": run["images_per_sec"], "unit": "images/sec",
@@ -201,6 +212,7 @@ def main() -> None:
                "ranks": hvd.size(), "params": run["n_params"],
                "batch": args.batch, "image_size": args.image_size,
                "space_to_depth": args.space_to_depth,
+               "overlap": getattr(run["step"], "schedule", "off"),
                "step_ms": run["step_ms"], "losses": run["losses"]}
         if args.image_size == 224:
             out["tflops_per_chip"] = (RESNET50_TRAIN_FLOPS_PER_IMAGE

@@ -91,7 +91,9 @@ class Trainer:
                 average=average_gradients, fusion_threshold=fusion_threshold)
             make_step = (make_train_step_with_state if self._has_state
                          else make_train_step)
-            step = make_step(loss_fn, self.optimizer)
+            # The schedule follows HVD_TPU_OVERLAP, with or without a
+            # model state, as the reference's Trainer does.
+            step = self._step = make_step(loss_fn, self.optimizer)
             if self._has_state:
                 def run(batch):
                     self.model_state, loss = step(self.params,

@@ -23,7 +23,12 @@ of :mod:`..ops.collective`:
   been enqueued: on the GPU the executor's stream waits for the event
   recorded on the compute stream and reduces the bucket while the
   earlier stages' backward runs.  A plain callable loss keeps one
-  backward and streams its buckets after it.
+  backward and streams its buckets after it; so does a loss with aux
+  (``make_train_step(..., has_aux=True)``) or with model state
+  (``make_train_step_with_state``), whose aux or new BatchNorm
+  statistics are averaged after the update by the monolithic step's own
+  call (``training._average_extra``), as the reference's unsegmented
+  path does (reference :632-674).
 * **Atomic buckets** -- one bucket is one ``grouped_allreduce_async``,
   and ``Runtime.enqueue`` holds the queue's lock across all of its
   requests; the cycle takes its snapshot under that lock (the
@@ -62,14 +67,14 @@ per-name rule written for the parameters' names (``set_compression(
 rules=...)``) does not match a bucket; the default, a set override or a
 rule on the wire names applies to the whole bucket.
 
-Named fallbacks to the monolithic step (each warns once on stderr and
-counts ``overlap.fallbacks``): ``adasum`` (combines the whole gradient),
-``sparse`` (a sparse gradient's payload is negotiated per step),
-``grad-tree`` (the optimizer's parameters are not the parameter tree's
-leaves in order, so a bucket's gradients cannot be placed) and
-``nonstatic-compression`` (a compressor whose context is a tensor).  The
-reference's ``mp-local-replicas`` and ``mp-mesh-order`` have no
-counterpart (the port runs one process per device), nor has its
+Named fallbacks to the monolithic step of the same kind (each warns once
+on stderr and counts ``overlap.fallbacks``): ``adasum`` (combines the
+whole gradient), ``sparse`` (a sparse gradient's payload is negotiated
+per step), ``grad-tree`` (the optimizer's parameters are not the
+parameter tree's leaves in order, so a bucket's gradients cannot be
+placed) and ``nonstatic-compression`` (a compressor whose context is a
+tensor).  The reference's ``mp-local-replicas`` and ``mp-mesh-order``
+have no counterpart (the port runs one process per device), nor has its
 ``sub-mesh`` (the port's monolithic step reduces over the whole job).
 """
 
@@ -345,14 +350,19 @@ class _Unbucketable(Exception):
 # ---------------------------------------------------------------------------
 
 class _OverlapStep:
-    """``step(params, batch) -> loss``, the signature of the monolithic
-    step.  The plan is built on the first call and rebuilt when the
-    fusion threshold changes; an unbucketable case falls back to the
-    monolithic step for good."""
+    """The monolithic step's signature: ``step(params, batch) -> loss``,
+    ``-> (loss, aux)`` with ``has_aux``, or ``step(params, model_state,
+    batch) -> (new_state, loss)`` with ``has_state``.  The plan is built
+    on the first call and rebuilt when the fusion threshold changes; an
+    unbucketable case falls back to the monolithic step for good."""
 
     def __init__(self, loss_fn, optimizer, stream: bool,
-                 fallback_builder: Callable[[], Callable]):
+                 fallback_builder: Callable[[], Callable],
+                 finish: Callable, has_aux: bool = False,
+                 has_state: bool = False):
         self._loss_fn = loss_fn
+        self._finish = finish  # the monolithic step's own averaging
+        self._has_extra = has_aux or has_state
         self._dopt = optimizer  # the monolithic DistributedOptimizer
         self._inner = optimizer._inner
         self._red_op = _resolve_grad_op(optimizer._average, optimizer._op)
@@ -456,7 +466,8 @@ class _OverlapStep:
                 "grad-tree", "the optimizer's parameters are not the "
                 "parameter tree's leaves in order; bucket gradients could "
                 "not be placed")
-        self._segmented = segmented(self._loss_fn)
+        # A loss with aux or state keeps one backward (reference :632-636).
+        self._segmented = segmented(self._loss_fn) and not self._has_extra
         self._ctxs = []
         self._seg_specs = [[self._wire_spec(x) for x in seg]
                            for seg in self._segment_params(params)]
@@ -464,14 +475,15 @@ class _OverlapStep:
                                  self._effective_threshold())
 
     # -- execution ----------------------------------------------------------
-    def __call__(self, params, batch):
+    def __call__(self, *args):
         if self._fallback_step is not None:
-            return self._fallback_step(params, batch)
+            return self._fallback_step(*args)
+        params = args[0]
         if self._plan is None:
             try:
                 self._build(params)
             except _Unbucketable as e:
-                return self._fall_back(e.reason, str(e))(params, batch)
+                return self._fall_back(e.reason, str(e))(*args)
         thr = self._effective_threshold()
         if thr != self._plan.threshold:
             # The fusion threshold changed (set_fusion_threshold): re-cut
@@ -479,7 +491,7 @@ class _OverlapStep:
             # response cache takes as a program change (one flush, one
             # negotiation).
             self._plan = _build_plan(self._seg_specs, thr)
-        return self._run(params, batch)
+        return self._run(args)
 
     def _grads(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         """One segment's gradients, zeros for a leaf without one (as the
@@ -487,16 +499,19 @@ class _OverlapStep:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in leaves]
 
-    def _backward(self, params, batch, dispatch) -> torch.Tensor:
+    def _backward(self, args, dispatch):
         """Forward and backward; ``dispatch(k, grads)`` is called with each
         segment's gradients once its backward is enqueued, the last
-        segment first.  Returns the loss, detached."""
+        segment first.  Returns the loss, detached, and the aux or new
+        state (``None`` without)."""
+        params, batch = args[0], args[-1]
         seg_params = self._segment_params(params)
         if not self._segmented:
-            loss = self._loss_fn(params, batch)
+            out = self._loss_fn(*args)
+            loss, extra = out if self._has_extra else (out, None)
             loss.backward()
             dispatch(0, self._grads(seg_params[0]))
-            return loss.detach()
+            return loss.detach(), extra
         stages = self._loss_fn.stages
         chain = self._loss_fn._check_params(params)
         outs, ins = [], [None]
@@ -519,9 +534,10 @@ class _OverlapStep:
                       if isinstance(x, torch.Tensor) and x.requires_grad]
                 ins[k] = None
             dispatch(k, self._grads(seg_params[k]))
-        return loss
+        return loss, None
 
-    def _run(self, params, batch):
+    def _run(self, args):
+        params = args[0]
         rt = C._runtime()
         tl = rt.timeline
         plan = self._plan
@@ -544,9 +560,8 @@ class _OverlapStep:
         # soon as its backward is enqueued.
         staged = []
         stream_now = self._stream and self._probed
-        loss = self._backward(
-            params, batch,
-            send if stream_now else lambda k, g: staged.append((k, g)))
+        loss, extra = self._backward(
+            args, send if stream_now else lambda k, g: staged.append((k, g)))
         if not self._probed:
             self._probed = True
             if any(g.is_sparse for _, grads in staged for g in grads):
@@ -557,7 +572,7 @@ class _OverlapStep:
                     "negotiated-size payload the bucket planner cannot "
                     "size")
                 self._dopt.step()
-                return C.allreduce(loss, average=True, name="train.loss")
+                return self._finish(loss, extra)
         if staged:
             if not self._stream and cuda:
                 # Reduction after backward: fence the whole backward.
@@ -579,14 +594,20 @@ class _OverlapStep:
             g = comp.decompress(r, ctx)
             p.grad = g / n if average else g
         self._inner.step()
-        return C.allreduce(loss, average=True, name="train.loss")
+        return self._finish(loss, extra)
 
 
 def make_overlapped_step(loss_fn, optimizer, stream: bool,
-                         fallback_builder: Callable[[], Callable]):
+                         fallback_builder: Callable[[], Callable],
+                         finish: Callable, has_aux: bool = False,
+                         has_state: bool = False):
     """The bucketed-backward step (``parallel/training.make_train_step``
-    builds it when the schedule resolves to ``stream`` or ``serial``).
-    ``optimizer`` is the monolithic :class:`.data.DistributedOptimizer`;
-    ``fallback_builder`` builds the monolithic step for the unbucketable
-    cases."""
-    return _OverlapStep(loss_fn, optimizer, stream, fallback_builder)
+    and ``make_train_step_with_state`` build it when the schedule
+    resolves to ``stream`` or ``serial``).  ``optimizer`` is the
+    monolithic :class:`.data.DistributedOptimizer`;
+    ``fallback_builder`` builds the monolithic step of the same kind for
+    the unbucketable cases; ``finish(loss, extra)`` is that step's own
+    averaging of the loss and the aux or new state (``has_aux``,
+    ``has_state``), and makes the step's return value."""
+    return _OverlapStep(loss_fn, optimizer, stream, fallback_builder,
+                        finish, has_aux, has_state)

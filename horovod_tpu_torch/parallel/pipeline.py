@@ -75,9 +75,14 @@ leaves, ``None`` for a stage this rank does not hold), in both modes;
 batch, the same on every rank (as ``make_parallel_train_step`` takes
 it), of which a rank takes its replica's rows.  A per-stage optimizer
 equals one over the whole tree only for an elementwise optimizer, as in
-the reference's placed mode.  A rank-0 checkpoint
-(:mod:`..utils.checkpoint`) refuses a placed step's optimizers at more
-than one rank (:data:`PLACED_OPTIMIZERS`): no rank holds every stage.
+the reference's placed mode.  A placed step at more than one rank
+registers each stage's parameter leaves and optimizer with the stage's
+placement (:data:`PLACED`, :func:`placement`), so that
+:mod:`..utils.checkpoint` takes each stage's state from the lowest rank
+that holds it: every rank calls ``save_checkpoint``, rank 0 writes the
+tree a one-rank, unplaced step of the same stages would write, and a
+restore gives every rank all the parameters and each optimizer it holds
+its own stage's state.
 
 No counterpart: ``_AotProgram`` (:432; XLA's ahead-of-time compile, its
 OOM guard and donation sanitizer), ``_to_mesh``'s ``device_put``
@@ -152,11 +157,50 @@ _M_INFLIGHT_BYTES = _telemetry.gauge(
     "pipeline.inflight_activation_bytes",
     "peak stage-boundary activation bytes held live by the last schedule")
 
-# The stage optimizers of placed steps whose rank does not hold every
-# stage: a rank-0 checkpoint cannot hold such a step's state (rank 0's
-# copy of another rank's stages is stale), so utils/checkpoint.py refuses
-# them.
-PLACED_OPTIMIZERS: "weakref.WeakSet" = weakref.WeakSet()
+
+@dataclass(frozen=True)
+class StagePlacement:
+    """Where a placed step's stage lives: ``stage`` and ``owner``, the
+    lowest rank that holds it (whose copy of the stage is current)."""
+    stage: int
+    owner: int
+
+
+class _Placements:
+    """Stage placements keyed by object identity and held weakly (a
+    ``WeakKeyDictionary`` compares keys with ``==``, which is elementwise
+    for tensors)."""
+
+    def __init__(self):
+        self._d: dict = {}
+
+    def __setitem__(self, obj, where: StagePlacement) -> None:
+        key = id(obj)
+
+        def drop(ref, key=key):
+            entry = self._d.get(key)
+            if entry is not None and entry[0] is ref:
+                del self._d[key]
+
+        self._d[key] = (weakref.ref(obj, drop), where)
+
+    def get(self, obj) -> Optional[StagePlacement]:
+        entry = self._d.get(id(obj))
+        return entry[1] if entry is not None and entry[0]() is obj else None
+
+
+# The parameter leaves (every stage's, held or not) and the stage
+# optimizers of placed steps whose rank does not hold every stage, each
+# with its stage's placement: rank 0's copy of another rank's stage is
+# stale, so utils/checkpoint.py takes each stage's state from its owner.
+PLACED = _Placements()
+
+
+def placement(x) -> Optional[StagePlacement]:
+    """``x``'s stage placement when it is a parameter leaf or a stage
+    optimizer of a placed step at more than one rank, else ``None``."""
+    return PLACED.get(x)
+
 
 # The schedule plan below (_nearest_divisors through schedule_plan) is a
 # copy of the reference's jax-free code, horovod_tpu/parallel/
@@ -586,7 +630,13 @@ class _PipelineStep:
         opts = [self._optimizer_fn(tree_leaves(params[k]))
                 if k in self._replica else None for k in range(self._S)]
         if len(self._mine) < self._S:
-            PLACED_OPTIMIZERS.update(o for o in opts if o is not None)
+            for k in range(self._S):
+                where = StagePlacement(
+                    k, min(_mesh_ranks(self._stage_meshes[k])))
+                objs = [x for x in tree_leaves(params[k])
+                        if isinstance(x, torch.Tensor)]
+                for x in objs + ([opts[k]] if opts[k] is not None else []):
+                    PLACED[x] = where
         return opts
 
     def _check_opt_state(self, params, opt_state) -> list:

@@ -13,10 +13,12 @@ step (data, tensor, sequence, pipeline and expert parallelism over a
 The per-stage pipeline step, ZeRO and FSDP are :mod:`.pipeline`,
 :mod:`.zero` and :mod:`.fsdp`.
 
-``make_train_step(..., overlap=)`` (or ``HVD_TPU_OVERLAP``) selects the
-schedule: ``off`` is the monolithic step below; ``on`` and ``serial``
-build the bucketed-backward step of :mod:`.overlap`, whose gradient
-buckets ride the negotiated collectives (reference :240-290).
+``make_train_step(..., overlap=)`` and ``make_train_step_with_state(...,
+overlap=)`` (or ``HVD_TPU_OVERLAP``) select the schedule: ``off`` is the
+monolithic step below; ``on`` and ``serial`` build the bucketed-backward
+step of :mod:`.overlap`, whose gradient buckets ride the negotiated
+collectives (reference :240-290).  ``make_train_step(..., has_aux=True)``
+also returns the loss's aux, averaged over ranks.
 
 The gradients take one of two paths.  :class:`.data.DistributedOptimizer`
 reduces them after the backward pass with direct ``torch.distributed``
@@ -59,15 +61,82 @@ def _distributed(optimizer, average, fusion_threshold, op):
                                 fusion_threshold=fusion_threshold, op=op)
 
 
-def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
+def _schedule(overlap, optimizer, loss_fn) -> str:
+    """The step's schedule (:func:`.overlap.resolve_mode`).  The
+    hook-driven optimizer overlaps from its hooks already: it takes the
+    monolithic step, and an explicit ``on``/``serial`` with it is an
+    error."""
+    from . import overlap as _overlap
+
+    schedule = _overlap.resolve_mode(overlap, _state.device(),
+                                     _state.size(), loss_fn)
+    if isinstance(optimizer, _hook_optimizer()):
+        if overlap is not None and schedule != "off":
+            raise ValueError(
+                f"overlap={overlap!r} needs a DistributedOptimizer from "
+                f"parallel.data; the hook-driven optimizer reduces each "
+                f"gradient from its hook during backward already")
+        schedule = "off"
+    return schedule
+
+
+def _average_extra(tree, fusion_threshold: Optional[int] = None):
+    """A step's extra output (``has_aux``'s aux, the stateful step's new
+    BatchNorm statistics) averaged over ranks: the reference's ``pmean``,
+    as one fused allreduce a bucket (:func:`~.data.allreduce_gradients`).
+    The monolithic and the overlapped forms both call it, after the
+    update and before the loss's average."""
+    return allreduce_gradients(
+        tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x,
+                 tree),
+        average=True, fusion_threshold=fusion_threshold)
+
+
+def _make_step(loss_fn, optimizer, average, fusion_threshold, op, overlap,
+               has_aux: bool, has_state: bool):
+    """The builder behind :func:`make_train_step` and
+    :func:`make_train_step_with_state` (reference :240-290): the
+    monolithic step, or the overlapped step of the same kind, which
+    falls back to it for what it cannot bucket."""
+    from . import overlap as _overlap
+
+    optimizer = _distributed(optimizer, average, fusion_threshold, op)
+    schedule = _schedule(overlap, optimizer, loss_fn)
+
+    def finish(loss, extra):
+        if extra is not None:
+            extra = _average_extra(extra, fusion_threshold)
+        loss = C.allreduce(loss.detach(), average=True, name="train.loss")
+        if has_state:
+            return extra, loss
+        return (loss, extra) if has_aux else loss
+
+    def step(params, *rest):
+        optimizer.zero_grad(set_to_none=True)
+        out = loss_fn(params, *rest)
+        loss, extra = out if (has_aux or has_state) else (out, None)
+        loss.backward()
+        optimizer.step()  # the gradients' allreduce, then the update
+        return finish(loss, extra)
+
+    if schedule == "off":
+        return _traced(step)
+    return _traced(_overlap.make_overlapped_step(
+        loss_fn, optimizer, stream=schedule == "stream",
+        fallback_builder=lambda: step, finish=finish, has_aux=has_aux,
+        has_state=has_state))
+
+
+def make_train_step(loss_fn: Callable[..., Any], optimizer,
                     average: bool = True,
                     fusion_threshold: Optional[int] = None, op=None,
-                    overlap: Optional[str] = None):
+                    overlap: Optional[str] = None, has_aux: bool = False):
     """Build the data-parallel train step.
 
     Args:
-      loss_fn: ``loss_fn(params, batch) -> scalar`` on this rank's batch,
-        or a :class:`.overlap.ChainedLoss` (``params`` then one tree per
+      loss_fn: ``loss_fn(params, batch) -> scalar`` on this rank's batch
+        (``-> (scalar, aux)`` with ``has_aux``), or a
+        :class:`.overlap.ChainedLoss` (``params`` then one tree per
         stage), whose stages the overlapped step streams buckets out of.
       optimizer: a :class:`DistributedOptimizer`, the hook-driven
         ``frontends.torch.DistributedOptimizer``, or a
@@ -79,37 +148,19 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
         optimizer overlaps from its hooks already: it takes the
         monolithic step, and an explicit ``on``/``serial`` with it is an
         error.
+      has_aux: ``loss_fn`` returns ``(loss, aux)``, ``aux`` a tree of
+        tensors, which the step averages over ranks
+        (:func:`_average_extra`; a ``ChainedLoss`` with aux is not
+        segmented, as in the reference).
 
     Returns:
-      ``step(params, batch) -> loss``: the loss averaged over ranks, as a
-      tensor (reading it waits for the device).  The overlapped step also
-      has ``stats()``, ``bucket_count`` and ``overlap_active``.
+      ``step(params, batch) -> loss`` (``-> (loss, aux)`` with
+      ``has_aux``): the loss averaged over ranks, as a tensor (reading it
+      waits for the device).  The overlapped step also has ``stats()``,
+      ``bucket_count`` and ``overlap_active``.
     """
-    from . import overlap as _overlap
-
-    optimizer = _distributed(optimizer, average, fusion_threshold, op)
-    schedule = _overlap.resolve_mode(overlap, _state.device(),
-                                     _state.size(), loss_fn)
-    if isinstance(optimizer, _hook_optimizer()):
-        if overlap is not None and schedule != "off":
-            raise ValueError(
-                f"overlap={overlap!r} needs a DistributedOptimizer from "
-                f"parallel.data; the hook-driven optimizer reduces each "
-                f"gradient from its hook during backward already")
-        schedule = "off"
-
-    def step(params, batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, batch)
-        loss.backward()
-        optimizer.step()  # the gradients' allreduce, then the update
-        return C.allreduce(loss.detach(), average=True, name="train.loss")
-
-    if schedule == "off":
-        return _traced(step)
-    return _traced(_overlap.make_overlapped_step(
-        loss_fn, optimizer, stream=schedule == "stream",
-        fallback_builder=lambda: step))
+    return _make_step(loss_fn, optimizer, average, fusion_threshold, op,
+                      overlap, has_aux=has_aux, has_state=False)
 
 
 class _TracedStep:
@@ -160,30 +211,21 @@ def _traced(step_fn):
 def make_train_step_with_state(loss_fn: Callable[..., Any], optimizer,
                                average: bool = True,
                                fusion_threshold: Optional[int] = None,
-                               op=None):
+                               op=None, overlap: Optional[str] = None):
     """Train step for models with non-trained state (BatchNorm statistics):
     ``loss_fn(params, model_state, batch) -> (loss, new_state)`` on this
     rank's batch.  The new state is averaged over ranks every step
-    (synchronized BatchNorm statistics, reference :316-318) by the same
-    fused bucket allreduce as the gradients; ``optimizer`` as in
-    :func:`make_train_step`.
+    (synchronized BatchNorm statistics, reference :316-318) by a fused
+    allreduce a bucket (:func:`_average_extra`); ``optimizer`` and
+    ``overlap`` as in :func:`make_train_step`.  ``on`` and ``serial``
+    run one backward, then the gradient buckets (reference :398-420);
+    ``auto`` is ``off``, since the loss is not a ``ChainedLoss``.
 
     Returns ``step(params, model_state, batch) -> (new_state, loss)``,
     the loss averaged over ranks; the parameters are updated in place.
     """
-    optimizer = _distributed(optimizer, average, fusion_threshold, op)
-
-    def step(params, model_state, batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss, new_state = loss_fn(params, model_state, batch)
-        loss.backward()
-        optimizer.step()
-        new_state = allreduce_gradients(new_state, average=True,
-                                        fusion_threshold=fusion_threshold)
-        return new_state, C.allreduce(loss.detach(), average=True,
-                                      name="train.loss")
-
-    return _traced(step)
+    return _make_step(loss_fn, optimizer, average, fusion_threshold, op,
+                      overlap, has_aux=False, has_state=True)
 
 
 def make_eval_step(metric_fn: Callable[..., Any]):

@@ -1107,23 +1107,27 @@ class InferenceEngine:
             seeded += self.cache.publish_ghost(row, tokens)
         return seeded
 
-    def _drain_and_finish(self, reason: str):
+    def _drain_and_finish(self, reason: str, notify: bool = True):
         """The shared eviction sequence (caller holds ``_drain_lock``):
         scheduler drain with ``reason``, free every KV slot, and finish
         the still-queued requests with the same reason so their blocked
-        handlers answer at once.  Returns ``(drained, pending)``."""
-        drained, pending = self.scheduler.drain(reason)
+        handlers answer at once (``notify=False``: the caller sets every
+        returned request's ``done`` itself).  Returns ``(drained,
+        pending)``."""
+        drained, pending = self.scheduler.drain(reason, notify)
         self._free_all_slots()
         for req in pending:
             req.finish_reason = reason
-            req.done.set()
+            if notify:
+                req.done.set()
         return drained, pending
 
     def abort_all(self) -> List[Request]:
         """Error recovery (the serve loop's path after a step raised):
         evict and FAIL every queued and in-flight request
         (``finish_reason`` "error" before ``done`` is set), free the KV
-        slots, and re-open admission unless a :meth:`drain` is pending.
+        slots, and re-open admission unless a :meth:`drain` is pending;
+        the failed requests' ``done`` is set after admission reopens.
         Returns the failed requests.
 
         Multi-process: broadcasts an abort marker first, so followers
@@ -1142,9 +1146,15 @@ class InferenceEngine:
             except Exception:  # noqa: BLE001 — see the docstring
                 pass
         with self._drain_lock:
-            drained, pending = self._drain_and_finish(FinishReason.ERROR)
+            drained, pending = self._drain_and_finish(FinishReason.ERROR,
+                                                      notify=False)
             if not self._drained:
                 self.scheduler.resume()
+        # The failed requests' handlers answer only now, with admission
+        # open again: a client that retries at once is admitted, not
+        # turned away (503) by the recovery's own drain.
+        for req in drained + pending:
+            req.done.set()
         return drained + pending
 
     def abort_request(self, req: Request,

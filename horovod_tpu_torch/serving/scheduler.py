@@ -223,13 +223,14 @@ class ContinuousBatchingScheduler:
                 self._finish_locked(slot, req, reason)
             return reason
 
-    def _finish_locked(self, slot: int, req: Request,
-                       reason: str) -> None:
+    def _finish_locked(self, slot: int, req: Request, reason: str,
+                       notify: bool = True) -> None:
         self._slots[slot] = None
         req.finish_reason = reason
         _M_COMPLETED.inc()
         _M_OCCUPANCY.set(sum(r is not None for r in self._slots))
-        req.done.set()
+        if notify:
+            req.done.set()
 
     # -- per-request abort (hvd-chaos: client disconnect) ------------------
     def cancel(self, req: Request, reason: str) -> str:
@@ -301,7 +302,7 @@ class ContinuousBatchingScheduler:
                     and all(r is None for r in self._slots))
 
     # -- elastic drain -----------------------------------------------------
-    def drain(self, reason: str = FinishReason.DRAINED,
+    def drain(self, reason: str = FinishReason.DRAINED, notify: bool = True,
               ) -> Tuple[List[Request], List[Request]]:
         """Stop admission and evict every in-flight sequence with
         ``reason`` (its partial ``generated`` is preserved on the
@@ -312,7 +313,9 @@ class ContinuousBatchingScheduler:
         rejected; it cannot be silently dropped.  The elastic relaunch
         path requeues ``pending`` plus continuations of ``drained``
         (``elastic.ServingState``); the error-recovery path fails both
-        (``InferenceEngine.abort_all``)."""
+        (``InferenceEngine.abort_all``).  ``notify=False`` leaves the
+        evicted requests' ``done`` unset, for a caller that sets it once
+        its recovery is over."""
         with self._lock:
             self._drained = True
             pending = list(self._queue)
@@ -321,7 +324,7 @@ class ContinuousBatchingScheduler:
             for slot, req in enumerate(self._slots):
                 if req is not None:
                     drained.append(req)
-                    self._finish_locked(slot, req, reason)
+                    self._finish_locked(slot, req, reason, notify)
             _M_QUEUE.set(0)
         return drained, pending
 

@@ -35,9 +35,19 @@ The PyTorch idiom (the reference's trees are immutable jax arrays):
   ``full_state_dict()`` and ``load_full_state_dict()`` (ZeRO's and
   FSDP's ``ShardState``) is saved as its full state, gathered over its
   ranks (so every rank calls ``save_checkpoint``, as the reference's
-  convention has it), and each rank restores its own slice of it.  A
-  placed pipeline's stage optimizers at more than one rank are refused:
-  rank 0 holds only its own stages.
+  convention has it), and each rank restores its own slice of it;
+* a placed pipeline step at more than one rank
+  (``make_pipeline_train_step(..., stage_meshes=)``) holds each stage on
+  its own ranks, and rank 0's copy of another rank's stage is stale.
+  Its parameter leaves and stage optimizers carry their stage's
+  placement (``parallel/pipeline.py`` :func:`placement`): every rank
+  calls ``save_checkpoint`` with the same tree, each stage's parameters
+  and optimizer state come from the lowest rank that holds the stage,
+  and rank 0 writes the tree a one-rank, unplaced step of the same
+  stages would write (a ``None`` slot of a stage the rank does not hold
+  filled with the owner's state).  A restore gives every rank all the
+  parameters and each optimizer it holds its own stage's state; a
+  ``None`` slot stays ``None``.
 
 The reference's telemetry metrics live in :func:`stats` under the same
 names: ``checkpoint.write_seconds`` (count, sum, last),
@@ -361,43 +371,78 @@ def _is_sharded(x) -> bool:
 
 
 def _whole(tree) -> Any:
-    """``tree`` with each sharded object replaced by its full state dict
-    (a collective over its ranks: every rank calls this), after refusing
-    what a rank-0 checkpoint cannot hold."""
-    _refuse_placed(tree)
+    """``tree`` as one process would hold it whole (a collective: every
+    rank calls this): a placed pipeline's stages from their owners
+    (:func:`_placed_from_owners`), then each sharded object replaced by
+    its full state dict."""
+    tree = _placed_from_owners(tree)
     return _map(lambda x: x.full_state_dict() if _is_sharded(x) else x,
                 tree)
 
 
-def _refuse_placed(tree) -> None:
-    """Raise, on every rank alike, for a placed pipeline's stage
-    optimizers at more than one rank: each rank holds and updates only
-    its own stages, so no one rank holds the step's state."""
-    if not (_state.is_initialized() and _state.size() > 1):
-        return
-    from ..parallel.pipeline import PLACED_OPTIMIZERS
+def _placement(x):
+    from ..parallel.pipeline import placement
 
+    return placement(x)
+
+
+def _is_placed(tree) -> bool:
+    """Whether ``tree`` holds a placed pipeline step's parameter leaves or
+    stage optimizers (at more than one rank)."""
+    if not (_state.is_initialized() and _state.size() > 1):
+        return False
     leaves: List[Any] = []
     _map(leaves.append, tree)
-    if any(_is_stateful(x) and x in PLACED_OPTIMIZERS for x in leaves):
-        raise CheckpointError(
-            "a placed pipeline step's optimizers (stage_meshes=) hold "
-            "only this rank's stages, and rank 0's copy of the others' "
-            "parameters is stale: a rank-0 checkpoint cannot hold the "
-            "step's state.  Checkpoint an unplaced pipeline step, or one "
-            "run at a single rank")
+    return any(_placement(x) is not None for x in leaves)
+
+
+def _map_paths(fn, tree, path=()):
+    """``tree`` with each leaf ``x`` replaced by ``fn(path, x)``, dicts in
+    their insertion order; ``path`` is the tuple of keys and indices (as
+    strings) that reach the leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if serialization._is_namedtuple(tree):
+        return type(tree)(*(_map_paths(fn, v, path + (str(i),))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _placed_from_owners(tree) -> Any:
+    """A placed pipeline's ``tree`` with each of its stage leaves (a
+    parameter tensor, a stage optimizer, or the ``None`` slot of a stage
+    this rank does not hold) replaced by the host snapshot of its
+    stage's owner, the lowest rank that holds the stage; other leaves as
+    they are.  One object allgather: every rank passes a tree of the same
+    structure, and every rank gets the whole."""
+    if not _is_placed(tree):
+        return tree
+    from ..ops.objects import allgather_object
+
+    me = _state.rank()
+    owned = {}
+
+    def collect(path, x):
+        where = _placement(x)
+        if where is not None and where.owner == me:
+            owned[path] = _host_snapshot(x)
+        return x
+
+    _map_paths(collect, tree)
+    whole = {}
+    for part in allgather_object(owned, name="checkpoint.placed.stages"):
+        whole.update(part)
+    return _map_paths(lambda path, x: whole.get(path, x), tree)
 
 
 def _map(fn, tree):
     """``tree`` with each leaf ``x`` replaced by ``fn(x)``, dicts in
     their insertion order."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if serialization._is_namedtuple(tree):
-        return type(tree)(*(_map(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+    return _map_paths(lambda _path, x: fn(x), tree)
 
 
 def _host_snapshot(tree: Any) -> Any:
@@ -501,14 +546,26 @@ def _like(template, value):
     return value
 
 
+def _sent_as_stored(t, placed: bool) -> bool:
+    """Whether a target leaf restores from a stored state dict that the
+    broadcast sends on: an object with ``state_dict()``, or, in a placed
+    pipeline's tree, the ``None`` slot of a stage optimizer this rank
+    does not hold (which stays ``None``)."""
+    return _is_stateful(t) or (placed and t is None)
+
+
 def _restore_into(target, state, stored: Optional[list] = None):
     """``target`` restored from the read state dict ``state``.
-    ``stored``, when given, collects the stored state dict of each object
-    with ``state_dict()``, in the tree's leaf order (the broadcast sends
-    them on)."""
+    ``stored``, when given, collects the stored state dict of each leaf
+    :func:`_sent_as_stored` names, in the tree's leaf order (the
+    broadcast sends them on)."""
+    placed = _is_placed(target)
+
     def leaf(t, value, path):
-        if stored is not None and _is_stateful(t):
+        if stored is not None and _sent_as_stored(t, placed):
             stored.append(value)
+        if placed and t is None:
+            return None
         return _checked_leaf(t, value, path)
 
     return serialization.from_state_dict(target, state, leaf=leaf)
@@ -547,8 +604,9 @@ def save_checkpoint(path: str, tree: Any, step: Optional[int] = None,
     :class:`CheckpointWrite` is truthy iff this process saves
     (``if save_checkpoint(...)``); ``block=True`` waits for the write.
     ``step`` is written beside the file for :func:`resume_epoch`.  A
-    tree holding sharded state (a ``ShardState``) is gathered whole
-    first, so every rank must call it then."""
+    tree holding sharded state (a ``ShardState``) or a placed pipeline
+    step's stages is gathered whole first, so every rank must call it
+    then, with the same tree."""
     tree = _whole(tree)
     if not _is_saving_process():
         return CheckpointWrite(path, performed=False)
@@ -571,8 +629,9 @@ def restore_checkpoint(path: str, target: Any, broadcast: bool = True) -> Any:
     broadcast (``checkpoint.broadcast_skipped``); any rank missing the
     file, or a differing one, falls back to the broadcast.  One rank has
     nothing to broadcast to.  A sharded object of the target
-    (``ShardState``) takes each rank's slice of the stored full state."""
-    _refuse_placed(target)
+    (``ShardState``) takes each rank's slice of the stored full state; a
+    placed pipeline step's optimizers each take their stage's state, and
+    its ``None`` slots stay ``None``."""
     multi = _state.is_initialized() and _state.size() > 1
     if broadcast and multi:
         wait_for_writes()
@@ -625,6 +684,7 @@ def _broadcast_tree(tree, stored: list):
 
     leaves: List[Any] = []
     _map(leaves.append, tree)
+    placed = _is_placed(tree)
     arrays = {i: torch.from_numpy(np.array(x)) for i, x in enumerate(leaves)
               if isinstance(x, np.ndarray)}
     broadcast_parameters([arrays.get(i, x) for i, x in enumerate(leaves)
@@ -638,14 +698,15 @@ def _broadcast_tree(tree, stored: list):
         root = _state.rank() == 0
         states = iter(stored)
         sent = broadcast_object(
-            [next(states) if _is_stateful(leaves[i]) else leaves[i]
-             for i in others] if root else None, root_rank=0,
-            name="checkpoint.restore.objects")
+            [next(states) if _sent_as_stored(leaves[i], placed)
+             else leaves[i] for i in others] if root else None,
+            root_rank=0, name="checkpoint.restore.objects")
         for i, value in zip(others, sent):
-            if not _is_stateful(leaves[i]):
+            if _is_stateful(leaves[i]):
+                if not root:
+                    _load_state(leaves[i], value)
+            elif not (placed and leaves[i] is None):
                 leaves[i] = value
-            elif not root:
-                _load_state(leaves[i], value)
     it = iter(leaves)
     return _map(lambda _: next(it), tree)
 
@@ -903,7 +964,6 @@ def restore_checkpoint_sharded(directory: str, target: Any) -> Any:
     in place, as :func:`restore_checkpoint`) at ANY world size.  Every
     process reads the shards it needs straight from shared storage,
     each checked against the manifest's digest; nothing is broadcast."""
-    _refuse_placed(target)
     wait_for_writes()
     manifest = load_sharded_manifest(directory)
     if manifest.get("format") != SHARDED_FORMAT:

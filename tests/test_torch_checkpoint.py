@@ -966,12 +966,40 @@ def test_two_gloo_ranks_restore_broadcast_and_shard(tmp_path):
     assert out["epoch"] == 11
 
 
+# The placed pipeline of the two-rank resume test: two stages over a
+# seeded 4-wide batch, defined once for its workers and for the one-rank
+# restore in the test process.
+PLACED_CASE = """
+from horovod_tpu_torch.parallel.overlap import ChainedLoss
+
+PLACED_BATCH = tuple(torch.randn(8, 4, generator=torch.Generator()
+                                 .manual_seed(7 + i)) for i in range(2))
+
+
+def placed_chain():
+    return ChainedLoss([
+        lambda p, c, b: torch.tanh(b[0] @ p["w"] + p["b"]),
+        lambda p, c, b: ((c @ p["w"] + p["b"] - b[1]) ** 2).mean()])
+
+
+def placed_weights(seed):
+    g = torch.Generator().manual_seed(seed)
+    return [{"b": (0.1 * torch.randn(4, generator=g)).requires_grad_(),
+             "w": torch.randn(4, 4, generator=g).requires_grad_()}
+            for _ in range(2)]
+
+
+def adamw(leaves):
+    return torch.optim.AdamW(leaves, lr=3e-3, weight_decay=1e-4,
+                             foreach=True)
+"""
+
+
 SHARDED_WORKER = """
 import os
 from horovod_tpu_torch.models import transformer as tt
 from horovod_tpu_torch.parallel import pipeline as PL
 from horovod_tpu_torch.parallel.fsdp import make_fsdp_train_step
-from horovod_tpu_torch.parallel.overlap import ChainedLoss
 from horovod_tpu_torch.parallel.zero import make_zero_train_step
 from horovod_tpu_torch.utils import checkpoint as ck
 from horovod_tpu_torch.utils.tree import tree_leaves
@@ -983,11 +1011,6 @@ tokens, targets = tt.synthetic_lm_batch(torch.Generator().manual_seed(1),
 data = (rows(tokens), rows(targets))
 loss_fn = tt.make_loss_fn(cfg)
 out = {}
-
-
-def adamw(leaves):
-    return torch.optim.AdamW(leaves, lr=3e-3, weight_decay=1e-4,
-                             foreach=True)
 
 
 def weights(seed):
@@ -1068,25 +1091,61 @@ for kind, build in (("zero", zero), ("fsdp", fsdp)):
         out[f"{kind}.{mode}.moment"] = torch.equal(moment(held), want_moment)
     out[f"{kind}.moment"] = want_moment.numpy()
 
-# A placed pipeline: each rank holds one of the two stages, so a
-# rank-0 checkpoint of its state is refused, on both ranks alike.
-chain = ChainedLoss([lambda p, c, b: b[0] @ p["w"],
-                     lambda p, c, b: ((c @ p["w"]) ** 2).mean()])
-stages = [{"w": torch.eye(3, requires_grad=True)} for _ in range(2)]
-pstep = PL.make_pipeline_train_step(chain, adamw, num_microbatches=2,
+# A placed pipeline: each rank holds one of the two stages.  Every rank
+# saves (each stage's state comes from its owner), and a restore gives
+# every rank all the parameters and each optimizer its own stage's state.
+pstep = PL.make_pipeline_train_step(placed_chain(), adamw,
+                                    num_microbatches=2,
                                     stage_meshes=PL.stage_submeshes(2))
-opts = pstep.init(stages)
-placed = os.path.join(tmp, "placed.msgpack")
-for tag, call in (("save", lambda: ck.save_checkpoint(
-                      placed, {"params": stages, "opt": opts})),
-                  ("restore", lambda: ck.restore_checkpoint(
-                      placed, {"params": stages, "opt": opts}))):
-    try:
-        call()
-        out[f"placed.{tag}"] = ""
-    except ck.CheckpointError as e:
-        out[f"placed.{tag}"] = str(e)
-out["placed.none"] = [o is None for o in opts]
+
+
+def placed(seed):
+    stages = placed_weights(seed)
+    opts = pstep.init(stages)
+
+    def step():
+        _, _, loss = pstep(stages, opts, PLACED_BATCH)
+        return float(loss)
+
+    def held():
+        (k,) = pstep._mine
+        leaves = tree_leaves(stages[k])
+        return ([x.detach().clone() for x in leaves],
+                [opts[k].state[x]["exp_avg"].clone() for x in leaves]
+                + [opts[k].state[x]["exp_avg_sq"].clone() for x in leaves])
+
+    return step, {"params": stages, "opt": opts}, held
+
+
+step, _, held = placed(0)
+straight = [step() for _ in range(4)]
+want, want_moments = held()
+out["placed.straight"] = np.array(straight)
+for mode in ("shared", "rank0"):
+    path = os.path.join(tmp, f"placed.{mode}.msgpack")
+    step, tree, held = placed(0)
+    losses = [step() for _ in range(2)]
+    h = ck.save_checkpoint(path, tree, step=2)
+    assert bool(h) == (RANK == 0)
+    h.wait(60.0)
+    dist.barrier()
+    step, tree, held = placed(1)
+    mine = path if mode == "shared" or RANK == 0 else path + ".absent"
+    skipped = ck.stats()["checkpoint.broadcast_skipped"]
+    restored = ck.restore_checkpoint(mine, tree)
+    out[f"placed.{mode}.skipped"] = \
+        ck.stats()["checkpoint.broadcast_skipped"] - skipped
+    # Every rank takes all the parameters, its stage's and the other's.
+    for i, x in enumerate(tree_leaves(restored["params"])):
+        out[f"placed.{mode}.restored.{i}"] = x.detach().numpy().copy()
+    out[f"placed.{mode}.none"] = [o is None for o in restored["opt"]]
+    losses += [step() for _ in range(2)]
+    got, got_moments = held()
+    out[f"placed.{mode}.losses"] = losses == straight
+    out[f"placed.{mode}.weights"] = all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    out[f"placed.{mode}.moments"] = all(
+        torch.equal(a, b) for a, b in zip(got_moments, want_moments))
 dist.barrier()
 finish(out)
 """
@@ -1096,12 +1155,17 @@ def test_two_gloo_ranks_zero_and_fsdp_resume_bitwise(tmp_path):
     """ZeRO's and FSDP's shard states at two ranks: every rank saves
     (the moments are gathered whole), each restores its own slice, by
     the shared file or by rank 0's broadcast, and 2 + 2 steps are
-    bitwise 4 straight ones.  A placed pipeline's state is refused."""
+    bitwise 4 straight ones.  So does a placed pipeline's AdamW step, one
+    stage a rank: each stage's state comes from the rank that holds it,
+    every rank takes all the parameters, a ``None`` slot stays ``None``,
+    and the file restores into a one-rank unplaced step, whose next two
+    losses are the placed run's within the placed-against-unplaced
+    tolerance of tests/test_torch_pipeline.py (loss rtol 1e-6)."""
     cfg = {f: getattr(TCFG, f) for f in ("vocab_size", "d_model",
                                          "n_heads", "n_layers", "d_ff",
                                          "max_seq_len")}
-    job = GlooJob(tmp_path, f"CFG = {cfg!r}\n" + SHARDED_WORKER, 2,
-                  {"unused": np.zeros(1)})
+    job = GlooJob(tmp_path, f"CFG = {cfg!r}\n" + PLACED_CASE
+                  + SHARDED_WORKER, 2, {"unused": np.zeros(1)})
     results = job.results()
     for out in results:
         for kind in ("zero", "fsdp"):
@@ -1112,13 +1176,50 @@ def test_two_gloo_ranks_zero_and_fsdp_resume_bitwise(tmp_path):
                 assert bool(out[f"{tag}.moment"]), tag
                 assert int(out[f"{tag}.skipped"]) == skipped, tag
                 assert int(out[f"{tag}.epoch"]) == 2, tag
-        for tag in ("placed.save", "placed.restore"):
-            assert "placed pipeline" in str(out[tag]), tag
-        assert list(out["placed.none"]).count(True) == 1
+        for mode, skipped in (("shared", 1), ("rank0", 0)):
+            tag = f"placed.{mode}"
+            assert bool(out[f"{tag}.losses"]), tag
+            assert bool(out[f"{tag}.weights"]), tag
+            assert bool(out[f"{tag}.moments"]), tag
+            assert int(out[f"{tag}.skipped"]) == skipped, tag
+            assert list(out[f"{tag}.none"]).count(True) == 1, tag
+            # Both ranks restored every stage's parameters alike.
+            assert all(np.array_equal(out[f"{tag}.restored.{i}"],
+                                      results[0][f"{tag}.restored.{i}"])
+                       for i in range(4)), tag
     for kind in ("zero", "fsdp"):
         # Each rank holds its own half of the moments.
         a, b = (out[f"{kind}.moment"] for out in results)
         assert a.shape == b.shape and not np.array_equal(a, b), kind
+    straight = results[0]["placed.straight"]
+    np.testing.assert_array_equal(results[1]["placed.straight"], straight)
+    # The placed file is a one-rank unplaced step's: restore it there.
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    case = {"torch": torch}
+    exec(PLACED_CASE, case)
+    thvd.init(device="cpu")
+    try:
+        pstep = PL.make_pipeline_train_step(case["placed_chain"](),
+                                            case["adamw"],
+                                            num_microbatches=2)
+        for mode in ("shared", "rank0"):
+            stages = case["placed_weights"](1)
+            opts = pstep.init(stages)
+            assert not any(o is None for o in opts)
+            ck.restore_checkpoint(str(tmp_path / f"placed.{mode}.msgpack"),
+                                  {"params": stages, "opt": opts})
+            for i, x in enumerate(tree_leaves(stages)):
+                assert np.array_equal(
+                    x.detach().numpy(),
+                    results[0][f"placed.{mode}.restored.{i}"]), (mode, i)
+            losses = []
+            for _ in range(2):
+                _, opts, loss = pstep(stages, opts, case["PLACED_BATCH"])
+                losses.append(float(loss))
+            np.testing.assert_allclose(losses, straight[2:], rtol=1e-6)
+    finally:
+        thvd.shutdown()
 
 
 def test_shard_state_full_state_takes_its_slice():

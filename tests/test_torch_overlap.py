@@ -5,7 +5,10 @@
   the monolithic ``overlap="off"`` step's, bitwise, per leaf dtype and
   for a tree mixing them; the segmented schedule equals ``serial`` and
   the monolithic step bitwise; on 1 rank here and on 2 gloo ranks
-  (``test_two_gloo_ranks_overlap_is_bitwise_the_monolithic_step``).
+  (``test_two_gloo_ranks_overlap_is_bitwise_the_monolithic_step``, which
+  also runs tests/test_torch_overlap_state.py's stateful and has_aux
+  steps: on == serial == off bitwise, the statistics and the aux the
+  mean of the ranks' own).
 * Steady state: one fused response a bucket, replayed from the response
   cache with no new negotiation.
 * int8: the error-feedback residual of each bucket carries from step to
@@ -415,6 +418,7 @@ WORKER = textwrap.dedent("""
     import horovod_tpu_torch as hvd
     sys.path.insert(0, sys.argv[4])
     import test_torch_overlap as T
+    import test_torch_overlap_state as S
     from horovod_tpu_torch.ops import megakernel as MK
 
     rank, store, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
@@ -443,6 +447,20 @@ WORKER = textwrap.dedent("""
         keep(f"chain.{mode}", T._run(T._chain_params(), 3, overlap=mode,
                                      loss_fn=T._chain(),
                                      fusion_threshold=T._THRESHOLD))
+    # The stateful step (BatchNorm statistics averaged over the ranks)
+    # and has_aux, each rank on its own rows of one global batch.
+    for mode in ("on", "serial", "off"):
+        losses, params, stats, _ = S.stateful_run("bn_mlp", mode, rank=rank,
+                                                  size=2)
+        keep(f"state.{mode}", (losses, params + stats, None))
+        losses, auxes, params, _ = S.aux_run(mode, rank=rank, size=2)
+        keep(f"aux.{mode}", (losses, params, None))
+        out[f"aux.{mode}.aux"] = np.array([[a["mae"], a["max"]]
+                                           for a in auxes])
+    _, _, stats, _ = S.stateful_run("bn_mlp", "on", steps=1, rank=rank,
+                                    size=2)
+    for i, x in enumerate(stats):
+        out[f"stats1.{i}"] = x.numpy()
     hvd.set_compression(default="int8")
     for mode in ("on", "serial"):
         MK.flush("test")
@@ -492,7 +510,7 @@ def test_two_gloo_ranks_overlap_is_bitwise_the_monolithic_step(tmp_path):
                 if k.startswith(tag + ".")}
 
     for out in outs:
-        for name in ("f32", "bf16", "mixed", "chain"):
+        for name in ("f32", "bf16", "mixed", "chain", "state", "aux"):
             on = run(out, f"{name}.on")
             assert on and same(on, run(out, f"{name}.serial")), name
             assert same(on, run(out, f"{name}.off")), name
@@ -503,6 +521,27 @@ def test_two_gloo_ranks_overlap_is_bitwise_the_monolithic_step(tmp_path):
     # The ranks' batches differ, so the reduction was not the identity.
     assert not np.array_equal(outs[0]["f32.on.loss"][1:],
                               outs[0]["f32.on.loss"][:-1])
+    # The stateful and has_aux steps averaged over the ranks: their first
+    # step's new statistics and aux are the mean of each rank's own, run
+    # alone on its rows from the same start.
+    import test_torch_overlap_state as S
+
+    hvd.init(device="cpu")
+    try:
+        alone = [(S.stateful_run("bn_mlp", "off", steps=1, rank=r, size=2),
+                  S.aux_run("off", steps=1, rank=r, size=2))
+                 for r in range(2)]
+    finally:
+        hvd.shutdown()
+    for i, (a, b) in enumerate(zip(alone[0][0][2], alone[1][0][2])):
+        assert not torch.equal(a, b)
+        np.testing.assert_allclose(outs[0][f"stats1.{i}"],
+                                   ((a + b) / 2).numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    np.testing.assert_allclose(
+        outs[0]["aux.on.aux"][0],
+        np.mean([[run[1][1][0]["mae"], run[1][1][0]["max"]]
+                 for run in alone], axis=0), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -289,6 +289,39 @@ def test_lmserver_survives_engine_exception_and_keeps_serving():
         assert resp2["tokens"] == ref.generate([1, 2, 3], max_new_tokens=6)
 
 
+def test_lmserver_reopens_admission_before_failing_the_requests():
+    """The recovery's drain closes admission while it frees the slots; a
+    failed request's handler answers only once admission is open again,
+    so a client that retries at once is served, however slow the
+    recovery (here a freeing that takes 0.3 s)."""
+    engine = make_engine()
+    with _server(engine) as srv:
+        srv.start()
+        base = f"http://127.0.0.1:{srv.port}"
+        boom = {"armed": True}
+        orig, free = engine._decode_iteration, engine._free_all_slots
+
+        def poisoned(active):
+            if boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected decode failure")
+            return orig(active)
+
+        def slow_free():
+            time.sleep(0.3)
+            free()
+
+        engine._decode_iteration = poisoned
+        engine._free_all_slots = slow_free
+        code, resp = _http_error(_post, base + "/generate",
+                                 {"tokens": [1, 2, 3], "max_tokens": 6,
+                                  "timeout": 30})
+        assert code == 500 and resp["finish_reason"] == "error"
+        status, resp2 = _post(base + "/generate",
+                              {"tokens": [1, 2, 3], "max_tokens": 6})
+        assert status == 200 and resp2["finish_reason"] == "max_new_tokens"
+
+
 def test_lmserver_midflight_drain_returns_retryable_503():
     engine = make_engine()
     with _server(engine) as srv:

@@ -200,6 +200,50 @@ def test_np3_tree_byte_identical_to_flat_with_exact_gauges():
         assert "desync" not in out
 
 
+def test_fleet_rendezvous_port_stays_bound_while_the_ranks_run(
+        monkeypatch):
+    """A cp fleet's rendezvous port is bound by the pass itself from its
+    choice until the fleet ends, and the ranks join that store as
+    clients: no other process can take the port between its choice and
+    the rendezvous (a port picked and released, then bound by rank 0
+    seconds later, was taken by another process under load, and the
+    fleet's ranks hung on its listener)."""
+    seen = []
+
+    class Done:
+        returncode = 0
+
+        def communicate(self, timeout=None):
+            return b"", None
+
+        def poll(self):
+            return 0
+
+        def kill(self):
+            pass
+
+    def popen(cmd, env=None, **kw):
+        port = int(cmd[cmd.index("--port") + 1])
+        probe = socket.socket()
+        try:
+            probe.bind(("127.0.0.1", port))
+            taken = False
+        except OSError:
+            taken = True
+        finally:
+            probe.close()
+        seen.append((port, taken, {k: env.get(k)
+                                   for k in M.AGENT_STORE_ENV}))
+        return Done()
+
+    monkeypatch.setattr(M.subprocess, "Popen", popen)
+    s = M.Scenario("tree_identity", "cp", "complete", np=3, cap=10.0)
+    assert M._run_pass(s, faulted=False, device="cpu").rc == 0
+    assert len(seen) == 3 and len({port for port, _, _ in seen}) == 1
+    assert all(taken for _, taken, _ in seen)
+    assert all(env == M.AGENT_STORE_ENV for _, _, env in seen)
+
+
 # ---------------------------------------------------------------------------
 # A re-parent, in one process
 # ---------------------------------------------------------------------------
