@@ -591,6 +591,7 @@ RESNET_TOL_UPDATE = 1e-3
 
 
 LOG_FILE = None  # every line also goes to <out-dir>/chip_smoke.log
+PROFILE_PAD_S = 0.25  # idle card before and after a profiled step
 
 
 def log(obj) -> None:
@@ -917,16 +918,26 @@ def profile_step(step, out_dir, prefix):
     the trace's kernel, memcpy and memset events), and the share of that
     step's own wall time, on the host clock from a synchronized start to
     a synchronized end, in which no kernel ran.  Writes
-    ``<prefix>_trace.json`` and ``<prefix>_profile.txt``."""
+    ``<prefix>_trace.json`` and ``<prefix>_profile.txt``.
+
+    The device records of the first milliseconds of a profiler session
+    are dropped (launches with no kernel record; ~5 ms on an idle host,
+    longer late in a long process), which emptied a 10 ms step's trace:
+    the step starts PROFILE_PAD_S after the session does, on an idle
+    card, and the session outlasts it by as much again.
+    ``launches_unrecorded`` counts the step's launch records left without
+    a device record."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         step()
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
     os.makedirs(out_dir, exist_ok=True)
     trace_path = os.path.join(out_dir, f"{prefix}_trace.json")
     prof.export_chrome_trace(trace_path)
@@ -934,11 +945,17 @@ def profile_step(step, out_dir, prefix):
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
     with open(trace_path) as f:
-        kernels = [e for e in json.load(f)["traceEvents"]
-                   if e.get("ph") == "X" and e.get("cat") in (
-                       "kernel", "gpu_memcpy", "gpu_memset")]
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    recorded = {e.get("args", {}).get("correlation") for e in kernels}
+    unrecorded = sum(
+        1 for e in events if e.get("cat") == "cuda_runtime"
+        and re.search(r"Launch|Memcpy|Memset", e.get("name", ""))
+        and e.get("args", {}).get("correlation") not in recorded)
     if not kernels:
-        raise AssertionError("the profiler recorded no device activity")
+        raise AssertionError(f"the profiler recorded no device activity "
+                             f"({unrecorded} launch records without one)")
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:  # union of kernel intervals (streams may overlap)
@@ -951,7 +968,7 @@ def profile_step(step, out_dir, prefix):
         by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"device_busy_ms": busy_us / 1e3, "device_events": len(kernels),
-            "enqueue_ms": enqueue_ms,
+            "launches_unrecorded": unrecorded, "enqueue_ms": enqueue_ms,
             "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3,
             "profiled_step_ms": wall_us / 1e3,
             "device_idle_share": 1 - busy_us / wall_us,
@@ -6560,7 +6577,9 @@ def control_child(result_path) -> int:
     PATH.rank<r>.json: losses, the frames sent and reconnects after each
     step, the kernel launches of the steps (counters zeroed just before
     them), sha256 of the parameters and of AdamW's state, the channel's
-    class and, on rank 0, the frames it gathered a cycle."""
+    class and, on rank 0, the frames it gathered a cycle and, under the
+    tree, its steady-state envelopes (``[ranks, h, trailer bytes, hit
+    sections, payload bytes, envelopes]``)."""
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import telemetry
@@ -6573,6 +6592,10 @@ def control_child(result_path) -> int:
     cfg = control_config()
     hvd.init(device="cpu")
     rank = hvd.rank()
+    channel = st._state.channel
+    steady = None
+    if rank == 0 and getattr(channel, "tree", None) is not None:
+        steady = _matrix.tally_steady_envelopes(channel)
     params = tt.init_transformer(torch.Generator().manual_seed(0), cfg,
                                  device="cpu")
     hvd.broadcast_parameters(params, root_rank=0)
@@ -6602,11 +6625,12 @@ def control_child(result_path) -> int:
     rec["adamw"] = _digest_tensors([v[k] for _, v in sorted(state.items())
                                     for k in sorted(v)
                                     if isinstance(v[k], torch.Tensor)])
-    channel = st._state.channel
     rec["channel"] = type(channel).__name__
     if rank == 0:
         rec["frame_counts"] = {str(k): v
                                for k, v in channel.frame_counts.items()}
+        rec["steady_envelopes"] = sorted(
+            [*key, n] for key, n in (steady or {}).items())
     hvd.shutdown()
     with open(f"{result_path}.rank{rank}.json", "w") as f:
         json.dump(rec, f)
@@ -6663,7 +6687,9 @@ def phase_control(smi_line, out_dir):
     of rank 1 after step CONTROL_RESET_AFTER: bitwise, one resume.  (c)
     the same at -np 3, flat, under HVD_TPU_TREE=on HVD_TPU_TREE_FANOUT=1,
     and the tree under a reset of the leaf (rank 2): bitwise the flat
-    run, rank 0 gathering expected_root_frames(3, 1) frames a cycle.  (d)
+    run, rank 0 gathering expected_root_frames(3, 1) frames a cycle, each
+    steady-state envelope the interior merged one hit section of 11 + 4n
+    + 4h + n*c bytes (ops/tree.py).  (d)
     tools/control_ab.py on this tree, beside the faulted runs: the 4 B
     negotiated allreduce's median at np 2 and 3, a hard kill to its
     diagnosis, a reset to its resume.  Returns the phase's figures."""
@@ -6812,6 +6838,37 @@ def _control_legs(smi_line, out_dir, root, t_phase, started):
                                       "TreeWorkerTransport"]:
         raise AssertionError(f"control: the tree run's channels "
                              f"{[r['channel'] for r in t3]}")
+    # The interior's merge: every steady-state envelope rank 0 took (each
+    # rank of the subtree sent the same h hits and at most a trace
+    # context) from both ranks is one hit section of 11 + 4n + 4h + n*c
+    # bytes, n = 2, c the steady batch section (tree.STEADY_BATCH_BYTES)
+    # plus the trailer.  In tree3 every one is; in tree3_reset some are
+    # (those before the reset: after it the leaf is rank 0's own child),
+    # and after the reset the interior's envelope holds itself alone,
+    # its record in its batch section, 2 + 22 + 9 + 4h + trailer bytes.
+    steady = {name: recs[0]["steady_envelopes"]
+              for name, recs in (("flat3", f3), ("tree3", t3),
+                                 ("tree3_reset", t3r))}
+    for name in ("tree3", "tree3_reset"):
+        for n_, h, trailer, groups, nbytes, _count in steady[name]:
+            if n_ == 2:
+                want = (1, 11 + 4 * n_ + 4 * h
+                        + n_ * (_tree.STEADY_BATCH_BYTES + trailer))
+            elif n_ == 1 and name == "tree3_reset":
+                want = (0, 2 + 22 + 9 + 4 * h + trailer)
+            else:
+                want = None
+            if trailer not in (0, 25) or (groups, nbytes) != want:
+                raise AssertionError(
+                    f"control {name}: a steady envelope of {n_} ranks, "
+                    f"{h} hits, {groups} hit sections and {nbytes} B "
+                    f"(want {want}: hit sections, bytes)")
+        if not any(row[0] == 2 for row in steady[name]):
+            raise AssertionError(f"control {name}: rank 0 took no "
+                                 f"steady-state envelope of both ranks")
+    if steady["flat3"]:
+        raise AssertionError(f"control: the flat run's envelopes "
+                             f"{steady['flat3']}")
 
     # The phase's kernel launches, each process's counters zeroed just
     # before its work: the matrix's local scenarios run on the card (the
@@ -6841,6 +6898,7 @@ def _control_legs(smi_line, out_dir, root, t_phase, started):
         "step_s_np3_tree": t3[0]["step_s"],
         "root_frames_a_cycle": root_frames,
         "expected_root_frames_3_1": want_root,
+        "steady_envelopes": steady,
         "latency_np2_ms": timings["latency_np2_ms"],
         "latency_np3_ms": timings["latency_np3_ms"],
         "kill_to_diagnosis_s": timings["kill_to_diagnosis_s"],
@@ -7903,7 +7961,9 @@ def phase_word2vec(smi_line, out_dir):
          "profile": {k: prof[k] for k in ("device_busy_ms",
                                           "profiled_step_ms",
                                           "device_idle_share",
-                                          "device_events", "enqueue_ms")},
+                                          "device_events",
+                                          "launches_unrecorded",
+                                          "enqueue_ms")},
          "top_kernels": prof["top"][:6]})
     hvd.shutdown()
 

@@ -60,18 +60,22 @@ twice.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
 import re
 import socket
+import struct
 import subprocess
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+from ..run import AGENT_STORE_ENV
 
 # ---------------------------------------------------------------------------
 # The matrix
@@ -313,6 +317,59 @@ def report_launches(rank: int) -> None:
     sys.stdout.flush()
 
 
+def steady_shape(envelope: bytes) -> Optional[Tuple[int, int, int, int,
+                                                   int]]:
+    """``(ranks, h, trailer bytes, hit sections, bytes)`` of a subtree
+    envelope in a steady-state cycle -- every rank sent the same KIND_HITS
+    record of h entries and then nothing, or on every rank the
+    KIND_TRACE_CTX message a traced post adds -- else None."""
+    from ..ops import transport as T
+    from ..ops import tree as _tree
+
+    entries, groups = _tree.expand_subtree_batch(envelope)
+    bodies = [payload[T._CYCLE.size:] for _cum, payload in entries]
+    first = bodies[0] if bodies else b""
+    if len(first) < 9 or first[0] != T.KIND_HITS:
+        return None
+    (count,) = struct.unpack_from("<I", first, 5)
+    end = 9 + 4 * count
+    trailer = len(first) - end
+    if trailer not in (0, 1 + T._CTX.size) or (
+            trailer and first[end] != T.KIND_TRACE_CTX):
+        return None
+    if any(len(b) != len(first) or b[:end + 1] != first[:end + 1]
+           for b in bodies):
+        return None
+    return len(entries), count, trailer, groups, len(envelope)
+
+
+def tally_steady_envelopes(channel) -> collections.Counter:
+    """Count, by :func:`steady_shape`, the steady-state envelopes rank 0's
+    ``channel`` (a ``ControllerTransport`` under the tree) takes from now
+    on: a harness's wrap of the channel's envelope handler, which serves
+    as before."""
+    tally: collections.Counter = collections.Counter()
+    take = channel._take_subtree
+
+    def taking(payload: bytes) -> None:
+        take(payload)
+        shape = steady_shape(payload)
+        if shape is not None:
+            tally[shape] += 1
+
+    channel._take_subtree = taking
+    return tally
+
+
+def report_steady_envelopes(tally: collections.Counter) -> None:
+    """Rank 0 under the tree: its steady-state envelopes as one
+    ``CHAOS_TREE`` line of ``[ranks, h, trailer bytes, hit sections,
+    payload bytes, envelopes]`` rows (:func:`tally_steady_envelopes`)."""
+    rows = sorted([*key, n] for key, n in tally.items())
+    sys.stdout.write(f"CHAOS_TREE rank=0 {json.dumps(rows)}\n")
+    sys.stdout.flush()
+
+
 def _diag(rank: int, message: str) -> None:
     print(f"CHAOS_DIAG rank={rank}: {message}", file=sys.stderr,
           flush=True)
@@ -326,13 +383,6 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
-
-
-# A cp fleet's ranks join the TCPStore their parent hosts as clients, as
-# torchrun's workers join their agent's (torch.distributed.rendezvous):
-# every rank, rank 0 included, connects to MASTER_PORT and none binds it.
-AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True",
-                   "TORCHELASTIC_RESTART_COUNT": "0"}
 
 
 def rendezvous_store():
@@ -440,6 +490,9 @@ def run_cp_node(device: Optional[str] = None) -> None:
     _seed_mem_probe(rank)
     dev = hvd.device()
     rt = _state._state.runtime
+    steady = None
+    if rank == 0 and getattr(rt.channel, "tree", None) is not None:
+        steady = tally_steady_envelopes(rt.channel)
     records: List = []
     step_now = [0]
     data_types = (ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
@@ -504,6 +557,8 @@ def run_cp_node(device: Optional[str] = None) -> None:
                 _check_mem_gauges(snaps, hvd.size())
         records.append((-1, values.hexdigest(), "VALUES"))
         _result(rank, records)
+        if steady is not None:
+            report_steady_envelopes(steady)
     finally:
         rt._execute = execute
     hvd.shutdown()

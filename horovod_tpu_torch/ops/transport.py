@@ -40,9 +40,19 @@ and ``FRAME_CHILD_LOST``.  The cycle rides three frames of its own:
 * ``FRAME_RESPONSES`` (2), rank 0 to workers: ``<Q seq>`` and the
   payload below; a worker drops a payload it has already taken;
 * ``FRAME_SUBTREE_BATCH`` (18), an interior to its parent: ``<H n>`` and
-  ``n`` times ``<I cum><I len>`` and one rank's ``FRAME_REQUEST_BATCH``
-  payload, ``cum`` the upward frames of that rank folded in so far (the
-  re-parent resume's count; 0 for the sender's own entry).
+  ``n`` sections (:mod:`.tree`, reference tree.py:340-353), the hit
+  sections first.  A hit section is the reference's bits section, ``<B
+  0><I epoch><H nranks><i*nranks><H nidx><I*nidx>``: every rank it lists
+  (two or more) sent a ``KIND_HITS`` record of those entry indices, in
+  that order, at that epoch.  A batch section, ``<B 4><i rank><Q seq><I
+  cum><B nref><I len>`` and the rank's batch, carries one rank's
+  ``FRAME_REQUEST_BATCH`` payload with each of its ``nref`` grouped
+  ``KIND_HITS`` records replaced by a ``KIND_HITS_REF`` message, ``<H
+  index of its hit section>`` (a record no other rank shares stays in
+  place); ``cum`` counts the upward frames of that rank folded in so far
+  (the re-parent resume's count; 0 for the sender's own).  Rank 0
+  expands the sections back into the payloads the ranks sent, byte for
+  byte.
 
 A withdrawal or an exit handshake that cannot wait for the cycle goes
 at once as ``FRAME_WITHDRAW`` or ``FRAME_SHUTDOWN``; rank 0 takes it in
@@ -89,6 +99,7 @@ trace pull (the reference's ``FRAME_TRACE``); ``KIND_PONG`` + ``<ddd``
 reference's ``FRAME_PONG``); ``KIND_TRACE_CTX`` + the 16-byte trace
 context (``trace.CTX_STRUCT``) + ``<d`` the monotonic stamp of this
 rank's first post of the batch (the reference's request-batch trailer).
+:func:`iter_messages` is the one reader of these lengths.
 
 Rank 0's broadcast is one kind byte and a body: ``PAYLOAD_RESPONSES`` +
 :func:`wire.pack_response_list`, or, for a cycle that is all cache
@@ -137,6 +148,9 @@ from .wire import DEAD_PEER_MARKER, Request, Response, ResponseType
 KIND_REQUEST, KIND_WITHDRAW, KIND_SHUTDOWN, KIND_HITS = 0, 1, 2, 3
 KIND_METRICS = 4
 KIND_SIGNATURE, KIND_TRACE, KIND_PONG, KIND_TRACE_CTX = 16, 17, 18, 19
+# In a subtree envelope's batch section only: a grouped KIND_HITS record,
+# as <H index of its hit section> (ops/tree.py).
+KIND_HITS_REF = 20
 PAYLOAD_RESPONSES, PAYLOAD_REPLAY, PAYLOAD_PULL_METRICS = 0, 1, 2
 PAYLOAD_SIGNATURE, PAYLOAD_PULL_TRACE, PAYLOAD_PING, PAYLOAD_CTX = \
     3, 4, 5, 6
@@ -248,52 +262,73 @@ def strip_prefixes(payload: bytes) -> Tuple[dict, bytes]:
     return found, payload[off:]
 
 
+def iter_messages(buf: bytes, off: int = 0):
+    """Yield ``(kind, start, end)`` for each message of a batch from
+    ``off``: ``buf[start]`` is its kind byte and ``buf[start + 1:end]``
+    its body.  Reads the lengths alone; raises ValueError on an unknown
+    kind or a message that runs past the end (``struct.error`` on a
+    truncated length)."""
+    size = len(buf)
+    while off < size:
+        kind = buf[off]
+        body = off + 1
+        if kind == KIND_REQUEST:
+            end = Request.skip(buf, body)
+        elif kind == KIND_WITHDRAW:
+            end = body + 4 + struct.unpack_from("<H", buf, body + 2)[0]
+        elif kind == KIND_SHUTDOWN:
+            end = body
+        elif kind == KIND_HITS:
+            end = body + 8 + 4 * struct.unpack_from("<I", buf, body + 4)[0]
+        elif kind in (KIND_METRICS, KIND_TRACE, KIND_SIGNATURE):
+            end = body + 4 + struct.unpack_from("<I", buf, body)[0]
+        elif kind == KIND_PONG:
+            end = body + 24
+        elif kind == KIND_TRACE_CTX:
+            end = body + _CTX.size
+        elif kind == KIND_HITS_REF:
+            end = body + 2
+        else:
+            raise ValueError(f"control batch: unknown message kind {kind} "
+                             f"at byte {off}")
+        if end > size:
+            raise ValueError(f"control batch: the message at byte {off} "
+                             f"runs past the end")
+        yield kind, off, end
+        off = end
+
+
 def decode_batch(buf: bytes) -> List[Tuple[int, object]]:
     """``[(kind, body)]``: a Request, a (process set, name) pair, None, an
     (epoch, [entry index]) pair, a metrics snapshot, a packed signature,
     a span list, a ``(t0, t1, t1s)`` probe answer, or a ``(step, cycle,
     trace_id, t_post)`` context."""
     out: List[Tuple[int, object]] = []
-    off = 0
-    while off < len(buf):
-        (kind,) = struct.unpack_from("<B", buf, off)
+    for kind, off, end in iter_messages(buf):
         off += 1
         if kind == KIND_REQUEST:
-            req, off = Request.unpack(buf, off)
-            out.append((kind, req))
+            body = Request.unpack(buf, off)[0]
         elif kind == KIND_WITHDRAW:
-            psid, nlen = struct.unpack_from("<HH", buf, off)
-            off += 4
-            out.append((kind, (psid,
-                               bytes(buf[off:off + nlen]).decode("utf-8"))))
-            off += nlen
+            body = (struct.unpack_from("<H", buf, off)[0],
+                    bytes(buf[off + 4:end]).decode("utf-8"))
         elif kind == KIND_SHUTDOWN:
-            out.append((kind, None))
+            body = None
         elif kind == KIND_HITS:
             epoch, count = struct.unpack_from("<II", buf, off)
-            off += 8
-            out.append((kind, (epoch, list(struct.unpack_from(
-                f"<{count}I", buf, off)))))
-            off += 4 * count
+            body = (epoch, list(struct.unpack_from(f"<{count}I", buf,
+                                                   off + 8)))
         elif kind in (KIND_METRICS, KIND_TRACE):
-            (n,) = struct.unpack_from("<I", buf, off)
-            off += 4
-            out.append((kind, json.loads(bytes(buf[off:off + n]))))
-            off += n
+            body = json.loads(bytes(buf[off + 4:end]))
         elif kind == KIND_SIGNATURE:
-            (n,) = struct.unpack_from("<I", buf, off)
-            off += 4
-            out.append((kind, bytes(buf[off:off + n])))
-            off += n
+            body = bytes(buf[off + 4:end])
         elif kind == KIND_PONG:
-            out.append((kind, struct.unpack_from("<ddd", buf, off)))
-            off += 24
+            body = struct.unpack_from("<ddd", buf, off)
         elif kind == KIND_TRACE_CTX:
-            out.append((kind, _CTX.unpack_from(buf, off)))
-            off += _CTX.size
+            body = _CTX.unpack_from(buf, off)
         else:
-            raise ValueError(f"control batch: unknown message kind {kind} "
-                             f"at byte {off - 1}")
+            raise ValueError(f"control batch: a hit reference at byte "
+                             f"{off - 1} outside a subtree envelope")
+        out.append((kind, body))
     return out
 
 
@@ -397,7 +432,6 @@ def frame_name(ftype: Optional[int]) -> str:
 _HDR = struct.Struct("<IB")
 _CYCLE = struct.Struct("<iQ")  # FRAME_REQUEST_BATCH: rank, batch seq
 _BSEQ = struct.Struct("<Q")  # FRAME_RESPONSES: broadcast seq
-_ENTRY = struct.Struct("<II")  # FRAME_SUBTREE_BATCH entry: cum, length
 
 # The reference's control-plane counters (:204-246), under its names.
 _M_TX = _telemetry.counter("transport.frames_sent")
@@ -435,6 +469,9 @@ _M_FRAME_TIMEOUTS = _telemetry.counter(
 _M_TREE_MERGED = _telemetry.counter(
     "transport.tree_merged_frames", "child control frames dissolved "
     "into merged FRAME_SUBTREE_BATCH envelopes")
+_M_TREE_BITS = _telemetry.counter(
+    "transport.tree_merged_cache_bits", "cache-hit entry indices interiors "
+    "sent in grouped hit sections, counted once a rank")
 _M_TREE_RELAYED = _telemetry.counter(
     "transport.tree_relayed_frames", "broadcast frames an interior "
     "node relayed down to its children")
@@ -730,25 +767,6 @@ def batch_payload(rank: int, seq: int, batch: bytes) -> bytes:
     return _CYCLE.pack(rank, seq) + batch
 
 
-def pack_subtree_batch(entries: List[Tuple[int, bytes]]) -> bytes:
-    """``entries``: ``(cum, FRAME_REQUEST_BATCH payload)`` pairs."""
-    out = [struct.pack("<H", len(entries))]
-    for cum, body in entries:
-        out.append(_ENTRY.pack(cum, len(body)) + body)
-    return b"".join(out)
-
-
-def parse_subtree_batch(payload: bytes) -> List[Tuple[int, bytes]]:
-    (n,) = struct.unpack_from("<H", payload)
-    off, out = 2, []
-    for _ in range(n):
-        cum, length = _ENTRY.unpack_from(payload, off)
-        off += _ENTRY.size
-        out.append((cum, payload[off:off + length]))
-        off += length
-    return out
-
-
 def _shutdown_payload(message: str = "") -> bytes:
     return encode_responses([Response(ResponseType.SHUTDOWN,
                                       error_message=message)])
@@ -758,11 +776,11 @@ def _account_batch(batch: bytes) -> None:
     """The reference's batch counters, from a batch's messages."""
     reqs = hits = 0
     try:
-        for kind, body in decode_batch(batch):
+        for kind, off, _end in iter_messages(batch):
             if kind == KIND_REQUEST:
                 reqs += 1
             elif kind == KIND_HITS:
-                hits += len(body[1])
+                hits += struct.unpack_from("<I", batch, off + 5)[0]
     except (ValueError, struct.error):
         return
     if reqs or hits:
@@ -1038,6 +1056,18 @@ class ControllerTransport:
             if frame:
                 self._cycle_frames += 1
             self._cond.notify_all()
+
+    def _take_subtree(self, payload: bytes) -> None:
+        """A subtree envelope (reference :1267-1300): every batch section
+        back to the ``FRAME_REQUEST_BATCH`` payload its rank sent, taken
+        as the flat star takes it, so a rank whose seq is stale is dropped
+        alone."""
+        from . import tree as _tree_mod
+
+        entries, groups = _tree_mod.expand_subtree_batch(payload)
+        for i, (cum, body) in enumerate(entries):
+            self._take_batch(body, cum, frame=i == 0)
+        _flight.record("frame_rx_subtree", len(entries), groups)
 
     # -- session-resume listener (reference :773-819) ----------------------
     def _accept_loop(self) -> None:  # thread: accept
@@ -1323,10 +1353,7 @@ class ControllerTransport:
             if ftype == FRAME_REQUEST_BATCH:
                 self._take_batch(payload)
             elif ftype == FRAME_SUBTREE_BATCH:
-                entries = parse_subtree_batch(payload)
-                for i, (cum, body) in enumerate(entries):
-                    self._take_batch(body, cum, frame=i == 0)
-                _flight.record("frame_rx_subtree", len(entries))
+                self._take_subtree(payload)
             elif ftype == FRAME_WITHDRAW:
                 wrank, name, psid = parse_withdraw(payload)
                 _flight.record("frame_rx_withdraw", wrank, name)

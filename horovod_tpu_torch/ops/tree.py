@@ -5,13 +5,18 @@ at ``HVD_TPU_TREE_THRESHOLD`` ranks (default 64, or always with
 of one a worker.
 
 * **Upward**: an interior waits in its cycle's ``gather`` for the batch
-  of each live child link, and sends its own batch and its subtree's as
-  ONE ``FRAME_SUBTREE_BATCH`` (:mod:`.transport`); rank 0 unpacks the
-  entries into the same per-rank batches the flat star gives it, so the
-  negotiation, and the response stream every cache replica follows, are
-  byte for byte the flat ones.  Metrics and trace pulls ride the batches
-  (the reference's ``FRAME_METRICS_TREE``/``FRAME_TRACE_TREE`` are not
-  sent).
+  of each live child link and sends its own batch and its subtree's as
+  ONE merged ``FRAME_SUBTREE_BATCH`` (:func:`merge_batch_items`): the
+  cache-hit records that two or more ranks share, by ``(epoch, entry
+  indices)``, travel as one section, so in the steady state, where every
+  rank hits the same entries, a whole subtree's hits are one section,
+  and each rank's batch keeps the rest of its messages with a reference
+  in place of each grouped record.  Rank 0 expands the envelope
+  (:func:`expand_subtree_batch`) into the per-rank batches the flat star
+  gives it, byte for byte, so the negotiation, and the response stream
+  every cache replica follows, are the flat ones.  Metrics and trace
+  pulls ride the batches (the reference's ``FRAME_METRICS_TREE``/
+  ``FRAME_TRACE_TREE`` are not sent).
 * **Downward**: an interior relays every frame from its parent to its
   children verbatim, before it acts on it (``allow_dup=False``), so each
   rank's stream is rank 0's broadcast stream and rank 0 keeps ONE shared
@@ -285,6 +290,204 @@ def parse_topo_tree(payload: bytes) -> Tuple[int, Dict[int, "T.Topology"]]:
 
 
 # ---------------------------------------------------------------------------
+# The merged envelope (reference :340-489 and :1070, on the port's batches)
+# ---------------------------------------------------------------------------
+#
+# FRAME_SUBTREE_BATCH payload: <H nsections>, then typed sections, the hit
+# sections first:
+#   kind 0 hits:   <B 0><I epoch><H nranks><i*nranks><H nidx><I*nidx>, the
+#                  reference's bits section byte for byte: each listed rank
+#                  (two or more) sent a KIND_HITS record of exactly these
+#                  entry indices, in this order, at this epoch
+#   kind 4 batch:  <B 4><i rank><Q seq><I cum><B nref><I len> + one rank's
+#                  batch, each of its nref grouped KIND_HITS records
+#                  replaced by a KIND_HITS_REF message, <B 20><H index of
+#                  its hit section>; a record no other rank of the
+#                  envelope sent stays in place.  ``cum`` counts the rank's
+#                  upward frames folded in so far (the re-parent resume's
+#                  count; 0 for the sender's own)
+# The reference's counts section (kind 3) is not sent: each rank's count
+# rides its batch section.
+#
+# A steady-state envelope of n >= 2 ranks that each hit the same h entries
+# and sent nothing else is 2 + (9 + 4n + 4h) + n * STEADY_BATCH_BYTES bytes,
+# each batch section one KIND_TRACE_CTX message (25 B) longer when the post
+# was traced (``HVD_TPU_TRACE``, on by default).  A rank whose records are
+# not grouped costs its 22-byte section head where the batches' plain
+# concatenation took 20 (an <I cum><I len> entry head and <i rank><Q seq>).
+
+_SEC_BITS, _SEC_BATCH = 0, 4
+_BITS_HEAD = struct.Struct("<BIH")
+_BATCH_HEAD = struct.Struct("<BiQIBI")
+_REF = struct.Struct("<BH")
+# A batch section holding one hit reference and nothing else.
+STEADY_BATCH_BYTES = _BATCH_HEAD.size + _REF.size
+
+
+def parse_request_batch(payload: bytes) -> Tuple[
+        int, int, List[Tuple[Tuple[int, Tuple[int, ...]], int, int]]]:
+    """``(rank, seq, hits)`` of one ``FRAME_REQUEST_BATCH`` payload, the
+    interior's parse side of the merge: ``hits`` holds ``((epoch, entry
+    indices), start, end)`` for each KIND_HITS record in order,
+    ``payload[start:end]`` the record.  Raises ValueError (or
+    ``struct.error``) on a batch it cannot read."""
+    rank, seq = T._CYCLE.unpack_from(payload)
+    hits = []
+    for kind, start, end in T.iter_messages(payload, T._CYCLE.size):
+        if kind == T.KIND_HITS:
+            epoch, count = struct.unpack_from("<II", payload, start + 1)
+            hits.append(((epoch, struct.unpack_from(
+                f"<{count}I", payload, start + 9)), start, end))
+        elif kind == T.KIND_HITS_REF:
+            raise ValueError("control batch: a hit reference in a rank's "
+                             "batch")
+    return rank, seq, hits
+
+
+def merge_batch_items(entries: List[Tuple[int, bytes]]) -> Tuple[
+        List[Tuple[int, Tuple[int, ...], Tuple[int, ...]]],
+        List[Tuple[int, int, int, int, bytes]]]:
+    """Group one cycle's batches for an envelope.  ``entries``: ``(cum,
+    FRAME_REQUEST_BATCH payload)`` in wire order (the interior's own, then
+    each child link's).  Hit records group by ``(epoch, entry indices in
+    their order)`` across ranks, and a group of two or more ranks becomes
+    a hit section: the steady state collapses a subtree into one.  The
+    reference groups by the sorted index set (its :486), and a single
+    rank too; the port keeps the order, since rank 0 replays downgraded
+    hits in wire order.  Returns ``bits``, ``(epoch, ranks, indices)``
+    groups in the reference's order, and ``batches``, ``(rank, seq, cum,
+    nref, body)`` in entry order, each body its batch with a reference in
+    place of each grouped record.  A batch the walk cannot read, or whose
+    records do not fit the sections, goes up whole."""
+    groups: Dict[Tuple[int, Tuple[int, ...]], set] = {}
+    split = []
+    for cum, payload in entries:
+        rank, seq = T._CYCLE.unpack_from(payload)
+        try:
+            hits = parse_request_batch(payload)[2]
+        except (ValueError, struct.error):
+            hits = []
+        if len(hits) > 0xFF or any(len(key[1]) > 0xFFFF
+                                   for key, _s, _e in hits):
+            hits = []
+        for key, _s, _e in hits:
+            groups.setdefault(key, set()).add(rank)
+        split.append((rank, seq, cum, payload, hits))
+    keys = sorted(key for key, ranks in groups.items() if len(ranks) > 1)
+    index = {key: i for i, key in enumerate(keys)}
+    bits = [(key[0], tuple(sorted(groups[key])), key[1]) for key in keys]
+    batches = []
+    for rank, seq, cum, payload, hits in split:
+        body, off = [], T._CYCLE.size
+        for key, start, end in hits:
+            if key in index:
+                body += [payload[off:start],
+                         _REF.pack(T.KIND_HITS_REF, index[key])]
+                off = end
+        body.append(payload[off:])
+        batches.append((rank, seq, cum, (len(body) - 1) // 2,
+                        b"".join(body)))
+    return bits, batches
+
+
+def pack_subtree_batch(
+        bits: List[Tuple[int, Tuple[int, ...], Tuple[int, ...]]],
+        batches: Sequence[Tuple[int, int, int, int, bytes]] = ()) -> bytes:
+    """Assemble one envelope from :func:`merge_batch_items`' ``bits`` and
+    ``batches``."""
+    out = [struct.pack("<H", len(bits) + len(batches))]
+    for epoch, ranks, idxs in bits:
+        out.append(_BITS_HEAD.pack(_SEC_BITS, epoch, len(ranks))
+                   + struct.pack(f"<{len(ranks)}iH{len(idxs)}I", *ranks,
+                                 len(idxs), *idxs))
+    for rank, seq, cum, nref, body in batches:
+        out.append(_BATCH_HEAD.pack(_SEC_BATCH, rank, seq, cum, nref,
+                                    len(body)) + body)
+    return b"".join(out)
+
+
+def iter_subtree_sections(payload: bytes):
+    """Yield the envelope's sections: ``("bits", epoch, ranks, idxs)`` and
+    ``("batch", rank, seq, cum, nref, body)``."""
+    (n,) = struct.unpack_from("<H", payload)
+    off = 2
+    for _ in range(n):
+        kind = payload[off]
+        if kind == _SEC_BITS:
+            _k, epoch, nranks = _BITS_HEAD.unpack_from(payload, off)
+            off += _BITS_HEAD.size
+            ranks = struct.unpack_from(f"<{nranks}i", payload, off)
+            off += 4 * nranks
+            (nidx,) = struct.unpack_from("<H", payload, off)
+            idxs = struct.unpack_from(f"<{nidx}I", payload, off + 2)
+            off += 2 + 4 * nidx
+            yield ("bits", epoch, list(ranks), list(idxs))
+        elif kind == _SEC_BATCH:
+            _k, rank, seq, cum, nref, blen = _BATCH_HEAD.unpack_from(
+                payload, off)
+            off += _BATCH_HEAD.size
+            yield ("batch", rank, seq, cum, nref, payload[off:off + blen])
+            off += blen
+        else:
+            raise ValueError(f"subtree envelope: unknown section kind "
+                             f"{kind} at byte {off}")
+
+
+def expand_subtree_batch(payload: bytes) -> Tuple[List[Tuple[int, bytes]],
+                                                  int]:
+    """Rank 0's (and an interior's, for a child's envelope) inverse of the
+    merge: ``([(cum, FRAME_REQUEST_BATCH payload)], hit sections)``, one
+    payload a batch section in wire order, each hit reference replaced by
+    its section's KIND_HITS record -- byte for byte the payload the rank
+    sent."""
+    records: List[Tuple[set, bytes]] = []
+    out: List[Tuple[int, bytes]] = []
+    for sec in iter_subtree_sections(payload):
+        if sec[0] == "bits":
+            _k, epoch, ranks, idxs = sec
+            records.append((set(ranks), struct.pack(
+                f"<BII{len(idxs)}I", T.KIND_HITS, epoch, len(idxs), *idxs)))
+            continue
+        _k, rank, seq, cum, nref, body = sec
+        if nref:
+            body = _fill_refs(body, records, rank, nref)
+        out.append((cum, T.batch_payload(rank, seq, body)))
+    return out, len(records)
+
+
+def _fill_refs(body: bytes, records: List[Tuple[set, bytes]], rank: int,
+               nref: int) -> bytes:
+    out: List[bytes] = []
+    off = 0
+    for kind, start, end in T.iter_messages(body):
+        if kind == T.KIND_HITS_REF:
+            ranks, record = records[struct.unpack_from("<H", body,
+                                                       start + 1)[0]]
+            if rank not in ranks:
+                raise ValueError(f"subtree envelope: rank {rank} refers "
+                                 f"to a hit section that does not list it")
+            out += [body[off:start], record]
+            off = end
+    if len(out) != 2 * nref:
+        raise ValueError(f"subtree envelope: rank {rank}'s batch holds "
+                         f"{len(out) // 2} hit references, not {nref}")
+    out.append(body[off:])
+    return b"".join(out)
+
+
+def steady_envelope(layout: TreeLayout, child: int, epoch: int,
+                    idxs: Sequence[int]) -> bytes:
+    """The envelope direct child ``child`` of rank 0 sends in its first
+    steady-state cycle: every rank of its subtree hit the same cache
+    entries and sent nothing else -- built through the same merge the
+    live interiors run."""
+    batch = T.encode_hits([(epoch, i) for i in idxs])
+    entries = [(0 if r == child else 1, T.batch_payload(r, 1, batch))
+               for r in layout.subtree(child)]
+    return pack_subtree_batch(*merge_batch_items(entries))
+
+
+# ---------------------------------------------------------------------------
 # The tree worker (reference :196-734, on the port's lockstep cycle)
 # ---------------------------------------------------------------------------
 
@@ -430,8 +633,8 @@ class TreeWorkerTransport(T.WorkerTransport):
     # -- the cycle ---------------------------------------------------------
     def gather(self, batch: bytes) -> None:
         """A leaf sends its batch; an interior waits for one entry from
-        each live child link and sends its own with them, as one
-        ``FRAME_SUBTREE_BATCH``."""
+        each live child link and sends its own with them, merged
+        (:func:`merge_batch_items`), as one ``FRAME_SUBTREE_BATCH``."""
         if not self._children_ranks:
             super().gather(batch)
             return
@@ -450,10 +653,14 @@ class TreeWorkerTransport(T.WorkerTransport):
                     break
                 self._child_cond.wait(0.05)
             self._idle()
+        bits, batches = merge_batch_items([(0, own)] + entries)
         T._M_TREE_MERGED.inc(len(entries))
-        _flight.record("frame_tx_subtree", len(entries) + 1)
-        self._send(T.FRAME_SUBTREE_BATCH,
-                   T.pack_subtree_batch([(0, own)] + entries))
+        # Counted once a rank (reference :878): the subtree's hits as the
+        # flat star's batches count them.
+        T._M_TREE_BITS.inc(sum(len(idxs) * len(ranks)
+                               for _e, ranks, idxs in bits))
+        _flight.record("frame_tx_subtree", len(batches), len(bits))
+        self._send(T.FRAME_SUBTREE_BATCH, pack_subtree_batch(bits, batches))
 
     def _idle(self) -> None:
         self._sweep()
@@ -520,7 +727,9 @@ class TreeWorkerTransport(T.WorkerTransport):
             if ftype == T.FRAME_REQUEST_BATCH:
                 entries.append((cum, payload))
             elif ftype == T.FRAME_SUBTREE_BATCH:
-                for c, body in T.parse_subtree_batch(payload):
+                # A deeper interior's envelope: back to its batches, which
+                # merge again with this subtree's in the next gather.
+                for c, body in expand_subtree_batch(payload)[0]:
                     rank = struct.unpack_from("<i", body)[0]
                     entries.append((cum if rank == link.rank else c, body))
             elif ftype == T.FRAME_WITHDRAW:

@@ -151,6 +151,7 @@ CPU_DEVICE_ID = -1
 DEAD_PEER_MARKER = "terminated unexpectedly"
 
 _REQ_HEAD = "<BBiiiBHH"
+_REQ_HEAD_SIZE = struct.calcsize(_REQ_HEAD)  # name length last
 
 
 @dataclass
@@ -184,6 +185,15 @@ class Request:
         for s in self.splits:
             out += struct.pack("<q", s)
         return out
+
+    @staticmethod
+    def skip(buf: bytes, off: int = 0) -> int:
+        """The offset past the request packed at ``off``, read from its
+        lengths alone (nothing decoded)."""
+        off += _REQ_HEAD_SIZE
+        off += struct.unpack_from("<H", buf, off - 2)[0]
+        off += 1 + 8 * buf[off]
+        return off + 2 + 8 * struct.unpack_from("<H", buf, off)[0]
 
     @staticmethod
     def unpack(buf: bytes, off: int = 0) -> Tuple["Request", int]:

@@ -3,8 +3,14 @@
 
 Spawns N local worker processes, each with the environment
 ``core/state.py`` reads at ``init()``: ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and a free
-``MASTER_PORT``.  Rank 0's TCP control channel listens on a port it
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.
+The launcher binds that port and holds it from its choice to the job's
+end, a child process serves the job's rendezvous store on it, and the
+workers join the store as clients, as
+``torchrun``'s workers join their agent's
+(``TORCHELASTIC_USE_AGENT_STORE``): a port picked, released and bound
+later by rank 0 could be taken meanwhile by another process of the
+machine.  Rank 0's TCP control channel listens on a port it
 binds itself and sends to the others over that group at ``init``: the
 reference's launcher exports a free one as ``HVD_TPU_CONTROLLER_PORT``
 (its ``run.py:71``), which another process can take before rank 0 binds
@@ -40,16 +46,62 @@ import threading
 import time
 
 
-def _free_ports(n: int) -> list:
-    # Hold every socket open while allocating, so the kernel cannot hand
-    # the same ephemeral port out twice.
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
+# The workers join the TCPStore their launcher serves as clients, as
+# torchrun's workers join their agent's (torch.distributed.rendezvous):
+# every rank, rank 0 included, connects to MASTER_PORT and none binds it.
+AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "TORCHELASTIC_RESTART_COUNT": "0"}
+
+
+# The job's TCPStore is served by a child process of its own, on the
+# launcher's listening socket: on a machine whose resolver cannot name the
+# loopback address the store's first connection logs one c10d warning,
+# which the launcher drops from its output, where it would be the one line
+# without a rank.
+_STORE_SERVER = """\
+import signal, sys
+from torch.distributed import TCPStore
+signal.signal(signal.SIGINT, signal.SIG_IGN)  # the launcher ends it
+store = TCPStore("127.0.0.1", int(sys.argv[2]), is_master=True,
+                 wait_for_workers=False, master_listen_fd=int(sys.argv[1]))
+sys.stdin.read()  # until the launcher closes it, or dies
+"""
+_STORE_NOISE = b"The hostname of the client socket cannot be retrieved"
+
+
+class StoreServer:
+    """The TCPStore of one job on ``port``.  The launcher binds the port
+    and listens at once, and holds the socket until :meth:`close`, so no
+    other process of the machine can take the port before the ranks
+    connect (a rank whose store lands on another process's listener
+    retries its rendezvous for 30 minutes).  A child process serves the
+    store on that socket; the ranks, started meanwhile, wait in its
+    backlog until it does."""
+
+    def __init__(self):
+        self._sock = socket.socket()
+        self._sock.bind(("127.0.0.1", 0))
+        self._sock.listen(socket.SOMAXCONN)
+        self.port = self._sock.getsockname()[1]
+        fd = self._sock.fileno()
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", _STORE_SERVER, str(fd), str(self.port)],
+            stdin=subprocess.PIPE, stderr=subprocess.PIPE, pass_fds=(fd,))
+        self._forward = threading.Thread(target=self._errors, daemon=True)
+        self._forward.start()
+
+    def _errors(self) -> None:
+        for line in iter(self._proc.stderr.readline, b""):
+            if _STORE_NOISE not in line:
+                sys.stderr.buffer.write(line)
+                sys.stderr.flush()
+
+    def close(self) -> None:
+        self._proc.kill()
+        self._proc.wait()
+        self._proc.stdin.close()
+        self._forward.join(timeout=2.0)
+        self._sock.close()
 
 
 def _pump(stream, rank: int, out) -> None:
@@ -68,7 +120,14 @@ def _launch_once(args, extra_env=None) -> int:
     out; the others from rank 0's diagnosis) and exit; ``--grace`` bounds
     how long the launcher waits for that before it terminates the
     stragglers."""
-    (port,) = _free_ports(1)
+    store = StoreServer()
+    try:
+        return _run_workers(args, store.port, extra_env)
+    finally:
+        store.close()
+
+
+def _run_workers(args, port: int, extra_env=None) -> int:
     procs = []
     pumps = []
     for rank in range(args.num_proc):
@@ -77,7 +136,8 @@ def _launch_once(args, extra_env=None) -> int:
         env.update(RANK=str(rank), WORLD_SIZE=str(args.num_proc),
                    LOCAL_RANK=str(rank),
                    LOCAL_WORLD_SIZE=str(args.num_proc),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   **AGENT_STORE_ENV)
         # -u: a worker that dies abruptly must not lose block-buffered
         # output (mpirun's forwarding has the same property).
         p = subprocess.Popen([sys.executable, "-u"] + args.command, env=env,

@@ -21,6 +21,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -47,7 +48,9 @@ def _env(**extra):
 
 class Launch:
     """One launcher run in the background; ``result()`` waits for it
-    (killing it at the timeout) and returns ``(rc, output, seconds)``."""
+    (killing it at the timeout) and returns ``(rc, output, seconds)``,
+    ``seconds`` the launch's own, timed by a thread that waits for it from
+    the start (not until the test that reads it runs)."""
 
     def __init__(self, args, **env):
         self.t0 = time.monotonic()
@@ -56,17 +59,20 @@ class Launch:
             cwd=REPO, env=_env(**env), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self._out = None
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self):
+        try:
+            out, _ = self.proc.communicate(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self._out = (self.proc.returncode, out, time.monotonic() - self.t0)
 
     def result(self):
-        if self._out is None:
-            try:
-                out, _ = self.proc.communicate(timeout=TIMEOUT)
-            finally:
-                if self.proc.poll() is None:
-                    self.proc.kill()
-                    self.proc.communicate()
-            self._out = (self.proc.returncode, out,
-                         time.monotonic() - self.t0)
+        self._waiter.join(timeout=TIMEOUT + 30.0)
+        assert not self._waiter.is_alive(), "the launch did not end"
         return self._out
 
 
@@ -167,3 +173,65 @@ def test_launcher_splits_the_worker_command():
     assert _command_start(["-np", "2", "--elastic", "-m", "x", "-m"]) == 3
     assert _command_start(["-np", "2", "s.py", "-m", "y"]) == 2
     assert _command_start(["--grace=3", "-np", "1", "s.py", "--grace"]) == 3
+
+
+def test_launcher_holds_the_rendezvous_port_while_the_ranks_run(
+        monkeypatch):
+    """The launcher holds the job's rendezvous port bound from its choice
+    until every worker is done (a child process serves the store on it),
+    and the workers join the store as clients: when each worker starts,
+    and again when the last one ends, no other process can bind
+    ``MASTER_PORT`` (a port picked and released, then bound by rank 0
+    seconds later, can be taken meanwhile by another process of the
+    machine)."""
+    import io
+    import socket
+
+    from horovod_tpu_torch import run
+
+    def taken(port):
+        probe = socket.socket()
+        try:
+            probe.bind(("127.0.0.1", port))
+            return False
+        except OSError:
+            return True
+        finally:
+            probe.close()
+
+    seen = []
+
+    class Worker:
+        returncode = None
+
+        def __init__(self, port):
+            self.port = port
+            self.stdout = io.BytesIO(b"")
+
+        def poll(self):
+            if self.returncode is None:
+                seen.append(("ends", self.port, taken(self.port)))
+                self.returncode = 0
+            return self.returncode
+
+        def wait(self, timeout=None):
+            return self.poll()
+
+    real_popen = run.subprocess.Popen
+
+    def popen(cmd, env=None, **kw):
+        if env is None:  # the store's own process
+            return real_popen(cmd, **kw)
+        port = int(env["MASTER_PORT"])
+        seen.append(("starts", port, taken(port),
+                     {k: env.get(k) for k in run.AGENT_STORE_ENV}))
+        return Worker(port)
+
+    monkeypatch.setattr(run.subprocess, "Popen", popen)
+    assert run.main(["-np", "3", "script.py"]) == 0
+    starts = [s for s in seen if s[0] == "starts"]
+    ends = [s for s in seen if s[0] == "ends"]
+    assert len(starts) == 3 and len(ends) == 3
+    assert len({s[1] for s in seen}) == 1
+    assert all(s[2] for s in seen), seen
+    assert all(s[3] == run.AGENT_STORE_ENV for s in starts)

@@ -2,11 +2,13 @@
 """Host timings of the negotiated collectives' control channel, for two or
 more checkouts of the repo, in turns.
 
-    python3 tools/control_ab.py --trees A,B [--rounds 5]
+    python3 tools/control_ab.py --trees A,B [--rounds 5] [--tree 3:1,5:2]
+        [--hits 18]
 
-Each tree runs two jobs a round under its own launcher (``python -m
-horovod_tpu_torch.run -np N``), every rank on the CPU (``--device cpu``,
-one thread a rank), the trees in the order A, B, B, A each round:
+Each tree runs two jobs a round, and one more a ``--tree`` shape, under
+its own launcher (``python -m horovod_tpu_torch.run -np N``), every rank
+on the CPU (``--device cpu``, one thread a rank), the trees in the order
+A, B, B, A each round:
 
 - np 2, with ``HVD_TPU_FAULTS=transport.reset`` on rank 1 after 30
   frames and ``HVD_TPU_RECONNECT_GRACE=1.5``: ``reset_to_resumed``, the
@@ -18,7 +20,18 @@ one thread a rank), the trees in the order A, B, B, A each round:
   1 dies hard (``os._exit``) and rank 0 allreduces until its
   ``HorovodError`` names the dead peer, wall clock, both ranks on one
   host;
-- np 3: ``latency_np3``, the same median.
+- np 3: ``latency_np3``, the same median;
+- with ``--tree NP:FANOUT,...``, one more job for each: ``latency_tree<NP>f
+  <FANOUT>``, the same median at NP ranks under ``HVD_TPU_TREE=on`` and
+  that fanout.
+
+``--hits H`` makes each timed op a grouped allreduce of H one-element
+tensors (``hvd.grouped_allreduce``), so each rank's steady batch carries H
+cache hits (GPT-2-small's hook step sends 18); the default, 1, is the one
+``hvd.allreduce``.  Every latency job also reports ``rx_bytes_*``: the
+control bytes rank 0 received (``transport.bytes_received``, frame
+headers included) over its 200 timed ops, divided by 200; the ranks
+cycle while they wait, so a cycle with nothing in it counts too.
 
 Every rank zeroes the port's kernel launch counters after ``init`` and
 prints them before it exits; each job's line carries their sum
@@ -67,23 +80,39 @@ def rank_worker(mode: str) -> int:
 
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import telemetry
     from horovod_tpu_torch.telemetry import flight
+
+    def received():
+        return telemetry.metrics().get("transport.bytes_received",
+                                       {}).get("value", 0)
 
     hvd.init(device="cpu")
     rank = hvd.rank()
     for mod in _launch_counters():
         mod.reset_launches()
     one = torch.ones(1)
+    hits = int(os.environ.get("CONTROL_AB_HITS", "1"))
+    ones = [torch.ones(1) for _ in range(hits)]
+
+    def timed_op(name):
+        if hits == 1:
+            hvd.allreduce(one, name=name)
+        else:
+            hvd.grouped_allreduce(ones, name=name)
+
     for _ in range(50):
-        hvd.allreduce(one, name="warm")
+        timed_op("warm")
     times = []
+    rx0 = received()
     for _ in range(200):
         t0 = time.perf_counter()
-        hvd.allreduce(one, name="lat")
+        timed_op("lat")
         times.append(time.perf_counter() - t0)
     if rank == 0:
         print("CONTROL_AB " + json.dumps(
-            {"latency_ms": statistics.median(times) * 1e3}), flush=True)
+            {"latency_ms": statistics.median(times) * 1e3,
+             "rx_bytes": (received() - rx0) / 200}), flush=True)
     if mode == "latency":
         _report_launches(rank)
         hvd.shutdown()
@@ -109,10 +138,11 @@ def rank_worker(mode: str) -> int:
     os._exit(0)
 
 
-def _job(tree: str, np_: int, mode: str, env=None) -> dict:
+def _job(tree: str, np_: int, mode: str, env=None, hits: int = 1) -> dict:
     full = dict(os.environ)
     full.pop("HVD_TPU_FAULTS", None)
     full.update(env or {})
+    full["CONTROL_AB_HITS"] = str(hits)
     full["PYTHONPATH"] = os.path.abspath(tree) + os.pathsep \
         + full.get("PYTHONPATH", "")
     proc = subprocess.run(
@@ -142,18 +172,27 @@ def _sum_launches(counts) -> dict:
     return total
 
 
-def measure(tree: str) -> dict:
+def measure(tree: str, shapes=(), hits: int = 1) -> dict:
     two = _job(tree, 2, "np2", {"HVD_TPU_FAULTS": RESET_SPEC,
-                                "HVD_TPU_RECONNECT_GRACE": KILL_GRACE})
+                                "HVD_TPU_RECONNECT_GRACE": KILL_GRACE}, hits)
     if "diagnosed" not in two:
         raise RuntimeError(f"{tree}: rank 0 never diagnosed the death: "
                            f"{two}")
-    three = _job(tree, 3, "latency")
+    three = _job(tree, 3, "latency", hits=hits)
     r = {"tree": tree, "latency_np2_ms": two["latency_ms"],
          "latency_np3_ms": three["latency_ms"],
+         "rx_bytes_np2": two["rx_bytes"], "rx_bytes_np3": three["rx_bytes"],
          "kill_to_diagnosis_s": two["diagnosed"] - two["died"],
-         "kill_error": two["error"],
-         "launches": _sum_launches([two["launches"], three["launches"]])}
+         "kill_error": two["error"]}
+    jobs = [two, three]
+    for np_, fanout in shapes:
+        job = _job(tree, np_, "latency", {"HVD_TPU_TREE": "on",
+                                          "HVD_TPU_TREE_FANOUT": str(fanout)},
+                   hits)
+        r[f"latency_tree{np_}f{fanout}_ms"] = job["latency_ms"]
+        r[f"rx_bytes_tree{np_}f{fanout}"] = job["rx_bytes"]
+        jobs.append(job)
+    r["launches"] = _sum_launches([job["launches"] for job in jobs])
     if "reset_to_resumed_s" in two:
         r["reset_to_resumed_s"] = two["reset_to_resumed_s"]
     return r
@@ -164,22 +203,31 @@ def main() -> int:
     ap.add_argument("--trees", default=".",
                     help="comma-separated checkouts to compare")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--tree", default="",
+                    help="comma-separated NP:FANOUT tree jobs to add")
+    ap.add_argument("--hits", type=int, default=1,
+                    help="one-element tensors a timed op (default 1)")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker is not None:
         return rank_worker(args.rank_worker)
     trees = args.trees.split(",")
+    shapes = [tuple(int(v) for v in shape.split(":"))
+              for shape in args.tree.split(",") if shape]
     order = list(range(len(trees))) + list(reversed(range(len(trees))))
     if len(trees) == 1:
         order = [0]
     runs = {t: [] for t in trees}
     for _ in range(args.rounds):
         for i in order:
-            r = measure(trees[i])
+            r = measure(trees[i], shapes, args.hits)
             print(json.dumps(r), flush=True)
             runs[trees[i]].append(r)
     keys = ("latency_np2_ms", "latency_np3_ms", "kill_to_diagnosis_s",
-            "reset_to_resumed_s")
+            "reset_to_resumed_s", "rx_bytes_np2", "rx_bytes_np3") + tuple(
+                key for np_, fanout in shapes
+                for key in (f"latency_tree{np_}f{fanout}_ms",
+                            f"rx_bytes_tree{np_}f{fanout}"))
     print(json.dumps({"medians": {
         t: {k: statistics.median([r[k] for r in rs]) if rs and k in rs[0]
             else None for k in keys}
