@@ -17,7 +17,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              causal, bf16) and at edge cases (ragged ends across a
              128-row tile, offsets that are not tile-aligned, masked rows,
              both kernel forms: the Hopper redesign of all three kernels
-             for bf16 at head_dim 64 and 128, the first form for the
+             for bf16 at head_dim 64 to 128, the first form for the
              rest); times of the
              kernel, the plain version and torch's
              scaled_dot_product_attention pinned to its FLASH_ATTENTION
@@ -32,7 +32,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
              step, and the profiled step must show each redesigned
              kernel (forward, dK/dV, dQ) n_layers times and none of the
              first form's.
-6. eager   - first, cProfile of 1,000 synchronous 4-byte negotiated
+6. gpt3_large - GPT-3 Large (Brown et al. 2020, Table 2.1: d_model
+             1536, 16 heads of 96, 24 layers, d_ff 6144, n_ctx 2048, vocab
+             50257, bf16; 837,347,328 parameters, no cut): first the
+             flash kernels against their plain versions at head_dim 96
+             and 80 (b4 h16 s2048 d96 and b1 h32 s2048 d80 causal bf16,
+             f32 at d96 on the first form, s8192 d96, ragged, offset and
+             masked edges) and cache_attention at hd 96 (decode b8 s2
+             over a capacity of 2048, prefill b1 s2000) and the logits
+             product at vocab 50257 (serving_gemm's first form), timed
+             beside the bound, the plain version and the library call;
+             then transformer_lm.train at batch 4 x 2048 (2 warm-up and 3
+             timed steps: the loss falling, each flash kernel 24 times a
+             step, the profiled step on the Hopper forms only); then the
+             trained weights served (8 slots, page 16, capacity 2048):
+             prefill + decode bitwise serving_forward at 7, 300 and 2000
+             tokens, 8 prompts of 64-1900 tokens continuous and static
+             with the same tokens, cache_attention on its Hopper form,
+             one first-form logits product a forward_step, no flash
+             launch.
+7. eager   - first, cProfile of 1,000 synchronous 4-byte negotiated
              allreduces (tools/negotiation_profile.py) on the CPU and on
              the card, the response cache off and on; then the
              negotiated collectives on one rank with NCCL, and the
@@ -67,7 +86,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              and with HVD_TPU_DISABLE_NATIVE=1 in turns (native, python,
              python, native): the hook path bitwise equal, the same fused
              responses and cache hits a step.
-7. quant   - the quantized allreduce's codec kernels (ops/csrc/quant.cu:
+8. quant   - the quantized allreduce's codec kernels (ops/csrc/quant.cu:
              quant_pack, unpack_dequantize) against their plain PyTorch
              versions on the card, bitwise (torch.equal of the bytes), at
              the embedding's bucket (25,165,824 elements) and a 64 MB
@@ -104,7 +123,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              wire bytes a step, each flash kernel 12 times a step, and
              one profiled int8 step: the two kernels' device time
              against the bytes the quantized path must move.
-8. overlap - GPT-2-small as chained_lm_loss (embedding, 12 layer stages,
+9. overlap - GPT-2-small as chained_lm_loss (embedding, 12 layer stages,
              head) through make_train_step(overlap=off|serial|on), on
              forced (auto is off on one card): 3 steps each from the
              same weights, on == serial == off bitwise in losses and
@@ -122,7 +141,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              kernels start against the end of the last dQ (every
              quant_pack launch the one pass, asserted; its calls by
              dtype).
-9. parallel - the multi-axis step (ROADMAP A.3, first half) at
+10. parallel - the multi-axis step (ROADMAP A.3, first half) at
              GPT-2-small's widths on a one-rank mesh (data x seq x model,
              every axis of size 1: one card has no second rank):
              make_parallel_train_step with ParallelAxes(data, seq, model),
@@ -152,7 +171,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              forward and backward on the card against the CPU (loss
              1e-5, each gradient leaf 1e-4 of its largest magnitude),
              with the router's near-ties counted.
-10. sharded - ZeRO-1 and FSDP (ROADMAP A.3, second half (a)) on one rank:
+11. sharded - ZeRO-1 and FSDP (ROADMAP A.3, second half (a)) on one rank:
              GPT-2-small (the trainer's weights and batch) through
              make_train_step, make_zero_train_step and
              make_fsdp_train_step, AdamW(3e-4, the for-each form on
@@ -174,7 +193,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              update within RESNET_TOL_UPDATE (the row says which held).
              One rank moves no byte and saves no memory: the phase
              shows the path's arithmetic and costs, not a gain.
-11. pipeline - pipeline parallelism (ROADMAP A.3, second half (b)) on
+12. pipeline - pipeline parallelism (ROADMAP A.3, second half (b)) on
              one rank: GPT-2-small as chained_lm_loss (embedding, 12 layer
              stages, head: 14 stages), the trainer's weights and batch, 8
              microbatches of one sequence, through
@@ -199,7 +218,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              layers in sequence.  One card is one rank: the schedules
              cannot differ in speed; the phase shows the arithmetic and
              the costs (recompute, launches, host dispatch).
-12. checkpoint - checkpoint and resume (utils/checkpoint.py): GPT-2-small
+13. checkpoint - checkpoint and resume (utils/checkpoint.py): GPT-2-small
              (the trainer's configuration, AdamW(3e-4, foreach), seed 0)
              through make_train_step, 6 straight steps against 3 steps,
              save_checkpoint({params, opt}, step=3) without block, a 4th
@@ -221,7 +240,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              statistics bitwise the saved ones, the run starting at epoch
              1, the loss finite, everything on the card.  The files live
              under --out-dir/checkpoint_files for the phase only.
-13. serving - GPT-2-small (seed-0 weights, bf16) served by the port's
+14. serving - GPT-2-small (seed-0 weights, bf16) served by the port's
              InferenceEngine on the card: 8 slots, page size 16, capacity
              1024 (513 pages, 302,579,712 B of K and V).  First why the
              kernels exist: rows of the five products (fused QKV, wo,
@@ -262,7 +281,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              checkpoint saved, loaded and served to the same tokens.  No
              flash kernel launches in the phase, and the continuous leg
              launches only the serving kernels' Hopper forms.
-14. serving_mp - the rest of serving (ROADMAP A.4).  Rank 0 and a
+15. serving_mp - the rest of serving (ROADMAP A.4).  Rank 0 and a
              follower as two engines in one process (one card, and NCCL
              puts no two ranks on one device), the leader's broadcasts
              pickled through a queue: bench.py's trace (seed 7, 40
@@ -288,7 +307,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              tokens, the logits within twice the single-device bf16
              engine's own distance from the f32 forward (per row RMS),
              the greedy agreement with the single device reported.
-15. distill - examples/distill_draft.py: GPT-2-small's serving
+16. distill - examples/distill_draft.py: GPT-2-small's serving
              checkpoint exported and loaded, the half-size draft (d 384,
              6 heads, 6 layers, d_ff 1536) distilled 20 steps at batch 8,
              seq 1024 (loss finite and falling; the backward kernels 6
@@ -309,7 +328,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (the pipeline.* series moved by exactly each step's
              stats()), resnet (MetricsLogger's values in every epoch's
              logs of the --full flow).
-16. observe - the analysis, trace and memory tooling (ROADMAP A.5.2) at
+17. observe - the analysis, trace and memory tooling (ROADMAP A.5.2) at
              GPT-2-small's width.  (a) 3 hook-driven AdamW steps (bf16,
              batch 8, seq 1024) in a child process under
              HVD_TPU_LOCK_CHECK=1, HVD_TPU_RACE_CHECK=1,
@@ -341,7 +360,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              engine's known bytes and memory_allocated; then one more
              training step.  (e) python -m horovod_tpu_torch.analysis
              --strict over the package, as a subprocess, exits 0.
-17. elastic - elastic training and serving (ROADMAP A.5.3).
+18. elastic - elastic training and serving (ROADMAP A.5.3).
              (a) GPT-2-small (bf16, batch 8, seq 1024, AdamW) through
              Trainer, TrainerState and @elastic.run, as a child of
              python -m horovod_tpu_torch.run --elastic -np 1 (this file
@@ -366,7 +385,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (process start and init, restore and sync, the step), the
              retry's rollback and sync, drain_commit ms and blob bytes,
              the serving sync ms and the resumed requests' TTFT.
-18. control - the TCP control channel (ROADMAP A.5 item 4 with A.2 item
+19. control - the TCP control channel (ROADMAP A.5 item 4 with A.2 item
              8), host code whose multi-rank legs run as CPU ranks on the
              card's machine (one card is one NCCL rank, and one rank
              has no exchange); the channel launches no kernel.  (a)
@@ -404,7 +423,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              reports them; the kernels line's "control" count is their
              sum (the matrix's serving scenarios on the card launch
              serving_gemm and cache_attention; the CPU ranks none).
-19. tuning - closed-loop tuning (ROADMAP A.5 item 5: tuning/,
+20. tuning - closed-loop tuning (ROADMAP A.5 item 5: tuning/,
              utils/autotune.py, RETUNE markers on the cycle, live
              spec_tokens and prefix_pages).  (a) GPT-2-small (bf16,
              batch 8, seq 1024) through the hook-driven
@@ -434,7 +453,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              cycles and ms from enqueue to apply, the sweep's scores,
              tuning.applied/decisions/vetoes/rollbacks, the turns' step
              ms, the phase's seconds and its kernel launches.
-20. routing - the fleet router (ROADMAP A.5 item 6: routing/'s
+21. routing - the fleet router (ROADMAP A.5 item 6: routing/'s
              HttpReplicaClient, Router, FleetAutoscaler, RouterServer).
              GPT-2-small (bf16, one set of weights from --seed, default
              21) served by LMServer replicas (8 slots, page 16, capacity
@@ -471,7 +490,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              latency, affinity hits, the drain-to-continuation time, the
              newcomer's seeded pages, the decisions and the phase's
              seconds.
-21. word2vec - skip-gram word2vec with sparse embedding gradients
+22. word2vec - skip-gram word2vec with sparse embedding gradients
              (examples/word2vec.py) at upstream Horovod's
              tensorflow_word2vec.py configuration: vocabulary 50,000,
              embedding 128, batch 128, 64 negatives, window 2, a seeded
@@ -481,7 +500,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              weights and batch (1e-5 relative); steps/s, pairs/s, the
              sparse bytes a step against the dense table's 25.6 MB, and
              one profiled step (idle share).
-22. resnet - ResNet data parallelism, which runs no kernel of the port's
+23. resnet - ResNet data parallelism, which runs no kernel of the port's
              own (convolutions and batch norm are cuDNN/ATen): one
              ResNet18Thin train step (f32, TF32 off) on the card against
              the same step on the CPU; the --full example flow (ResNet-50,
@@ -527,8 +546,9 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "long", "trainer", "eager", "quant",
-          "overlap", "parallel", "sharded", "pipeline", "checkpoint",
+PHASES = ("device", "build", "kernels", "long", "trainer", "gpt3_large",
+          "eager", "quant", "overlap", "parallel", "sharded", "pipeline",
+          "checkpoint",
           "serving", "serving_mp", "distill", "observe", "elastic",
           "control", "tuning", "routing", "word2vec", "resnet")
 
@@ -561,8 +581,10 @@ PEAK_BYTES = 3.35e12
 TOL_F32_FWD, TOL_F32_BWD = 5e-5, 1e-4
 RTOL_BF16, ATOL_BF16, ATOL_FLOOR_BF16 = 2.0 ** -7, 2.0 ** -5, 2.0 ** -9
 
-# The library yardstick's backend (torch.nn.attention.SDPBackend member).
+# The library yardstick's backend (torch.nn.attention.SDPBackend member);
+# its flash backend takes no f32, so f32 cases pin the memory-efficient one.
 SDP_BACKEND_NAME = "FLASH_ATTENTION"
+SDP_BACKEND_F32_NAME = "EFFICIENT_ATTENTION"
 
 # Kernel-name substrings that sort a profiled step's device time by kind
 # (a kernel matching none is in no kind; the kinds may overlap).
@@ -788,8 +810,10 @@ def kernel_case(fa, *, b, h, q_len, kv_len, d, causal, q_offset, dtype,
     f = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4, g4 = (t.view(b, h, -1, d) for t in (q, k, v, g))
     lib = {"flash_fwd": None, "bwd": None}
+    backend = (SDP_BACKEND_F32_NAME if dtype == torch.float32
+               else SDP_BACKEND_NAME)
     if q_len == kv_len and q_offset == 0:
-        with sdpa_kernel(getattr(SDPBackend, SDP_BACKEND_NAME)):
+        with sdpa_kernel(getattr(SDPBackend, backend)):
             lib["flash_fwd"] = cuda_time_ms(
                 lambda: f(q4, k4, v4, is_causal=causal), queued=queued)
             ql, kl, vl = (t.detach().requires_grad_(True)
@@ -983,18 +1007,27 @@ def profile_step(step, out_dir, prefix):
                     for name, (ms, n) in top[:12]]}
 
 
-def phase_trainer(fa, smi_line, out_dir):
-    import horovod_tpu_torch as hvd
+def train_and_profile(fa, cfg, *, model, batch, seq, warmup, steps,
+                      smi_line, out_dir, phase):
+    """``cfg`` trained through ``transformer_lm.train`` (the monolithic
+    step) for ``warmup + steps`` steps on the card, then one more step
+    profiled: the loss finite and falling, each flash kernel launched
+    n_layers times a step by the counters, all on its Hopper form at the
+    model's head_dim, and only the Hopper forms' kernels, each n_layers
+    times, in the profiled step.  Logs ``{"phase": phase}`` and
+    ``{"phase": phase + "_profile"}``; returns the launches at that
+    (form, head_dim) and the run (its step, parameters and batch)."""
     from horovod_tpu_torch.examples import transformer_lm
 
-    cfg = transformer_lm.bench_config()
-    batch, seq, warmup, steps = 8, 1024, 2, 5
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     run = transformer_lm.train(cfg, batch=batch, seq=seq,
                                steps=warmup + steps, timed_from=warmup,
                                device="cuda", seed=0)
-    launches = dict(fa.launches)
+    head_dim = cfg.d_model // cfg.n_heads
+    by_form = dict(fa.launches_by_form)
+    launches = {name: by_form.get((name, "sm90", head_dim), 0)
+                for name in fa.KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = run["losses"]
     if not all(np.isfinite(losses)):
@@ -1002,22 +1035,25 @@ def phase_trainer(fa, smi_line, out_dir):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     per_step = {n: c / (warmup + steps) for n, c in launches.items()}
-    if any(c != cfg.n_layers * (warmup + steps) for c in launches.values()):
+    if any(c != cfg.n_layers * (warmup + steps) for c in launches.values()) \
+            or sum(by_form.values()) != sum(launches.values()):
         raise AssertionError(
             f"each kernel must launch n_layers={cfg.n_layers} times a "
-            f"step; launches over {warmup + steps} steps: {launches}")
+            f"step, on its sm90 form at head_dim {head_dim}; launches over "
+            f"{warmup + steps} steps by (kernel, form, head_dim): {by_form}")
     step_ms = run["timed_seconds"] / steps * 1e3
-    log({"phase": "trainer", "model": "GPT-2-small",
-         "params": run["n_params"], "batch": batch, "seq": seq,
+    log({"phase": phase, "model": model, "params": run["n_params"],
+         "batch": batch, "seq": seq, "head_dim": head_dim,
          "dtype": "bfloat16", "losses": losses, "step_ms": step_ms,
          "tokens_per_s": batch * seq * steps / run["timed_seconds"],
          "launches_per_step": per_step, "device": smi_line,
          "peak_mem_gb": peak_gb})
     prof = profile_step(lambda: run["step"](run["params"], run["data"]),
-                        out_dir, "trainer")
-    log({"phase": "trainer_profile", **prof})
-    # No fallback: bf16 at head_dim 64 runs the three redesigned kernels,
-    # each once a layer, never the first form's kernels of the same names.
+                        out_dir, phase)
+    log({"phase": f"{phase}_profile", **prof})
+    # No fallback: bf16 at head_dim 64 to 128 runs the three redesigned
+    # kernels, each once a layer, never the first form's kernels of the
+    # same names.
     names = " ".join(prof["flash_kernels"])
     for want in ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
                  "flash_bwd_dq_sm90_kernel"):
@@ -1031,8 +1067,258 @@ def phase_trainer(fa, smi_line, out_dir):
         if first_form in names:
             raise AssertionError(f"the profiled step ran {first_form}: "
                                  f"{names}")
+    return launches, run
+
+
+def phase_trainer(fa, smi_line, out_dir):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import transformer_lm
+
+    launches, _ = train_and_profile(
+        fa, transformer_lm.bench_config(), model="GPT-2-small", batch=8,
+        seq=1024, warmup=2, steps=5, smi_line=smi_line, out_dir=out_dir,
+        phase="trainer")
     hvd.shutdown()
     return launches
+
+
+# GPT-3 Large (Brown et al. 2020, "Language Models are Few-Shot Learners",
+# Table 2.1): d_model 1536, 16 heads of 96, 24 layers, n_ctx 2048, d_ff 4
+# d_model, in the repo's GPT-2-style blocks (pre-LN, learned positions,
+# tanh GELU, untied unembedding) over GPT-2's vocabulary of 50257, bf16:
+# 837,347,328 parameters (the paper's 760M counts one tied embedding).
+# No cut: every layer, width and the full context.
+GPT3_LARGE_PARAMS = 837_347_328
+
+
+def gpt3_large_config():
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(vocab_size=50257, d_model=1536, n_heads=16,
+                             n_layers=24, d_ff=6144, max_seq_len=2048,
+                             dtype=torch.bfloat16)
+
+
+# The flash kernels at the partial second panel, (label, kernel_case
+# arguments, timed): GPT-3 Large's training shape; GPT-3 2.7B's attention
+# (32 heads of 80, Table 2.1); f32 at d96 (the first form); the streamed
+# rows (kv > 4096: rows 2, 5, 6 of PERF.md's table) at d96; then untimed
+# ragged, offset and masked edges.
+GPT3_FLASH_CASES = (
+    ("gpt3_large b4 h16 s2048 d96 causal bf16",
+     dict(b=4, h=16, q_len=2048, kv_len=2048, d=96, causal=True, q_offset=0,
+          dtype=torch.bfloat16), True),
+    ("gpt3_2.7b b1 h32 s2048 d80 causal bf16",
+     dict(b=1, h=32, q_len=2048, kv_len=2048, d=80, causal=True, q_offset=0,
+          dtype=torch.bfloat16), True),
+    ("f32 b1 h4 s1024 d96 causal (first form)",
+     dict(b=1, h=4, q_len=1024, kv_len=1024, d=96, causal=True, q_offset=0,
+          dtype=torch.float32), True),
+    ("streamed b1 h16 s8192 d96 causal bf16",
+     dict(b=1, h=16, q_len=8192, kv_len=8192, d=96, causal=True, q_offset=0,
+          dtype=torch.bfloat16), True),
+    ("bf16 ragged 1000 d96",
+     dict(b=2, h=4, q_len=1000, kv_len=1000, d=96, causal=True, q_offset=0,
+          dtype=torch.bfloat16), False),
+    ("bf16 non-causal q300 kv1000 d80",
+     dict(b=2, h=4, q_len=300, kv_len=1000, d=80, causal=False, q_offset=0,
+          dtype=torch.bfloat16), False),
+    ("bf16 q256 kv1024 offset 700 d96",
+     dict(b=2, h=4, q_len=256, kv_len=1024, d=96, causal=True, q_offset=700,
+          dtype=torch.bfloat16), False),
+    ("bf16 partly masked (offset -100) d80",
+     dict(b=1, h=2, q_len=200, kv_len=256, d=80, causal=True, q_offset=-100,
+          dtype=torch.bfloat16), False),
+    ("f32 ragged 200 non-causal d80",
+     dict(b=1, h=2, q_len=200, kv_len=200, d=80, causal=False, q_offset=0,
+          dtype=torch.float32), False),
+)
+GPT3_CAPACITY = 2048
+
+
+def logits_gemm_case(S, g, M, K, N):
+    """``serving_gemm``'s f32 logits product ``x [M, K] @ w [K, N]`` against
+    its plain version (1e-5 of each row's RMS), two runs bitwise, in the
+    form ``serving_gemm_form`` gives it (at vocab 50257, not a multiple
+    of 8: the first form), timed beside the bound, the plain version and
+    ``torch.matmul`` of f32 copies (made once, off the clock)."""
+    x = torch.randn(M, K, generator=g).cuda().bfloat16()
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).cuda().bfloat16()
+    form = S.serving_gemm_form(torch.bfloat16, K, N)[0]
+    S.reset_launches()
+    got = S.serving_gemm(x, w, out_dtype=torch.float32)
+    again = S.serving_gemm(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if S.launches_by_form[("serving_gemm", form)] != 2:
+        raise AssertionError(f"serving_gemm logits M{M}: launches by form "
+                             f"{S.launches_by_form}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"serving_gemm logits M{M}: two runs differ")
+    err, margin = check(f"serving_gemm logits M{M} N{N}", got,
+                        S.serving_gemm_plain(x, w, torch.float32),
+                        _row_rms_allowed(SERVING_TOL_F32))
+    b_ms, b_by = bound(2.0 * M * N * K, (M * K + K * N) * 2 + M * N * 4,
+                       torch.bfloat16)
+    xf, wf = x.float(), w.float()
+    return {"form": form,
+            "ms": cuda_time_ms(lambda: S.serving_gemm(
+                x, w, out_dtype=torch.float32), iters=20, queued=True),
+            "plain_ms": cuda_time_ms(lambda: S.serving_gemm_plain(
+                x, w, torch.float32), iters=3, warmup=1),
+            "library_ms": cuda_time_ms(lambda: torch.matmul(xf, wf),
+                                       iters=20, queued=True),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "worst_over_allowed": margin}
+
+
+def gpt3_large_serving(fa, cfg, params, smi_line):
+    """GPT-3 Large served by the port's engine (8 slots, page 16,
+    capacity 2048) with the trained weights: prefill + decode bitwise
+    serving_forward at 7, 300 and 2000 tokens (the last to the capacity
+    boundary); 8 prompts of 64-1900 tokens (8-32 new tokens, seed 25)
+    continuous and static, the same tokens; cache_attention on its Hopper
+    form only, the logits product (vocab 50257) on serving_gemm's first
+    form once a forward_step, no flash launch.  Returns the serving
+    kernels' launches on the continuous leg and the contract's rows."""
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.serving import InferenceEngine, harness
+
+    def engine_of():
+        return InferenceEngine(params, cfg, device="cuda", max_slots=8,
+                               page_size=16, capacity=GPT3_CAPACITY)
+
+    def forward(tokens):
+        with torch.no_grad():
+            return tt.serving_forward(params, torch.tensor(
+                [tokens], device="cuda"), cfg,
+                GPT3_CAPACITY)[0].cpu().numpy()
+
+    gen = torch.Generator().manual_seed(25)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    fa.reset_launches()
+    rows = prefill_decode_bitwise(
+        engine_of, forward, [prompt(7), prompt(300), prompt(2000)],
+        (16, 16, 64), GPT3_CAPACITY)
+    lens = torch.randint(64, 1901, (8,), generator=gen).tolist()
+    news = torch.randint(8, 33, (8,), generator=gen).tolist()
+    trace = [{"prompt": prompt(n), "max_new": m, "arrival": i // 2}
+             for i, (n, m) in enumerate(zip(lens, news))]
+    legs, launches = {}, None
+    for continuous in (True, False):
+        eng = engine_of()
+        eng.generate(prompt(16), max_new_tokens=2)  # off the clock
+        cap = _Capture(eng)
+        if continuous:
+            S.reset_launches()
+        run = harness.run_trace(eng, trace, continuous)
+        forward_steps = len(cap.times["decode"]) + sum(
+            len(t) for t in cap.times["prefill"].values())
+        if continuous:
+            launches = dict(S.launches)
+            launches["by_form"] = {f"{name}/{form}": n for (name, form), n
+                                   in S.launches_by_form.items()}
+            launches["forward_steps"] = forward_steps
+        tokens = sum(len(t) for t in run["tokens"])
+        legs["continuous" if continuous else "static"] = {
+            "tokens_per_s": tokens / run["seconds"], "tokens": tokens,
+            "iterations": run["iterations"], "seconds": run["seconds"],
+            "decode_iteration_ms_p50": _pct(cap.times["decode"], 0.5),
+            "prefill_ms_by_bucket_p50": {
+                b: _pct(ts, 0.5) for b, ts in sorted(
+                    cap.times["prefill"].items())},
+            "out": run["tokens"]}
+        del eng
+    if legs["continuous"]["out"] != legs["static"]["out"]:
+        raise AssertionError("GPT-3 Large: continuous and static batching "
+                             "gave different tokens")
+    for leg in legs.values():
+        leg.pop("out")
+    if any(fa.launches.values()):
+        raise AssertionError(f"GPT-3 Large's serving launched flash "
+                             f"kernels: {fa.launches}")
+    by_form = launches["by_form"]
+    if not launches["cache_attention"] or by_form["cache_attention/first"] \
+            or by_form["cache_attention/sm90"] != launches["cache_attention"]:
+        raise AssertionError(f"cache_attention at hd 96 left its Hopper "
+                             f"form: {launches}")
+    # One logits product a forward_step, on the first form (vocab 50257
+    # is not a multiple of 8); every other product on the Hopper form.
+    if by_form["serving_gemm/first"] != launches["forward_steps"] or \
+            not by_form["serving_gemm/sm90"]:
+        raise AssertionError(f"serving_gemm's forms on GPT-3 Large: "
+                             f"{launches}")
+    out = {"prefill_decode_rows_bitwise": rows, "prompt_lengths": lens,
+           "new_tokens": news, **legs, "launches_continuous": launches,
+           "device": smi_line}
+    log({"phase": "gpt3_large_serving", **out})
+    return out
+
+
+def phase_gpt3_large(fa, smi_line, out_dir):
+    """GPT-3 Large on the card (ROADMAP §B: head_dim 96): the flash
+    kernels and cache_attention at head_dim 80 and 96 against their plain
+    versions, timed; the model trained through transformer_lm.train
+    (batch 4 x 2048, 2 warm-up and 3 timed steps, each flash kernel 24
+    times a step on its Hopper form) and its weights served.  Returns
+    the kernel numbers and each path's launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import serving as S
+    from horovod_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = gpt3_large_config()
+    flash = {}
+    for i, (label, kw, timed) in enumerate(GPT3_FLASH_CASES):
+        flash[label] = kernel_case(fa, seed=250 + i, timing=timed, **kw)
+        backend = (SDP_BACKEND_F32_NAME if kw["dtype"] == torch.float32
+                   else SDP_BACKEND_NAME)
+        log({"phase": "gpt3_large_kernels", "case": label,
+             "library": f"scaled_dot_product_attention, SDPBackend."
+                        f"{backend}", "result": flash[label]})
+        torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(25)
+    H, hd, cap = cfg.n_heads, cfg.d_model // cfg.n_heads, GPT3_CAPACITY
+    serving = {
+        "attention_decode": attention_case(
+            S, g, label="decode hd96", b=8, s=2, H=H, hd=hd, cap=cap,
+            lengths=torch.tensor([0, 5, 100, 700, 1023, 1500, 2045, -1])),
+        "attention_prefill": attention_case(
+            S, g, label="prefill hd96", b=1, s=2000, H=H, hd=hd, cap=cap,
+            lengths=torch.tensor([0])),
+        "gemm_logits_M16": logits_gemm_case(S, g, 16, cfg.d_model,
+                                            cfg.vocab_size),
+        "gemm_logits_M2048": logits_gemm_case(S, g, 2048, cfg.d_model,
+                                              cfg.vocab_size)}
+    for key, r in serving.items():
+        log({"phase": "gpt3_large_kernels", "case": key, **r})
+    if serving["gemm_logits_M16"]["form"] != "first":
+        raise AssertionError("the logits product at vocab 50257 left the "
+                             "first form")
+    torch.cuda.empty_cache()
+
+    launches, run = train_and_profile(
+        fa, cfg, model="GPT-3 Large", batch=4, seq=2048, warmup=2, steps=3,
+        smi_line=smi_line, out_dir=out_dir, phase="gpt3_large_trainer")
+    if run["n_params"] != GPT3_LARGE_PARAMS:
+        raise AssertionError(f"GPT-3 Large has {run['n_params']} "
+                             f"parameters, not {GPT3_LARGE_PARAMS}")
+    params = tree_map(lambda x: x.detach(), run["params"])
+    del run
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    served = gpt3_large_serving(fa, cfg, params, smi_line)
+    del params
+    torch.cuda.empty_cache()
+    log({"phase": "gpt3_large", "device": smi_line,
+         "seconds": time.perf_counter() - t_phase})
+    return {"flash": flash, "serving_cases": serving, "launches": launches,
+            "serving": served}
 
 
 EAGER_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
@@ -4224,14 +4510,80 @@ def serving_tensor_map_us(S, iters=1000) -> float:
     return us
 
 
+def attention_case(S, g, *, label, b, s, H, hd, cap, lengths, host=False):
+    """``cache_attention`` against its plain version on the card: ``b``
+    sequences of ``s`` query rows starting at ``lengths`` (-1: an
+    inactive slot) over K/V views of ``cap`` rows; two runs bitwise, the
+    Hopper form by the counters, timed in turns with the first form,
+    beside the bound, the plain version and SDPA; ``host``: the host µs
+    of a launch too (the decode shape)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    form = S.cache_attention_form(torch.bfloat16, hd)
+    if form != "sm90":
+        raise AssertionError(f"cache_attention at hd {hd} takes the {form} "
+                             f"form")
+    q = torch.randn(b, s, H, hd, generator=g).cuda().bfloat16()
+    k = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
+    v = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
+    pos = (lengths[:, None] + torch.arange(s)[None]).cuda()
+    pos = torch.where(lengths[:, None].cuda() < 0, -1, pos)
+    S.reset_launches()
+    got = S.cache_attention(q, k, v, pos)
+    again = S.cache_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    if S.launches_by_form[("cache_attention", "sm90")] != 2:
+        raise AssertionError(f"cache_attention {label}: launches by "
+                             f"form {S.launches_by_form}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"cache_attention {label}: two runs differ")
+    want = S.cache_attention_plain(q, k, v, pos)
+    err, margin = check(f"cache_attention {label}", got, want, bf16_allowed)
+    check(f"cache_attention {label} first form",
+          S._first_form_attention(q, k, v, pos), want, bf16_allowed)
+    if not bool((got[pos < 0] == 0).all()):
+        raise AssertionError("an inactive row is not zero")
+    # The bytes this run's rows need: q of the active rows, every output
+    # row, and each batch's K and V rows up to its furthest query (the
+    # kernels read j < min(q_pos + 1, cap) and nothing for an inactive
+    # row); the products at the bf16 tensor-core rate.
+    visible = int(torch.clamp(pos + 1, 0, cap).sum()) * H
+    kv_rows = int(torch.clamp(pos + 1, 0, cap).amax(dim=1).sum())
+    nbytes = (int((pos >= 0).sum()) * H * hd + b * s * H * hd
+              + 2 * kv_rows * H * hd) * 2
+    b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.bfloat16)
+    mask = (torch.arange(cap, device="cuda")[None, None, None, :]
+            <= pos[:, None, :, None])
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ms, first_ms = _in_turns(
+        [lambda: S.cache_attention(q, k, v, pos),
+         lambda: S._first_form_attention(q, k, v, pos)],
+        iters=20, queued=True)
+    times = {}
+    if host:
+        (times["host_us"], times["first_form_host_us"],
+         times["wrapper_host_us"]) = _in_turns(
+            [lambda: S._sm90_attention(q, k, v, pos),
+             lambda: S._first_form_attention(q, k, v, pos),
+             lambda: S.cache_attention(q, k, v, pos)],
+            rounds=2, timer=host_us_per_call)
+    return {"form": form, "ms": ms, "first_form_ms": first_ms, **times,
+            "plain_ms": cuda_time_ms(
+                lambda: S.cache_attention_plain(q, k, v, pos), iters=2,
+                warmup=1),
+            "library_ms": cuda_time_ms(
+                lambda: sdpa(qf, kf, vf, attn_mask=mask), iters=20,
+                queued=True),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "worst_over_allowed": margin}
+
+
 def serving_kernel_cases(S, cfg, g):
     """Each kernel against its plain version on the card at the main
     path's shapes, two runs bitwise, the form each case takes by the
     counters, timed beside the bound, the library call and (in turns)
     the first form's bf16 build; then K and V views holding NaN past
     every row's position."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     out = {}
     for M in (16, 1024):
@@ -4270,8 +4622,9 @@ def serving_kernel_cases(S, cfg, g):
             nbytes = (M * K + K * N) * x.element_size() + M * N * (
                 2 if odt == torch.bfloat16 else 4)
             b_ms, b_by = bound(2.0 * M * N * K, nbytes, dt)
-            lib = ((lambda: torch.matmul(x, w)) if odt == dt else
-                   (lambda: torch.matmul(x.float(), w.float())))
+            # f32 out: torch.matmul of f32 copies, made off the clock.
+            xf, wf = (x, w) if odt == dt else (x.float(), w.float())
+            lib = lambda: torch.matmul(xf, wf)  # noqa: E731
             ms, first_ms = _in_turns(
                 [lambda: S.serving_gemm(x, w, odt),
                  lambda: S._first_form_gemm(x, w, odt)],
@@ -4316,69 +4669,13 @@ def serving_kernel_cases(S, cfg, g):
             "split": S.serving_gemm_form(torch.bfloat16, K, N)[2],
             "max_abs_err": err, "worst_over_allowed": margin}
     H, hd, cap = cfg.n_heads, d // cfg.n_heads, 1024
-    form = S.cache_attention_form(torch.bfloat16, hd)
-    if form != "sm90":
-        raise AssertionError(f"cache_attention takes the {form} form")
     for label, b, s, lengths in (
             ("decode", 8, 2, torch.tensor([0, 5, 100, 511, 700, 1000, 1021,
                                            -1])),
             ("prefill", 1, 1024, torch.tensor([0]))):
-        q = torch.randn(b, s, H, hd, generator=g).cuda().bfloat16()
-        k = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
-        v = torch.randn(b, cap, H, hd, generator=g).cuda().bfloat16()
-        pos = (lengths[:, None] + torch.arange(s)[None]).cuda()
-        pos = torch.where(lengths[:, None].cuda() < 0, -1, pos)
-        S.reset_launches()
-        got = S.cache_attention(q, k, v, pos)
-        again = S.cache_attention(q, k, v, pos)
-        torch.cuda.synchronize()
-        if S.launches_by_form[("cache_attention", "sm90")] != 2:
-            raise AssertionError(f"cache_attention {label}: launches by "
-                                 f"form {S.launches_by_form}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"cache_attention {label}: two runs differ")
-        want = S.cache_attention_plain(q, k, v, pos)
-        err, margin = check(f"cache_attention {label}", got, want,
-                            bf16_allowed)
-        check(f"cache_attention {label} first form",
-              S._first_form_attention(q, k, v, pos), want,
-              bf16_allowed)
-        if not bool((got[pos < 0] == 0).all()):
-            raise AssertionError("an inactive row is not zero")
-        # The bytes this run's rows need: q of the active rows, every
-        # output row, and each batch's K and V rows up to its furthest
-        # query (the kernels read j < min(q_pos + 1, cap) and nothing for
-        # an inactive row); the products at the bf16 tensor-core rate.
-        visible = int(torch.clamp(pos + 1, 0, cap).sum()) * H
-        kv_rows = int(torch.clamp(pos + 1, 0, cap).amax(dim=1).sum())
-        nbytes = (int((pos >= 0).sum()) * H * hd + b * s * H * hd
-                  + 2 * kv_rows * H * hd) * 2
-        b_ms, b_by = bound(4.0 * visible * hd, nbytes, torch.bfloat16)
-        mask = (torch.arange(cap, device="cuda")[None, None, None, :]
-                <= pos[:, None, :, None])
-        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
-        ms, first_ms = _in_turns(
-            [lambda: S.cache_attention(q, k, v, pos),
-             lambda: S._first_form_attention(q, k, v, pos)],
-            iters=20, queued=True)
-        host = {}
-        if label == "decode":
-            (host["host_us"], host["first_form_host_us"],
-             host["wrapper_host_us"]) = _in_turns(
-                [lambda: S._sm90_attention(q, k, v, pos),
-                 lambda: S._first_form_attention(q, k, v, pos),
-                 lambda: S.cache_attention(q, k, v, pos)],
-                rounds=2, timer=host_us_per_call)
-        out[f"attention_{label}"] = {
-            "form": form, "ms": ms, "first_form_ms": first_ms, **host,
-            "plain_ms": cuda_time_ms(
-                lambda: S.cache_attention_plain(q, k, v, pos), iters=2,
-                warmup=1),
-            "library_ms": cuda_time_ms(
-                lambda: sdpa(qf, kf, vf, attn_mask=mask), iters=20,
-                queued=True),
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "worst_over_allowed": margin}
+        out[f"attention_{label}"] = attention_case(
+            S, g, label=label, b=b, s=s, H=H, hd=hd, cap=cap,
+            lengths=lengths, host=label == "decode")
     # NaN past every row's position, in views one row longer than the
     # capacity (forward_step's): the output finite and within tolerance
     # of the plain version on a zeroed copy, at decode and prefill.
@@ -4456,6 +4753,37 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(q * (len(xs) - 1)))] if xs else None
 
 
+def prefill_decode_bitwise(engine_of, forward, prompts, news, capacity):
+    """The contract's first clause on one engine: each prompt's prefill
+    and its width-2 decodes, sharing the decode batch, give the logits
+    rows of ``forward`` (serving_forward) over the prompt and its tokens,
+    bit for bit; the last prompt decodes to the capacity boundary.
+    Returns the rows checked."""
+    eng = engine_of()
+    cap = _Capture(eng)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    eng.run_until_idle()
+    checked = 0
+    for p, r in zip(prompts, reqs):
+        gen = r.result(0)
+        ref = forward(p + gen[:-1])
+        rows = cap.rows[r.rid]
+        if len(rows) != len(gen):
+            raise AssertionError(f"{len(rows)} logits rows for {len(gen)} "
+                                 f"tokens")
+        for i, row in enumerate(rows):
+            if row.tobytes() != ref[len(p) - 1 + i].tobytes():
+                raise AssertionError(
+                    f"prompt {len(p)}: row {i} (position {len(p) - 1 + i}) "
+                    f"differs from serving_forward")
+            checked += 1
+    if reqs[-1].finish_reason != "capacity" or \
+            len(prompts[-1]) + len(reqs[-1].result(0)) != capacity:
+        raise AssertionError(f"the {len(prompts[-1])}-token prompt did not "
+                             f"decode to the capacity boundary")
+    return checked
+
+
 def serving_contract(cfg, params, engine_of, g):
     """The bitwise contract on the card, at GPT-2-small's widths."""
     import horovod_tpu_torch.telemetry as telemetry
@@ -4478,30 +4806,9 @@ def serving_contract(cfg, params, engine_of, g):
     # (a) prefill p + N width-2 decodes == serving_forward, row by row,
     # three prompts sharing the decode batch; the 1000-token one decodes
     # to the capacity boundary.
-    eng = engine_of()
-    cap = _Capture(eng)
-    prompts = [prompt(7, 1), prompt(300, 2), prompt(1000, 3)]
-    reqs = [eng.submit(p, max_new_tokens=n) for p, n in
-            zip(prompts, (16, 16, 64))]
-    eng.run_until_idle()
-    checked = 0
-    for p, r in zip(prompts, reqs):
-        gen = r.result(0)
-        ref = forward(p + gen[:-1])
-        rows = cap.rows[r.rid]
-        if len(rows) != len(gen):
-            raise AssertionError(f"{len(rows)} logits rows for {len(gen)} "
-                                 f"tokens")
-        for i, row in enumerate(rows):
-            if row.tobytes() != ref[len(p) - 1 + i].tobytes():
-                raise AssertionError(
-                    f"prompt {len(p)}: row {i} (position {len(p) - 1 + i}) "
-                    f"differs from serving_forward")
-            checked += 1
-    if reqs[2].finish_reason != "capacity" or \
-            len(prompts[2]) + len(reqs[2].result(0)) != 1024:
-        raise AssertionError("the 1000-token prompt did not decode to the "
-                             "capacity boundary")
+    checked = prefill_decode_bitwise(
+        engine_of, forward, [prompt(7, 1), prompt(300, 2), prompt(1000, 3)],
+        (16, 16, 64), 1024)
     result["prefill_decode_rows_bitwise"] = checked
     # (b) a ragged batch of 8 slots == each sequence alone.
     ragged = [prompt(n, 10 + i) for i, n in
@@ -5091,9 +5398,10 @@ def serving_shard_kernels(S, cfg, g):
                 b_ms, b_by = bound(2.0 * M * N * K, nbytes, torch.bfloat16)
                 ms = cuda_time_ms(lambda: S.serving_gemm(xm, w, odt),
                                   iters=20, queued=True)
-                lib = ((lambda: torch.matmul(xm, w))
-                       if odt == torch.bfloat16 else
-                       (lambda: torch.matmul(xm.float(), w.float())))
+                # f32 out: torch.matmul of f32 copies, made off the clock.
+                xf, wf = ((xm, w) if odt == torch.bfloat16 else
+                          (xm.float(), w.float()))
+                lib = lambda: torch.matmul(xf, wf)  # noqa: E731
                 out[f"tp{tp}_{name}_M{M}"] = {
                     "K": K, "N": N, "out": str(odt), "tile_n": tile_n,
                     "split": split, "ms": ms, "bound_ms": b_ms,
@@ -8392,6 +8700,8 @@ def main() -> int:
         phase_long(fa)
     launches = (phase_trainer(fa, smi, args.out_dir) if "trainer" in phases
                 else None)
+    gpt3 = (phase_gpt3_large(fa, smi, args.out_dir) if "gpt3_large" in phases
+            else None)
     if "eager" in phases:
         phase_eager(fa, smi, args.out_dir)
     quant = (phase_quant(fa, smi, args.out_dir) if "quant" in phases
@@ -8473,6 +8783,23 @@ def main() -> int:
                 **({"tuning": tuning["flash"][name]} if tuning else {}),
                 **({"routing": routing["flash"][name]}
                    if routing else {})}})
+    # GPT-3 Large's path: the same three kernels at bf16 head_dim 96 (the
+    # Hopper forms' partial second panel); launches counted at that
+    # (form, head_dim).  The other widths and forms the phase times (d80,
+    # f32, s8192) run on no path: they stay in its gpt3_large_kernels lines.
+    if gpt3 is not None:
+        label = GPT3_FLASH_CASES[0][0]
+        for name in fa.KERNELS:
+            r = gpt3["flash"][label][name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": sources[name],
+                "replaces": replaces[name],
+                "launches": gpt3["launches"][name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "form": "sm90", "head_dim": 96, "case": label,
+                "launches_by_path": {"gpt3_large": gpt3["launches"][name]}})
     # The quantized allreduce's codec (no Pallas counterpart: the
     # reference compiles it into its XLA megakernel), timed at the
     # embedding's bucket in bf16; launches from the int8 hook path.
@@ -8537,6 +8864,34 @@ def main() -> int:
                        if tuning else {}),
                     **({"routing": routing["serving"][name]}
                        if routing else {})}})
+    # GPT-3 Large's serving kernels, timed at the decode shape:
+    # cache_attention at hd 96 on its Hopper form; the logits product at
+    # vocab 50257 on serving_gemm's first form.  Launches by form from
+    # the GPT-3 Large engine's continuous leg.
+    if gpt3 is not None:
+        served = gpt3["serving"]["launches_continuous"]
+        for case, name, source in (
+                ("attention_decode", "cache_attention",
+                 "cache_attention_sm90.cuh"),
+                ("gemm_logits_M16", "serving_gemm", "serving.cu")):
+            r = gpt3["serving_cases"][case]
+            count = served["by_form"][f"{name}/{r['form']}"]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"horovod_tpu_torch/ops/csrc/{source}",
+                "replaces": (
+                    "horovod_tpu/models/transformer.py:458 (jnp.einsum "
+                    ":480,:492; no Pallas kernel)" if name == "cache_attention"
+                    else "horovod_tpu/models/transformer.py:570 (jnp.dot; "
+                    "no Pallas kernel)"),
+                "launches": count, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "form": r["form"],
+                **({"first_form_ms": r["first_form_ms"]}
+                   if "first_form_ms" in r else {}),
+                "case": f"gpt3_large {case}",
+                "launches_by_path": {"gpt3_large": count}})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-// cache_attention for bf16 at head_dim 64 and 128, redesigned for Hopper:
+// cache_attention for bf16 at head_dim 64, 80, 96 and 128, redesigned for
+// Hopper:
 // masked attention of q [b, s, heads, hd] at positions q_pos [b, s]
 // against a fixed-capacity KV view [b, cap, heads, hd]; key j takes part
 // in row (b, i) iff j <= q_pos[b, i] (and j < cap); a row with q_pos < 0
@@ -27,6 +28,11 @@
 //   stride is (cap + 1) heads hd): no copy.  q once; K and V in 64-key
 //   tiles through a four-stage ring of full/empty mbarriers.  The block
 //   reads keys [0, min(max q_pos of its rows + 1, cap)) only.
+// - Head dims: tiles hold hd in 64-column panels (hopper.cuh); at hd 80
+//   and 96 the second panel's columns past hd are zero (the 4-D map's
+//   width is hd, so TMA fills them), S = Q K^T runs hd/16 k steps, O +=
+//   P V both panels, and the epilogue stores columns below hd.  Whether a
+//   column is padding depends on hd alone, never on the rows.
 // - Products: S = Q K^T by wgmma m64n64k16 (both K-major); an online
 //   softmax in f32 registers (a row lives in the four threads of a quad);
 //   P rounded to bf16 becomes the register A operand of O += P V, V
@@ -60,12 +66,14 @@ using namespace hvdflash::sm90;
 
 template <int D>
 struct AttnSm90 {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 128, "head_dim 64..128");
   static constexpr int BM = 64;       // query rows of a block
   static constexpr int BN = 64;       // keys of a K/V tile
   static constexpr int kStages = 4;   // K/V ring
   static constexpr int kThreads = 160;
+  static constexpr int kPanels = panels<D>;  // 64-column panels of hd
   static constexpr int kPanel = 64 * 128;  // [64 rows, 64 hd] in bytes
-  static constexpr int kTile = (D / 64) * kPanel;  // q, K or V tile
+  static constexpr int kTile = kPanels * kPanel;  // q, K or V tile
   static constexpr int kOffQ = 0;
   static constexpr int kOffK = kOffQ + kTile;
   static constexpr int kOffV = kOffK + kStages * kTile;
@@ -132,14 +140,14 @@ __global__ void __launch_bounds__(AttnSm90<D>::kThreads)
     if (t == 128 && n_kb > 0) {
       mbar_arrive_expect_tx(bar_q, L::kTile);
 #pragma unroll
-      for (int p = 0; p < D / 64; ++p)
+      for (int p = 0; p < L::kPanels; ++p)
         tma_load_4d(sQ + p * L::kPanel, &map_q, bar_q, 64 * p, h, i0, b);
       for (int kb = 0; kb < n_kb; ++kb) {
         const int s = kb % kStages;
         mbar_wait(bar_empty + 8 * s, ((kb / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kTile);
 #pragma unroll
-        for (int p = 0; p < D / 64; ++p) {
+        for (int p = 0; p < L::kPanels; ++p) {
           tma_load_4d(sK + s * L::kTile + p * L::kPanel, &map_k,
                       bar_full + 8 * s, 64 * p, h, kb * L::BN, b);
           tma_load_4d(sV + s * L::kTile + p * L::kPanel, &map_v,
@@ -155,9 +163,9 @@ __global__ void __launch_bounds__(AttnSm90<D>::kThreads)
   const int r0 = 16 * warp + lane / 4;
   const int col_t = 2 * (lane % 4);
   const int pos[2] = {pos_s[r0], pos_s[r0 + 8]};
-  float acc[D / 2];
+  float acc[L::kPanels * 32];  // O [64 x 64 kPanels]
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kPanels * 32; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   if (n_kb > 0) mbar_wait(bar_q, 0);
@@ -171,7 +179,7 @@ __global__ void __launch_bounds__(AttnSm90<D>::kThreads)
     if (k0 + L::BN > n_kv) {
       const int first = n_kv - k0;
       const int chunks = (L::BN - first) * 8;  // 16-byte chunks a panel
-      for (int c = t; c < chunks * (D / 64); c += 128) {
+      for (int c = t; c < chunks * L::kPanels; c += 128) {
         const int p = c / chunks, rc = c % chunks;
         const uint32_t addr = v_s + p * L::kPanel + first * 128 + rc * 16;
         asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
@@ -221,7 +229,7 @@ __global__ void __launch_bounds__(AttnSm90<D>::kThreads)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + row_sum[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < L::kPanels * 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: P (bf16) from registers, V MN-major from shared memory.
     uint32_t pa[16];
@@ -230,7 +238,7 @@ __global__ void __launch_bounds__(AttnSm90<D>::kThreads)
 #pragma unroll
     for (int kk = 0; kk < L::BN / 16; ++kk) {
       wgmma_rs_panel<0>(acc, pa + 4 * kk, desc_sw128(v_s + kk * 2048));
-      if constexpr (D == 128)
+      if constexpr (L::kPanels == 2)
         wgmma_rs_panel<1>(acc, pa + 4 * kk,
                           desc_sw128(v_s + L::kPanel + kk * 2048));
     }

@@ -6,11 +6,13 @@
 // _bwd_dkdv_kernel / _bwd_dq_kernel compute for seq > 4096: a block that
 // loops over tiles has no resident/streaming split.
 //
-// Two forms of each: bf16 at head_dim 64 and 128 runs the Hopper
+// Two forms of each: bf16 at head_dim 64, 80, 96 and 128 runs the Hopper
 // redesigns in flash_bwd_dkdv_sm90.cuh and flash_bwd_dq_sm90.cuh (TMA,
 // wgmma, registers); f32 and bf16 at head_dim 16 and 32 run
 // flash_bwd_dkdv_kernel and flash_bwd_dq_kernel below (DkdvLaunch and
-// DqLaunch choose at compile time).
+// DqLaunch choose at compile time, hopper_form in flash_common.cuh).
+// BwdSmem is largest at f32 head_dim 128 (dK/dV 120,064 B of the 232,448
+// a block may use; 95,488 at 96).
 //
 // Both rebuild the probabilities from the forward's lse instead of
 // storing them, as the TPU kernels do (_bwd_p_ds):
@@ -206,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, R, D>(dq + q_base * D, sDQ, L::LDA, q0, q_len);
 }
 
-// bf16 at head_dim 64 and 128 runs the Hopper redesign
+// bf16 at head_dim 64 to 128 runs the Hopper redesign
 // (flash_bwd_dkdv_sm90.cuh); every other pair runs the kernel above.
 template <typename T, int D>
 struct DkdvLaunch {
@@ -215,7 +217,7 @@ struct DkdvLaunch {
                          void* dk, void* dv, int bh, int q_len, int kv_len,
                          float scale, int causal, int q_offset,
                          cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
+    if constexpr (hopper_form<T, D>) {
       return sm90::DkdvSm90Launch<D>::run(q, k, v, d_o, lse, delta, dk, dv,
                                           bh, q_len, kv_len, scale, causal,
                                           q_offset, stream);
@@ -232,7 +234,7 @@ struct DkdvLaunch {
   }
 };
 
-// bf16 at head_dim 64 and 128 runs the Hopper redesign
+// bf16 at head_dim 64 to 128 runs the Hopper redesign
 // (flash_bwd_dq_sm90.cuh); every other pair runs the kernel above.
 template <typename T, int D>
 struct DqLaunch {
@@ -240,7 +242,7 @@ struct DqLaunch {
                          const void* d_o, const void* lse, const void* delta,
                          void* dq, int bh, int q_len, int kv_len, float scale,
                          int causal, int q_offset, cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
+    if constexpr (hopper_form<T, D>) {
       return sm90::DqSm90Launch<D>::run(q, k, v, d_o, lse, delta, dq, bh,
                                         q_len, kv_len, scale, causal,
                                         q_offset, stream);

@@ -1,4 +1,5 @@
-// flash_bwd_dkdv for bf16 at head_dim 64 and 128, redesigned for Hopper.
+// flash_bwd_dkdv for bf16 at head_dim 64, 80, 96 and 128, redesigned for
+// Hopper.
 //
 // Replaces horovod_tpu/ops/flash_attention.py _bwd_dkdv_kernel_resident
 // (:387) and the streaming _bwd_dkdv_kernel (:466) for the widths users
@@ -17,8 +18,9 @@
 //   1 are consumers, 64 keys each (wgmma's M), at head_dim 64 and 128
 //   alike: a consumer's registers depend on its 64 keys, not on the
 //   block's, and dK + dV + S^T + dP^T take 192 of its 240 registers at
-//   d128.  One warp of warpgroup 2 is the producer; setmaxnreg moves its
-//   registers to the consumers.
+//   d128 (and at d80 and d96, whose tiles are zero-padded to two 64-column
+//   panels, hopper.cuh).  One warp of warpgroup 2 is the producer;
+//   setmaxnreg moves its registers to the consumers.
 // - Loads: K and V once, by TMA.  The producer then streams (Q, dO)
 //   tiles of 64 q rows by TMA, with their lse and delta, through a
 //   two-stage ring with full/empty mbarriers, starting at the causal
@@ -59,11 +61,13 @@ namespace sm90 {
 
 template <int D>
 struct DkdvSm90 {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 128, "head_dim 64..128");
   static constexpr int BN = 128;      // keys of a block, 64 a consumer
   static constexpr int BM = 64;       // q rows of a Q/dO tile
   static constexpr int kStages = 2;   // Q/dO ring
-  static constexpr int kKV = BN * D * 2;  // bytes of the K or V tile
-  static constexpr int kQ = BM * D * 2;   // bytes of one Q or dO tile
+  static constexpr int DP = padded<D>;     // D in whole 64-column panels
+  static constexpr int kKV = BN * DP * 2;  // bytes of the K or V tile
+  static constexpr int kQ = BM * DP * 2;   // bytes of one Q or dO tile
   // Offsets from the 1024-aligned base; tiles are multiples of 1024.
   static constexpr int kOffK = 0;
   static constexpr int kOffV = kOffK + kKV;
@@ -161,9 +165,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const float scale_log2 = scale * kLog2e;
     const uint32_t k_wg = sK + 64 * wg * 128, v_wg = sV + 64 * wg * 128;
 
-    float acc_dk[D / 2], acc_dv[D / 2];
+    float acc_dk[L::DP / 2], acc_dv[L::DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    for (int i = 0; i < L::DP / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
     mbar_wait(bar_kv, 0);
     for (int qb = lo; qb < n_qb; ++qb) {
@@ -223,14 +227,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < L::BM / 16; ++kk) {
         wgmma_rs_panel<0>(acc_dv, pa + 4 * kk, desc_sw128(do_s + kk * 2048));
-        if constexpr (D == 128)
+        if constexpr (panels<D> == 2)
           wgmma_rs_panel<1>(acc_dv, pa + 4 * kk,
                             desc_sw128(do_s + L::BM * 128 + kk * 2048));
       }
 #pragma unroll
       for (int kk = 0; kk < L::BM / 16; ++kk) {
         wgmma_rs_panel<0>(acc_dk, dsa + 4 * kk, desc_sw128(q_s + kk * 2048));
-        if constexpr (D == 128)
+        if constexpr (panels<D> == 2)
           wgmma_rs_panel<1>(acc_dk, dsa + 4 * kk,
                             desc_sw128(q_s + L::BM * 128 + kk * 2048));
       }

@@ -1,4 +1,5 @@
-// flash_bwd_dq for bf16 at head_dim 64 and 128, redesigned for Hopper.
+// flash_bwd_dq for bf16 at head_dim 64, 80, 96 and 128, redesigned for
+// Hopper.
 //
 // Replaces horovod_tpu/ops/flash_attention.py _bwd_dq_kernel_resident
 // (:431) and the streaming _bwd_dq_kernel (:518) for the widths users
@@ -19,8 +20,9 @@
 // - Block: 384 threads, one 128-row q tile of one slice.  Warpgroups 0
 //   and 1 are consumers, 64 q rows each (wgmma's M); one warp of
 //   warpgroup 2 is the producer; setmaxnreg moves its registers to the
-//   consumers.  A consumer holds S (32) + dP (32) + dQ (D/2) + dS as bf16
-//   (16) registers: 112 at d64, 144 at d128.
+//   consumers.  A consumer holds S (32) + dP (32) + dQ (DP/2) + dS as bf16
+//   (16) registers: 112 at d64, 144 at d80, d96 and d128 (DP is D padded
+//   to whole 64-column panels, hopper.cuh).
 // - Loads: Q and dO once, by TMA.  The producer then streams 64-key K and
 //   V tiles through a two-stage ring with full/empty mbarriers, up to the
 //   causal bound hi = min(n_kb, cdiv(q0 + 128 + q_offset, 64)) (:456-461).
@@ -62,11 +64,13 @@ namespace sm90 {
 
 template <int D>
 struct DqSm90 {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 128, "head_dim 64..128");
   static constexpr int BM = 128;      // q rows of a block, 64 a consumer
   static constexpr int BN = 64;       // keys of a K/V tile
   static constexpr int kStages = 2;   // K/V ring
-  static constexpr int kQ = BM * D * 2;   // bytes of the Q or dO tile
-  static constexpr int kKV = BN * D * 2;  // bytes of one K or V tile
+  static constexpr int DP = padded<D>;     // D in whole 64-column panels
+  static constexpr int kQ = BM * DP * 2;   // bytes of the Q or dO tile
+  static constexpr int kKV = BN * DP * 2;  // bytes of one K or V tile
   // Offsets from the 1024-aligned base; each is a multiple of 1024.
   static constexpr int kOffQ = 0;
   static constexpr int kOffDO = kOffQ + kQ;
@@ -160,9 +164,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       dlt[r] = in ? delta[(size_t)bh * q_len + row] : 0.f;
     }
 
-    float acc[D / 2];  // dQ [64 x D]: D/8 column chunks of 4
+    float acc[L::DP / 2];  // dQ [64 x DP]: DP/8 column chunks of 4
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(bar_q, 0);
     int kb = 0;
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < L::BN / 16; ++kk) {
         wgmma_rs_panel<0>(acc, dsa + 4 * kk, desc_sw128(k_s + kk * 2048));
-        if constexpr (D == 128)
+        if constexpr (panels<D> == 2)
           wgmma_rs_panel<1>(acc, dsa + 4 * kk,
                             desc_sw128(k_s + L::BN * 128 + kk * 2048));
       }

@@ -5,10 +5,11 @@
 // Layout everywhere: one (batch*head) slice of q/k/v/o is a contiguous
 // [seq, head_dim] row-major matrix; lse/delta are [batch*head, seq] f32.
 //
-// Two forms of kernel.  bf16 at head_dim 64 and 128 (the widths users
-// train at) runs the Hopper redesign of the forward, dK/dV and dQ
-// (flash_fwd_sm90.cuh, flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh:
-// TMA, wgmma, register accumulators).  Every other pair runs the first
+// Two forms of kernel.  bf16 at head_dim 64, 80, 96 and 128 (the widths
+// users train at: GPT-2's 64, GPT-3 2.7B's 80, GPT-3 Large's 96) runs the
+// Hopper redesign of the forward, dK/dV and dQ (flash_fwd_sm90.cuh,
+// flash_bwd_dkdv_sm90.cuh, flash_bwd_dq_sm90.cuh: TMA, wgmma, register
+// accumulators; hopper_form below).  Every other pair runs the first
 // form below: one thread block owns one 64-row tile of its output (32
 // rows for f32) and walks the other side's tiles in a loop, so no two
 // blocks write the same output (no atomics, results deterministic).
@@ -187,6 +188,11 @@ __device__ __forceinline__ void gemm(float* C, int ldc, const float* A,
   }
 }
 
+// The pairs that run the Hopper redesign (the *_sm90.cuh kernels, which
+// hold head_dim in 64-column panels, a partial second panel zero-padded).
+template <typename T, int D>
+constexpr bool hopper_form = std::is_same_v<T, __nv_bfloat16> && D >= 64;
+
 // dtype codes shared with horovod_tpu_torch/ops/flash_attention.py.
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -202,11 +208,15 @@ cudaError_t dispatch(int dtype, int head_dim, Args... args) {
     HVD_FLASH_CASE(__nv_bfloat16, 16)
     HVD_FLASH_CASE(__nv_bfloat16, 32)
     HVD_FLASH_CASE(__nv_bfloat16, 64)
+    HVD_FLASH_CASE(__nv_bfloat16, 80)
+    HVD_FLASH_CASE(__nv_bfloat16, 96)
     HVD_FLASH_CASE(__nv_bfloat16, 128)
   } else if (dtype == kF32) {
     HVD_FLASH_CASE(float, 16)
     HVD_FLASH_CASE(float, 32)
     HVD_FLASH_CASE(float, 64)
+    HVD_FLASH_CASE(float, 80)
+    HVD_FLASH_CASE(float, 96)
     HVD_FLASH_CASE(float, 128)
   }
 #undef HVD_FLASH_CASE

@@ -4,9 +4,11 @@
 // computes what the streaming _fwd_kernel computes for kv > 4096: a
 // block that loops over K/V tiles has no resident/streaming split).
 //
-// Two forms: bf16 at head_dim 64 and 128 runs the Hopper redesign in
-// flash_fwd_sm90.cuh (TMA, wgmma, registers); f32 and bf16 at head_dim
-// 16 and 32 run the first form below (FwdLaunch chooses at compile time).
+// Two forms: bf16 at head_dim 64, 80, 96 and 128 runs the Hopper redesign
+// in flash_fwd_sm90.cuh (TMA, wgmma, registers); f32 and bf16 at head_dim
+// 16 and 32 run the first form below (FwdLaunch chooses at compile time,
+// hopper_form in flash_common.cuh).  The first form's shared memory is
+// largest at f32 head_dim 128 (FwdSmem: 77,056 B; 60,672 at 96).
 //
 // One thread block per (batch*head, 64-row q tile).  It holds its q tile
 // in shared memory, loops over 64-key K/V tiles up to the causal bound
@@ -142,14 +144,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16 at head_dim 64 and 128 runs the Hopper redesign
+// bf16 at head_dim 64 to 128 runs the Hopper redesign
 // (flash_fwd_sm90.cuh); every other pair runs the kernel above.
 template <typename T, int D>
 struct FwdLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int q_len, int kv_len, float scale,
                          int causal, int q_offset, cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
+    if constexpr (hopper_form<T, D>) {
       return sm90::FwdSm90Launch<D>::run(q, k, v, o, lse, bh, q_len, kv_len,
                                          scale, causal, q_offset, stream);
     } else {

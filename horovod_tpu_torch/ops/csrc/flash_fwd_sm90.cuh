@@ -1,4 +1,4 @@
-// flash_fwd for bf16 at head_dim 64 and 128, redesigned for Hopper.
+// flash_fwd for bf16 at head_dim 64, 80, 96 and 128, redesigned for Hopper.
 //
 // Replaces horovod_tpu/ops/flash_attention.py _fwd_kernel_resident (:133)
 // and the streaming _fwd_kernel (:189) for the widths users train at;
@@ -14,7 +14,10 @@
 // - Block: 384 threads, one 128-row q tile of one (batch*head) slice.
 //   Warpgroups 0 and 1 are consumers, 64 q rows each (wgmma's M); one
 //   warp of warpgroup 2 is the producer.  setmaxnreg moves registers from
-//   the producer (24) to the consumers (240).
+//   the producer (24) to the consumers (240).  Tiles hold D in 64-column
+//   panels (hopper.cuh): at D 80 and 96 the second panel is zero-padded,
+//   so S = Q K^T runs D/16 k steps and O += P V two n64 panels, and the
+//   registers and shared memory are those of D 128.
 // - Loads: the producer issues TMA loads of the q tile (once) and of
 //   128-key K and V tiles into a two-stage ring with full/empty
 //   mbarriers, so the next tile's load overlaps this tile's products.
@@ -64,11 +67,13 @@ namespace sm90 {
 
 template <int D>
 struct FwdSm90 {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 128, "head_dim 64..128");
   static constexpr int BM = 128;      // q rows of a block, 64 a consumer
   static constexpr int BN = 128;      // keys of a K/V tile
   static constexpr int kStages = 2;   // K/V ring
-  static constexpr int kQ = BM * D * 2;   // bytes of the q tile
-  static constexpr int kKV = BN * D * 2;  // bytes of one K or V tile
+  static constexpr int DP = padded<D>;     // D in whole 64-column panels
+  static constexpr int kQ = BM * DP * 2;   // bytes of the q tile
+  static constexpr int kKV = BN * DP * 2;  // bytes of one K or V tile
   // Offsets from the 1024-aligned base; each is a multiple of 1024.
   static constexpr int kOffQ = 0;
   static constexpr int kOffK = kOffQ + kQ;
@@ -139,9 +144,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const float scale_log2 = scale * kLog2e;
     const uint32_t q_wg = sQ + 64 * wg * 128;
 
-    float acc[D / 2];  // O [64 x D]: D/8 column chunks of 4
+    float acc[L::DP / 2];  // O [64 x DP]: DP/8 column chunks of 4
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     mbar_wait(bar_q, 0);
@@ -194,7 +199,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + row_sum[r];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < L::DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // O += P V: P (bf16) from registers, V MN-major from shared memory.
       uint32_t pa[32];
@@ -203,7 +208,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < L::BN / 16; ++kk) {
         wgmma_rs_panel<0>(acc, pa + 4 * kk, desc_sw128(v_s + kk * 2048));
-        if constexpr (D == 128)
+        if constexpr (panels<D> == 2)
           wgmma_rs_panel<1>(acc, pa + 4 * kk,
                             desc_sw128(v_s + L::BN * 128 + kk * 2048));
       }

@@ -5,12 +5,18 @@
 // cluster barriers, and the host-side tensor maps.  Inline PTX only, so a
 // build takes seconds.
 //
-// Shared-memory tiles.  A [rows, D] bf16 tile is stored as D/64 panels of
-// [rows, 64]: each panel row is 128 bytes, written by TMA with the
-// 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B), which is the layout the
-// wgmma descriptors below describe (layout type 1).  Every panel starts
-// on a 1024-byte boundary (one swizzle atom = 8 rows x 128 bytes), so the
-// descriptors' base offset is 0.
+// Shared-memory tiles.  A [rows, D] bf16 tile is stored as panels<D> =
+// ceil(D/64) panels of [rows, 64]: each panel row is 128 bytes, written by
+// TMA with the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B), which is the
+// layout the wgmma descriptors below describe (layout type 1).  Every
+// panel starts on a 1024-byte boundary (one swizzle atom = 8 rows x 128
+// bytes), so the descriptors' base offset is 0.  At D 80 and 96 the
+// second panel is partial: the tensor map's width is D, so TMA zero-fills
+// its columns D..127 (and still counts them towards the barrier's bytes).
+// Products that sum over D stop at D/16 k steps; products whose N is D
+// run over the whole padded panel and the epilogues store columns below D
+// only, so the zeros cost tensor-core work (1.33x at D 96, 1.6x at 80 in
+// those products) but never reach a result.
 //
 // wgmma fragments (m64nNk16, f32 accumulator, per warpgroup of 128
 // threads): thread t = 32 w + l holds, for each 8-column chunk j of N,
@@ -104,13 +110,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// All D/64 panels of rows [row, row + box_rows) of slice bh.
+// 64-column panels of a [rows, D] tile, and D padded to whole panels.
+template <int D>
+constexpr int panels = (D + 63) / 64;
+template <int D>
+constexpr int padded = 64 * panels<D>;
+
+// All panels<D> panels of rows [row, row + box_rows) of slice bh.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, int panel_bytes,
                                               const CUtensorMap* map,
                                               uint32_t bar, int row, int bh) {
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p)
+  for (int p = 0; p < panels<D>; ++p)
     tma_load_3d(dst + p * panel_bytes, map, bar, 64 * p, row, bh);
 }
 
@@ -370,8 +382,9 @@ inline EncodeTiledFn encode_fn() {
 }
 
 // Map of a contiguous bf16 [bh, seq, d] tensor with [box_rows, 64] boxes,
-// 128-byte swizzle and zero fill past seq.  The third dimension keeps a
-// ragged tile from reading the next slice's rows.
+// 128-byte swizzle and zero fill past seq and past d (the padded columns
+// of a partial panel).  The third dimension keeps a ragged tile from
+// reading the next slice's rows.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
                             int seq, int d, int box_rows) {
   EncodeTiledFn encode = encode_fn();
@@ -411,7 +424,7 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows,
 
 // A 4-D bf16 map over a [b, rows, heads, hd] view with element strides
 // (sb, sr, sh) and unit stride over hd: [64 rows, 64 hd] boxes of one
-// (batch, head), 128-byte swizzle, zero fill past rows.
+// (batch, head), 128-byte swizzle, zero fill past rows and past hd.
 // cache_attention's q, K and V views.
 inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, int B,
                                int rows, int H, int hd, long long sb,

@@ -317,7 +317,7 @@ extern "C" int hvd_serving_gemm_sm90(const void* x, long long ldx,
 // cache_attention: bf16 q [B, S, H, hd], k and v [B, cap, H, hd] with
 // element strides (q_sb, q_ss, q_sh), (k_sb, k_sc, k_sh), (v_sb, v_sc,
 // v_sh) and unit stride over hd; q_pos [B, S] int64 (as the model makes
-// them); out [B, S, H, hd] contiguous bf16; hd 64 or 128.
+// them); out [B, S, H, hd] contiguous bf16; hd 64, 80, 96 or 128.
 extern "C" int hvd_cache_attention_sm90(
     const void* q, long long q_sb, long long q_ss, long long q_sh,
     const void* k, long long k_sb, long long k_sc, long long k_sh,
@@ -332,6 +332,12 @@ extern "C" int hvd_cache_attention_sm90(
   const auto* pos = static_cast<const long long*>(q_pos);
   if (hd == 64)
     return hvdserve::sm90::launch_attention<64>(q, qs, k, ks, v, vs, pos, out,
+                                                B, S, H, cap, scale, s);
+  if (hd == 80)
+    return hvdserve::sm90::launch_attention<80>(q, qs, k, ks, v, vs, pos, out,
+                                                B, S, H, cap, scale, s);
+  if (hd == 96)
+    return hvdserve::sm90::launch_attention<96>(q, qs, k, ks, v, vs, pos, out,
                                                 B, S, H, cap, scale, s);
   if (hd == 128)
     return hvdserve::sm90::launch_attention<128>(q, qs, k, ks, v, vs, pos,

@@ -3,8 +3,8 @@
 Port of :mod:`horovod_tpu.ops.flash_attention`.  The three Pallas TPU
 kernels on the training path become three CUDA C++ kernels for
 ``sm_90a`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built by
-:mod:`._build` at first use.  For bf16 at head_dim 64 and 128 all three
-run their Hopper redesign (TMA, ``wgmma``, accumulators in registers:
+:mod:`._build` at first use.  For bf16 at head_dim 64, 80, 96 and 128 all
+three run their Hopper redesign (TMA, ``wgmma``, accumulators in registers:
 ``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_dkdv_sm90.cuh``,
 ``csrc/flash_bwd_dq_sm90.cuh``); f32 and the other head dims run the
 first, WMMA/FMA form.  The choice is made from (dtype, head_dim) inside
@@ -20,7 +20,8 @@ The TPU kernels each replaces:
 Each wrapper takes its plain PyTorch version for tensors on the CPU (the
 tests), and launches its kernel for tensors on a CUDA device, or raises:
 a CUDA tensor never takes the plain path.  Each launch adds one to
-``launches[<kernel>]``.
+``launches[<kernel>]`` and to ``launches_by_form[(<kernel>, <form>,
+<head_dim>)]``, the form being :func:`kernel_form`'s.
 
 Layout: ``q, k, v : [batch, heads, seq, head_dim]``, the same ``(o, lse)``
 contract as the reference: ``lse`` is f32 ``[batch, heads, q_len]``, and
@@ -41,19 +42,30 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 launches = {name: 0 for name in KERNELS}
+# (kernel, form, head_dim) -> launches, for the pairs launched since the
+# last reset_launches().
+launches_by_form: dict = {}
 # Threads may launch at once (the autograd engine's, a serve loop's): a
 # count's read-modify-write holds this leaf lock, so no launch is lost.
 _counts_lock = threading.Lock()
 
 # dtype codes of csrc/flash_common.cuh, and the head dims it is built for.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 
 def reset_launches() -> None:
     with _counts_lock:
         for name in KERNELS:
             launches[name] = 0
+        launches_by_form.clear()
+
+
+def kernel_form(dtype: torch.dtype, head_dim: int) -> str:
+    """The form the library runs for (dtype, head_dim), as ``hopper_form``
+    in csrc/flash_common.cuh chooses it: "sm90" for bf16 at head_dim 64
+    and above, "first" otherwise."""
+    return "sm90" if dtype == torch.bfloat16 and head_dim >= 64 else "first"
 
 
 # ---------------------------------------------------------------------------
@@ -179,11 +191,13 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check(name: str, err: int) -> None:
+def _check(name: str, q, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    key = (name, kernel_form(q.dtype, q.shape[-1]), q.shape[-1])
     with _counts_lock:
         launches[name] += 1
+        launches_by_form[key] = launches_by_form.get(key, 0) + 1
 
 
 def flash_fwd(q, k, v, sm_scale: float, causal: bool, q_block_offset: int):
@@ -199,7 +213,7 @@ def flash_fwd(q, k, v, sm_scale: float, causal: bool, q_block_offset: int):
         lse.data_ptr(), bh, q_len, k.shape[1], head_dim,
         _DTYPE_CODES[q.dtype], float(sm_scale), int(causal),
         int(q_block_offset), _stream(q))
-    _check("flash_fwd", err)
+    _check("flash_fwd", q, err)
     return o, lse
 
 
@@ -229,7 +243,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, sm_scale: float, causal: bool,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         q_len, k.shape[1], head_dim, _DTYPE_CODES[q.dtype], float(sm_scale),
         int(causal), int(q_block_offset), _stream(q))
-    _check("flash_bwd_dkdv", err)
+    _check("flash_bwd_dkdv", q, err)
     return dk, dv
 
 
@@ -250,7 +264,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale: float, causal: bool,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, q_len,
         k.shape[1], head_dim, _DTYPE_CODES[q.dtype], float(sm_scale),
         int(causal), int(q_block_offset), _stream(q))
-    _check("flash_bwd_dq", err)
+    _check("flash_bwd_dq", q, err)
     return dq
 
 
@@ -321,7 +335,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
       causal: lower-triangular mask; K tiles past the diagonal are skipped.
       sm_scale: softmax temperature; default ``1/sqrt(head_dim)``.
       block_q, block_k: kept for the reference's signature.  The kernels
-        choose their own tiles (for bf16 at head_dim 64/128, 128 q rows
+        choose their own tiles (for bf16 at head_dim 64-128, 128 q rows
         or keys a block, streaming 128-key tiles in the forward, 64-row
         Q/dO tiles in dK/dV and 64-key K/V tiles in dQ; 64 rows for other
         bf16, 32 in f32), and the plain version has none.

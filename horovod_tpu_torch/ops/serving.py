@@ -144,7 +144,7 @@ GEMM_SPLIT_BLOCKS = 48
 GEMM_SPLIT_MIN_K_TILES = 8
 # K ranges at most: the blocks of a cluster (the portable cluster size).
 GEMM_SPLIT_MAX = 8
-ATTENTION_HEAD_DIMS = (64, 128)
+ATTENTION_HEAD_DIMS = (64, 80, 96, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,7 +168,8 @@ def serving_gemm_form(dtype: torch.dtype, K: int, N: int):
 @functools.lru_cache(maxsize=None)
 def cache_attention_form(dtype: torch.dtype, head_dim: int) -> str:
     """The form of ``cache_attention`` for ``dtype`` at ``head_dim``: the
-    Hopper form for bf16 at head_dim 64 or 128, the first form otherwise.
+    Hopper form for bf16 at head_dim 64, 80, 96 or 128, the first form
+    otherwise.
     The batch, the number of query rows and the capacity are not
     arguments."""
     if dtype == torch.bfloat16 and head_dim in ATTENTION_HEAD_DIMS:
@@ -401,8 +402,8 @@ def cache_attention(q: torch.Tensor, k_view: torch.Tensor,
 def _sm90_attention(q: torch.Tensor, k_view: torch.Tensor,
                     v_view: torch.Tensor,
                     q_pos: torch.Tensor) -> torch.Tensor:
-    """The Hopper form on CUDA tensors: bf16 at head_dim 64 or 128, the
-    views read through their own strides."""
+    """The Hopper form on CUDA tensors: bf16 at head_dim 64, 80, 96 or
+    128, the views read through their own strides."""
     b, s, h, hd = q.shape
     # int64 positions as forward_step makes them: no cast launch.
     pos = q_pos.to(torch.int64).contiguous()

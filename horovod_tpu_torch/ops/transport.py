@@ -675,11 +675,14 @@ def _recv_exact(sock: socket.socket, n: int, idle_ok: bool = False,
                                   len(buf), n) from None
         if not chunk:
             if buf:
-                _flight.record("truncated_frame", peer or "?",
-                               what or "frame", len(buf), n)
+                # The warning goes out before the flight record, so that
+                # whoever sees the record also finds the warning written
+                # (the other order lost it to a reader between the two).
                 print(f"WARNING: truncated control frame from "
                       f"{peer or '?'} ({what or 'frame'}: {len(buf)}/"
                       f"{n} bytes before EOF)", file=sys.stderr)
+                _flight.record("truncated_frame", peer or "?",
+                               what or "frame", len(buf), n)
             return None
         buf += chunk
     return buf

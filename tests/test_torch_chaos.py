@@ -13,6 +13,7 @@ TCP control channel's scenarios.
 import glob
 import json
 import random
+import re
 import socket
 import time
 
@@ -458,8 +459,15 @@ def test_matrix_tcp_scenarios(monkeypatch):
     resumes bitwise."""
     from concurrent.futures import ThreadPoolExecutor
 
-    monkeypatch.setenv("HVD_TPU_CHAOS_CP_STEPS", "16")
     names = ("transport_reset_worker", "grace_expiry", "tree_leaf_reset")
+    # A reset fires at the frame after a rank's first `after` frames.  A
+    # rank sends at least one frame a step (the batch that carries the
+    # step's requests), however many a loaded or idle host packs in, so
+    # it fires by step `after` at the latest; the fleets run eight steps
+    # past that.
+    after = max(int(n) for name in names
+                for n in re.findall(r"after=(\d+)", matrix.find(name).spec))
+    monkeypatch.setenv("HVD_TPU_CHAOS_CP_STEPS", str(after + 1 + 8))
     with ThreadPoolExecutor(max_workers=3) as pool:
         reports = list(pool.map(
             lambda n: matrix.run_scenario(matrix.find(n), device="cpu"),

@@ -131,9 +131,13 @@ def test_one_rank_collectives_and_validation(port_cpu):
         thvd.allgather(torch.tensor(1.0))
     with pytest.raises(ValueError, match="Unsupported dtype"):
         thvd.allreduce(torch.ones(2, dtype=torch.complex64))
-    h = thvd.allreduce_async(x, name="dup")
-    with pytest.raises(ValueError, match="already pending"):
-        thvd.allreduce_async(x, name="dup")
+    # quiesce holds the cycle, so the first "dup" is still pending when
+    # the second is submitted (on one rank a cycle runs as soon as work
+    # is posted, and under load it could complete the first in between).
+    with thvd.quiesce():
+        h = thvd.allreduce_async(x, name="dup")
+        with pytest.raises(ValueError, match="already pending"):
+            thvd.allreduce_async(x, name="dup")
     assert torch.equal(thvd.synchronize(h), x)
     with pytest.raises(ValueError, match="already been cleared"):
         thvd.synchronize(h)

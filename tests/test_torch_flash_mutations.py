@@ -48,6 +48,10 @@ def test_mutations_cover_every_kernel_and_the_unmodified_copy():
                        "flash_bwd_dq_sm90.cuh", "serving_gemm_sm90.cuh",
                        "cache_attention_sm90.cuh"}
     assert sources == set(_TOOL.PHASE_OF_SOURCE)
+    # Each flash mutation runs at head_dim 64 and at 96 and 80.
+    for source in sources - {"serving_gemm_sm90.cuh",
+                             "cache_attention_sm90.cuh"}:
+        assert _TOOL.PHASE_OF_SOURCE[source] == ("kernels", "gpt3_large")
     for kernel in ("fwd", "dkdv", "dq"):
         kinds = [n for n in MUTATIONS if n.startswith(kernel + "_")]
         assert any("5pct_low" in n for n in kinds), kernel
@@ -59,7 +63,8 @@ def test_serving_mutations_break_each_rule_of_the_hopper_forms():
     source and the masked tail's zeroing: each run by the serving
     phase."""
     serving = {n for n, m in MUTATIONS.items()
-               if m is not None and _TOOL.PHASE_OF_SOURCE[m[0]] == "serving"}
+               if m is not None
+               and _TOOL.PHASE_OF_SOURCE[m[0]] == ("serving",)}
     assert serving == {"gemm_last_k_tile_dropped",
                        "gemm_split_sum_order_by_rows",
                        "attention_last_key_tile_skipped",

@@ -247,7 +247,8 @@ def test_the_routing_functions_take_no_rows_or_batch():
     assert S.serving_gemm_form(torch.bfloat16, 8, 8) == ("sm90", 64, 1)
     assert S.serving_gemm_form(torch.bfloat16, 768, 2056)[1] == 64
     for hd, form in ((16, "first"), (32, "first"), (64, "sm90"),
-                     (128, "sm90"), (256, "first")):
+                     (80, "sm90"), (96, "sm90"), (128, "sm90"),
+                     (256, "first")):
         assert S.cache_attention_form(torch.bfloat16, hd) == form
         assert S.cache_attention_form(torch.float32, hd) == "first"
 

@@ -6,10 +6,12 @@
 For each mutation below (or the ones named), copies chip_smoke.py and
 horovod_tpu_torch/ into a fresh directory under --work-dir (default: a
 new temporary directory), applies one textual change to a CUDA source
-there, and runs chip_smoke.py on the copy: `--phases kernels` for the
-flash kernels, `--phases serving` for the serving kernels.  Every
+there, and runs chip_smoke.py on the copy: `--phases kernels` (head_dim
+64) and `--phases gpt3_large` (96 and 80; the phase's kernel cases come
+first) for the flash kernels, `--phases serving` for the serving
+kernels.  Every
 mutated copy must build and then fail a check (an AssertionError), and
-the unmodified copy must pass both phases; the script exits non-zero
+the unmodified copy must pass every phase; the script exits non-zero
 otherwise.  Each flash mutation leaves the early, large rows of a causal
 output right and breaks only the later, smaller ones, which a tolerance
 scaled by the largest output element can miss.  Each serving mutation
@@ -109,13 +111,15 @@ MUTATIONS = {
         "if (false && k0 + L::BN > n_kv) {"),
 }
 
-# The chip_smoke.py phase that runs each source's kernel.
+# The chip_smoke.py phases that run each source's kernel: the flash
+# kernels at head_dim 64, then at 96 and 80.
+FLASH_PHASES = ("kernels", "gpt3_large")
 PHASE_OF_SOURCE = {
-    "flash_fwd_sm90.cuh": "kernels",
-    "flash_bwd_dkdv_sm90.cuh": "kernels",
-    "flash_bwd_dq_sm90.cuh": "kernels",
-    "serving_gemm_sm90.cuh": "serving",
-    "cache_attention_sm90.cuh": "serving",
+    "flash_fwd_sm90.cuh": FLASH_PHASES,
+    "flash_bwd_dkdv_sm90.cuh": FLASH_PHASES,
+    "flash_bwd_dq_sm90.cuh": FLASH_PHASES,
+    "serving_gemm_sm90.cuh": ("serving",),
+    "cache_attention_sm90.cuh": ("serving",),
 }
 
 
@@ -168,10 +172,10 @@ def main() -> int:
             dst = os.path.join(work, name)
             os.makedirs(dst, exist_ok=True)
             make_copy(dst, mutation)
-            phases = (sorted({PHASE_OF_SOURCE[MUTATIONS[n][0]]
-                              for n in names if MUTATIONS[n] is not None})
+            phases = (sorted({p for n in names if MUTATIONS[n] is not None
+                              for p in PHASE_OF_SOURCE[MUTATIONS[n][0]]})
                       if mutation is None else
-                      [PHASE_OF_SOURCE[mutation[0]]])
+                      PHASE_OF_SOURCE[mutation[0]])
             for phase in phases:
                 proc = run_copy(dst, phase)
                 lines = (proc.stderr.strip()
